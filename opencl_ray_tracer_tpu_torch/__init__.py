@@ -1,0 +1,63 @@
+"""opencl_ray_tracer_tpu_torch — the ray tracer on PyTorch and CUDA.
+
+A port of `opencl_ray_tracer_tpu` (JAX/Pallas) that mirrors its module
+paths. Plain tensor code is PyTorch; the tiled hard forward kernel is CUDA
+C++ written for Hopper (kernels/csrc/fwd_tiled.cu), built with nvcc on first
+use. Every constructor takes an explicit `device=`; a frame runs on the
+device its scene lies on (the CUDA kernel on a card, its plain PyTorch twin
+on the CPU). This package imports neither jax nor the JAX package.
+
+  scene/     scene model (spheres SoA, cubes, lights) + built-in scene library
+  camera     affine ray-bundle cameras (legacy ortho + pinhole)
+  ops/       vectorised intersection + shading math (torch)
+  ref/       brute-force oracle tracer (reference semantics)
+  kernels/   binning + coefficient prep (torch) and the CUDA tiled kernel
+  models/    renderer facade (render, Renderer, get_renderer, MSAA)
+  runtime/   backend discovery & dispatch (torch.cuda)
+  utils/     logging, RNG, image/PNG IO (stdlib zlib)
+"""
+
+__version__ = "0.1.0"
+
+from opencl_ray_tracer_tpu_torch.config import RenderConfig, Settings
+from opencl_ray_tracer_tpu_torch.camera import (
+    Camera,
+    legacy_ortho_camera,
+    pinhole_camera,
+)
+from opencl_ray_tracer_tpu_torch.scene import (
+    Cube,
+    Lights,
+    Scene,
+    create_scene,
+    create_scene1,
+    create_scene2,
+    create_scene3,
+    random_scene,
+    scene_from_arrays,
+    scene_to_arrays,
+)
+from opencl_ray_tracer_tpu_torch.models import Renderer, get_renderer, render
+from opencl_ray_tracer_tpu_torch.runtime import Backend
+
+__all__ = [
+    "RenderConfig",
+    "Settings",
+    "Camera",
+    "legacy_ortho_camera",
+    "pinhole_camera",
+    "Scene",
+    "Cube",
+    "Lights",
+    "create_scene",
+    "create_scene1",
+    "create_scene2",
+    "create_scene3",
+    "random_scene",
+    "scene_from_arrays",
+    "scene_to_arrays",
+    "Renderer",
+    "get_renderer",
+    "render",
+    "Backend",
+]

@@ -1,0 +1,89 @@
+"""Build and load the CUDA kernels: nvcc into a shared library, ctypes to call.
+
+The library is compiled on first use from the sources in `csrc/` into
+`kernels/build/` (listed in .gitignore), named by a hash of the sources and
+the nvcc flags, so an edited source or flag builds anew and an unchanged one
+loads the existing file. The C entry points take plain pointers, ints and
+the CUDA stream, so no PyTorch header is compiled.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+SRC_DIR = os.path.join(_DIR, "csrc")
+BUILD_DIR = os.path.join(_DIR, "build")
+SOURCES = ("fwd_tiled.cu",)
+
+# No --use_fast_math; -fmad=false keeps every product/sum rounded once, as in
+# the float32 plain twin (see the note at the top of csrc/fwd_tiled.cu).
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
+)
+
+_LIB = None
+BUILD_LOG = ""       # nvcc/ptxas output of the build this process ran
+BUILD_SECONDS = None  # wall time of that build (None: loaded a prior build)
+
+
+def find_nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+        shutil.which("nvcc") or "",
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        with open(os.path.join(SRC_DIR, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"liboctrt_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the library unless a build of these sources exists."""
+    global BUILD_LOG, BUILD_SECONDS
+    path = library_path()
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *(os.path.join(SRC_DIR, s) for s in SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, path)
+    BUILD_SECONDS = time.perf_counter() - t0
+    BUILD_LOG = proc.stdout + proc.stderr
+    return path
+
+
+def load_library() -> ctypes.CDLL:
+    """Build if needed, load once per process, declare the C signatures."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(build())
+        ptr, i = ctypes.c_void_p, ctypes.c_int
+        lib.octrt_fwd_tiled.restype = i
+        lib.octrt_fwd_tiled.argtypes = [ptr] * 9 + [i] * 13 + [ptr]
+        lib.octrt_cuda_error_string.restype = ctypes.c_char_p
+        lib.octrt_cuda_error_string.argtypes = [i]
+        _LIB = lib
+    return _LIB

@@ -1,0 +1,109 @@
+"""Guards that run everywhere: the port imports no JAX, a CUDA-device call
+without a card raises instead of quietly running on the CPU, the kernel
+wrapper only runs its plain twin for CPU tensors, and chip_smoke.py refuses
+to pass without a card or without the repository beside it."""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from opencl_ray_tracer_tpu_torch.kernels import fwd_tiled
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+IMPORT_ALL = """
+import importlib, pkgutil, sys
+import opencl_ray_tracer_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "opencl_ray_tracer_tpu"))
+assert not bad, bad
+print(len(names))
+"""
+
+CUDA_CALLS = """
+import torch
+import opencl_ray_tracer_tpu_torch as T
+assert not torch.cuda.is_available()
+calls = (
+    lambda: T.create_scene1(device="cuda"),
+    lambda: T.legacy_ortho_camera(device="cuda"),
+    lambda: T.Lights.default("cuda"),
+)
+for call in calls:
+    try:
+        call()
+    except (RuntimeError, AssertionError):
+        continue
+    raise SystemExit("a cuda-device call returned without a card")
+print("raised")
+"""
+
+
+def _run(code_or_args, cwd=REPO, **env):
+    args = ([sys.executable, "-c", code_or_args]
+            if isinstance(code_or_args, str) else code_or_args)
+    return subprocess.run(
+        args, cwd=cwd, env={**os.environ, **env}, capture_output=True,
+        text=True, timeout=300,
+    )
+
+
+def test_port_imports_no_jax():
+    proc = _run(IMPORT_ALL)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 18  # every ported module
+
+
+def test_cuda_device_without_card_raises():
+    proc = _run(CUDA_CALLS, CUDA_VISIBLE_DEVICES="")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().endswith("raised")
+
+
+def test_kernel_wrapper_device_policy():
+    """CPU tensors take the plain twin (no launch counted); any device that
+    is neither CPU nor CUDA is refused."""
+    from opencl_ray_tracer_tpu_torch import (
+        RenderConfig,
+        create_scene1,
+        legacy_ortho_camera,
+    )
+
+    cpu = torch.device("cpu")
+    cfg = RenderConfig(width=128, height=64, shading="phong", shadows=True,
+                       framebuffer_dtype="packed")
+    packed = create_scene1(device=cpu).pack()
+    bins = fwd_tiled.bin_for_config(packed, legacy_ortho_camera(device=cpu), cfg)
+    args, kw = fwd_tiled.kernel_inputs(
+        packed, legacy_ortho_camera(device=cpu), bins, height=64, width=128,
+        shading="phong", shadows=True, out_format="packed")
+    before = fwd_tiled.KERNEL_LAUNCHES
+    out = fwd_tiled.tiled_kernel(*args, **kw)
+    assert out.shape == (64, 128) and out.dtype == torch.int32
+    assert fwd_tiled.KERNEL_LAUNCHES == before
+    meta = [a.to("meta") for a in args]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fwd_tiled.tiled_kernel(*meta, **kw)
+
+
+def test_chip_smoke_fails_without_card():
+    proc = _run([sys.executable, "chip_smoke.py"], CUDA_VISIBLE_DEVICES="")
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    proc = _run([sys.executable, "chip_smoke.py"], cwd=str(tmp_path),
+                PYTHONPATH="")
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
