@@ -3,10 +3,12 @@
 Subcommands:
 
   render    render a library scene to PNG on the card, on a chosen backend
+  fit       inverse rendering on the card: recover a perturbed library
+            scene's spheres through the soft differentiable renderer
   devices   device capability dump (openCLInit's platform/device listing)
 
-The JAX package's compare, app, bench and fit subcommands are not ported
-yet (ROADMAP A10).
+The JAX package's compare, app and bench subcommands are not ported yet
+(ROADMAP A10).
 
 Usage: python -m opencl_ray_tracer_tpu_torch.cli <subcommand> [options]
 """
@@ -113,6 +115,63 @@ def cmd_render(args) -> int:
     return 0
 
 
+def cmd_fit(args) -> int:
+    """Render the chosen library scene through the chosen camera/shading as
+    the target (with the soft oracle), perturb its sphere parameters and
+    recover them by gradient descent through the soft renderer (the tiled
+    soft kernels for backend pallas), with optional checkpoint/resume."""
+    import numpy as np
+    import torch
+
+    from opencl_ray_tracer_tpu_torch import create_scene
+    from opencl_ray_tracer_tpu_torch.diff import render_soft
+    from opencl_ray_tracer_tpu_torch.models.inverse import (
+        SPHERE_PARAMS,
+        fit_scene,
+        perturb_scene,
+    )
+    from opencl_ray_tracer_tpu_torch.utils import write_png
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is visible: fit runs on the card")
+    device = torch.device("cuda")
+    shading = args.shading if args.shading != "legacy" else "lambert"
+    cfg = _config_from(args).replace(
+        shading=shading, soft=True, framebuffer_dtype="float",
+        tau_depth=1.0, tau_edge=0.5, msaa=0,
+        **({"backend": args.backend} if args.backend else {}),
+    )
+    cam = _camera_from(args, cfg, device)
+    true_scene = create_scene(args.scene, seed=args.seed, device=device)
+    with torch.no_grad():
+        target = render_soft(true_scene, cam, cfg)
+    init = perturb_scene(true_scene, seed=args.seed + 1)
+    t0 = time.perf_counter()
+    fitted, losses = fit_scene(
+        init, target, camera=cam, config=cfg, steps=args.steps,
+        learning_rate=args.lr, trainable=SPHERE_PARAMS,
+        log_every=max(args.steps // 10, 1),
+        checkpoint_dir=args.checkpoint_dir or None,
+        checkpoint_every=args.checkpoint_every,
+    )
+    torch.cuda.synchronize(device)
+    secs = time.perf_counter() - t0
+    true_o = true_scene.sphere_origin.cpu().numpy()
+    err0 = np.abs(init.sphere_origin.cpu().numpy() - true_o).max()
+    err1 = np.abs(fitted.sphere_origin.cpu().numpy() - true_o).max()
+    print(f"scene {args.scene} camera={args.camera} shading={shading} "
+          f"backend={cfg.backend}: max origin error {err0:.2f} -> {err1:.2f}")
+    if losses:
+        print("loss: %.6f -> %.6f" % (losses[0], losses[-1]))
+    print(f"{args.steps} steps in {secs:.2f} s on {torch.cuda.get_device_name(device)} "
+          f"(includes the kernel build on a first run)")
+    if args.out:
+        with torch.no_grad():
+            write_png(args.out, render_soft(fitted, cam, cfg))
+        print(f"wrote {args.out}")
+    return 0
+
+
 def cmd_devices(args) -> int:
     from opencl_ray_tracer_tpu_torch.runtime import describe_devices
 
@@ -132,6 +191,19 @@ def main(argv=None) -> int:
                    help="packed int32 framebuffer (the kernel emits the "
                         "RGBA words directly)")
     p.set_defaults(fn=cmd_render)
+
+    p = sub.add_parser("fit", help="inverse rendering on the card")
+    _add_common(p)
+    # the scene library lives in the reference's 640x480 world box: smaller
+    # windows would crop the scene out of frame and fit an empty target
+    p.set_defaults(width=640, height=480)
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--lr", type=float, default=0.5)
+    p.add_argument("--checkpoint-dir", default="",
+                   help="save/resume TrainState checkpoints here")
+    p.add_argument("--checkpoint-every", type=int, default=50)
+    p.add_argument("--out", default="")
+    p.set_defaults(fn=cmd_fit)
 
     p = sub.add_parser("devices", help="device capability dump")
     p.set_defaults(fn=cmd_devices)

@@ -1,10 +1,12 @@
 """Build and load the CUDA kernels: nvcc into a shared library, ctypes to call.
 
 The library is compiled on first use from the sources in `csrc/` into
-`kernels/build/` (listed in .gitignore), named by a hash of the sources and
-the nvcc flags, so an edited source or flag builds anew and an unchanged one
-loads the existing file. The C entry points take plain pointers, ints and
-the CUDA stream, so no PyTorch header is compiled.
+`kernels/build/` (listed in .gitignore), named by a hash of the sources,
+their headers and the nvcc flags, so an edited source or flag builds anew
+and an unchanged one loads the existing file. Each source compiles to an
+object in its own nvcc process, all started together, and one more nvcc
+call links them. The C entry points take plain pointers, ints and the CUDA
+stream, so no PyTorch header is compiled.
 """
 
 from __future__ import annotations
@@ -19,13 +21,15 @@ import time
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "build")
-SOURCES = ("fwd_tiled.cu",)
+SOURCES = ("fwd_tiled.cu", "soft_tiled.cu")
+HEADERS = ("soft_tiled.cuh",)
 
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # No --use_fast_math; -fmad=false keeps every product/sum rounded once, as in
-# the float32 plain twin (see the note at the top of csrc/fwd_tiled.cu).
+# the float32 plain twins (see the notes at the top of the csrc/ sources).
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
+    *_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false",
+    "-Xptxas", "-v",
 )
 
 _LIB = None
@@ -46,10 +50,21 @@ def find_nvcc() -> str:
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(SRC_DIR, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"liboctrt_kernels_{h.hexdigest()[:16]}.so")
+
+
+def _run_all(cmds):
+    """Run the commands at once; raise with the output of any that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{log}")
+    return "".join(logs)
 
 
 def build() -> str:
@@ -59,19 +74,20 @@ def build() -> str:
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(SRC_DIR, s) for s in SOURCES)]
+    nvcc = find_nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.splitext(s)[0]}.{tag}.o")
+            for s in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
+    log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(SRC_DIR, s)]
+                    for s, o in zip(SOURCES, objs)])
+    tmp = f"{path}.{tag}"
+    log += _run_all([[nvcc, *_ARCH, "-shared", "-o", tmp, *objs]])
+    for o in objs:
+        os.remove(o)
     os.replace(tmp, path)
     BUILD_SECONDS = time.perf_counter() - t0
-    BUILD_LOG = proc.stdout + proc.stderr
+    BUILD_LOG = log
     return path
 
 
@@ -83,6 +99,10 @@ def load_library() -> ctypes.CDLL:
         ptr, i = ctypes.c_void_p, ctypes.c_int
         lib.octrt_fwd_tiled.restype = i
         lib.octrt_fwd_tiled.argtypes = [ptr] * 9 + [i] * 13 + [ptr]
+        lib.octrt_soft_tiled_fwd.restype = i
+        lib.octrt_soft_tiled_fwd.argtypes = [ptr] * 10 + [i] * 12 + [ptr]
+        lib.octrt_soft_tiled_bwd.restype = i
+        lib.octrt_soft_tiled_bwd.argtypes = [ptr] * 18 + [i] * 12 + [ptr]
         lib.octrt_cuda_error_string.restype = ctypes.c_char_p
         lib.octrt_cuda_error_string.argtypes = [i]
         _LIB = lib

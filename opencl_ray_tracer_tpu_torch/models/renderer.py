@@ -6,10 +6,12 @@ facade dispatches to:
   reference -> ref/tracer.py           (brute-force oracle)
   pallas    -> kernels/fwd_tiled.py    (the tiled hard kernel: CUDA on the
                                         card, its plain twin on the CPU)
+  soft + pallas -> kernels/soft.py render_soft_pallas (the tiled soft
+                   kernels, forward and backward)
+  soft + other  -> diff/soft.py render_soft (the torch-autograd oracle)
 
-The frame runs on the device the scene's tensors lie on. The soft
-differentiable renderer (ROADMAP A7/B4) and the whole-frame "xla" path
-(ROADMAP A5) are not ported yet and raise NotImplementedError.
+The frame runs on the device the scene's tensors lie on. The whole-frame
+"xla" path (ROADMAP A5) is not ported yet and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -71,22 +73,27 @@ def render(
         return out
 
     b = resolve_backend(backend if backend is not None else config.backend)
-    if config.soft:
-        raise NotImplementedError(
-            "soft rendering is not ported yet (ROADMAP A7, B4-B7)"
-        )
-    if b == Backend.XLA:
-        raise NotImplementedError(
-            "the xla whole-frame backend is not ported yet (ROADMAP A5)"
-        )
 
-    # Packed framebuffers are native on the tiled kernel (it emits the
-    # words); the oracle renders float and packs.
-    if config.framebuffer_dtype == "packed" and b != Backend.PALLAS:
+    # Packed framebuffers are native on the tiled hard kernel (it emits the
+    # words); every other path renders float and packs.
+    if config.framebuffer_dtype == "packed" and (b != Backend.PALLAS
+                                                 or config.soft):
         rgba = render(scene, camera, config.replace(framebuffer_dtype="float"),
                       backend=b)
         return pack_framebuffer_words(rgba)
 
+    if config.soft:
+        if b == Backend.PALLAS:
+            from opencl_ray_tracer_tpu_torch.kernels.soft import render_soft_pallas
+
+            return render_soft_pallas(scene, camera, config)
+        from opencl_ray_tracer_tpu_torch.diff import render_soft
+
+        return render_soft(scene, camera, config)
+    if b == Backend.XLA:
+        raise NotImplementedError(
+            "the xla whole-frame backend is not ported yet (ROADMAP A5)"
+        )
     if b == Backend.REFERENCE:
         from opencl_ray_tracer_tpu_torch.ref import render_reference
 
@@ -126,7 +133,7 @@ def get_renderer(family: str, width: int = 640, height: int = 480, **kw) -> Rend
     legacy         — exact reference pipeline (depth fog, int framebuffer)
     lambert        — point lights + Lambertian diffuse
     phong          — Phong + hard shadows
-    soft / diff    — soft-edge differentiable renderer (not ported yet)
+    soft / diff    — soft-edge differentiable renderer
     """
     presets = {
         "legacy": dict(shading="legacy", framebuffer_dtype="int"),

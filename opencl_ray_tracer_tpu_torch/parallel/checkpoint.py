@@ -1,0 +1,60 @@
+"""Checkpoint / resume of a TrainState: the scene leaves, the optimizer's
+state_dict and the step, in one `torch.save` file per checkpoint
+(`<dir>/step_<8 digits>.pt`). Long inverse-rendering fits are real
+training runs; a killed run resumes from the latest checkpoint."""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import torch
+
+from opencl_ray_tracer_tpu_torch.parallel.train import TrainState, scene_leaves
+from opencl_ray_tracer_tpu_torch.utils.log import log_info
+
+
+def save_checkpoint(path: str, state: TrainState, step: Optional[int] = None) -> str:
+    """Save a TrainState. Returns the checkpoint path written."""
+    step = int(state.step) if step is None else step
+    os.makedirs(path, exist_ok=True)
+    payload = {
+        "scene": {k: v.detach().cpu() for k, v in scene_leaves(state.scene).items()},
+        "optimizer": state.opt_state.state_dict(),
+        "step": step,
+    }
+    p = os.path.join(path, f"step_{step:08d}.pt")
+    tmp = f"{p}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, p)
+    log_info("checkpoint saved to %s", p)
+    return p
+
+
+def latest_checkpoint(path: str) -> Optional[str]:
+    if not os.path.isdir(path):
+        return None
+    entries = sorted(e for e in os.listdir(path)
+                     if e.startswith("step_") and e.endswith(".pt"))
+    return os.path.join(path, entries[-1]) if entries else None
+
+
+def load_checkpoint(ckpt_path: str, example_state: TrainState) -> TrainState:
+    """Restore a TrainState into `example_state`'s scene leaves (in place)
+    and optimizer; the structure is taken from `example_state`."""
+    dev = example_state.scene.device
+    payload = torch.load(ckpt_path, map_location=dev, weights_only=True)
+    with torch.no_grad():
+        for k, v in scene_leaves(example_state.scene).items():
+            v.copy_(payload["scene"][k])
+    example_state.opt_state.load_state_dict(payload["optimizer"])
+    return example_state._replace(step=int(payload["step"]))
+
+
+def resume_or_init(path: str, init_state: TrainState) -> TrainState:
+    """The resume-on-restart entry: latest checkpoint if present, else init."""
+    ckpt = latest_checkpoint(path)
+    if ckpt is None:
+        return init_state
+    log_info("resuming from %s", ckpt)
+    return load_checkpoint(ckpt, init_state)

@@ -167,7 +167,8 @@ def test_renderer_facade_and_msaa():
     assert same >= 0.995
     ms = T.get_renderer("legacy", width=W, height=H, msaa=4).render(scene)
     assert ms.shape == (H, W, 4) and ms.dtype == torch.int32
-    with pytest.raises(NotImplementedError):
-        T.get_renderer("soft", width=W, height=H).render(scene)
+    soft = T.get_renderer("soft", width=W, height=H).render(scene)
+    assert soft.shape == (H, W, 4) and soft.dtype == torch.float32
+    assert torch.isfinite(soft).all() and (soft[..., :3] > 1.0).any()
     with pytest.raises(NotImplementedError):
         T.render(scene, None, cfg, backend="xla")

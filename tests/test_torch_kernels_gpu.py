@@ -96,3 +96,109 @@ def test_wrapper_rejects_bad_inputs(cuda_device):
         fwd_tiled.tiled_kernel(*bad, **kw)
     with pytest.raises(ValueError):
         fwd_tiled.tiled_kernel(*args, **{**kw, "width": W + 256})
+
+
+# ---- the soft kernels B4 (forward) and B5 (backward) ----------------------
+# Bars (chip_smoke.py phase 7): images within 0.05/255 on every pixel; every
+# scene leaf's gradient of mean(img[..., :3]**2) within 1e-3 of the twin's,
+# normalised by the twin's largest (2e-3 pinhole), and non-zero where the
+# twin's is; pixel-gradient Jacobian rows within 1e-4 of the twin's and of
+# diff.render_soft's.
+
+SOFT_W, SOFT_H = 256, 128
+SOFT_PINHOLE = dict(position=(128.0, 64.0, 200.0), look_at=(128.0, 64.0, -60.0),
+                    fov_degrees=65.0, width=SOFT_W, height=SOFT_H)
+
+
+def _soft_case(device, scene_name, cam_kind, shading, shadows):
+    from opencl_ray_tracer_tpu_torch.kernels import soft_tiled as S
+
+    scene = (T.random_scene(5, 3, seed=4, bounds=(250.0, 120.0), device=device)
+             if scene_name == "test" else T.create_scene1(device=device))
+    cam = (T.legacy_ortho_camera(device=device) if cam_kind == "ortho"
+           else T.pinhole_camera(**SOFT_PINHOLE, device=device))
+    cfg = T.RenderConfig(width=SOFT_W, height=SOFT_H, shading=shading,
+                         shadows=shadows, soft=True, framebuffer_dtype="float",
+                         tau_depth=1.0, tau_edge=0.5)
+    return S, scene, cam, cfg
+
+
+def _soft_grads(render, scene, cam, cfg):
+    from opencl_ray_tracer_tpu_torch.parallel.train import (
+        scene_leaves,
+        trainable_scene,
+    )
+
+    s = trainable_scene(scene)
+    leaves = scene_leaves(s)
+    loss = (render(s, cam, cfg)[..., :3] ** 2).mean()
+    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    return {k: torch.zeros_like(v) if g is None else g
+            for (k, v), g in zip(leaves.items(), grads)}
+
+
+def _twin(s, c, f):
+    from opencl_ray_tracer_tpu_torch.kernels import soft_tiled as S
+
+    params, taus, tables, counts, kc = S.soft_kernel_inputs(s.pack(), c, f)
+    return S._soft_tiled_plain(params, taus, tables, counts, cfg=kc)
+
+
+@pytest.mark.parametrize("scene_name", ["test", "scene1"])
+@pytest.mark.parametrize("cam_kind", ["ortho", "pinhole"])
+@pytest.mark.parametrize("shading,shadows", [("legacy", False),
+                                             ("lambert", False),
+                                             ("lambert", True),
+                                             ("phong", True)])
+def test_soft_kernels_match_twin(cuda_device, scene_name, cam_kind, shading,
+                                 shadows):
+    S, scene, cam, cfg = _soft_case(cuda_device, scene_name, cam_kind,
+                                    shading, shadows)
+    before = (S.FWD_LAUNCHES, S.BWD_LAUNCHES)
+    with torch.no_grad():
+        got = S.render_soft_tiled(scene, cam, cfg)
+        want = _twin(scene, cam, cfg)
+    assert (got - want).abs().max().item() < 0.05
+    gk = _soft_grads(S.render_soft_tiled, scene, cam, cfg)
+    gt = _soft_grads(_twin, scene, cam, cfg)
+    assert S.FWD_LAUNCHES > before[0] and S.BWD_LAUNCHES > before[1]
+    atol = 1e-3 if cam_kind == "ortho" else 2e-3
+    for k, w in gt.items():
+        g = gk[k]
+        assert torch.isfinite(g).all(), k
+        scale = w.abs().max().item()
+        if scale == 0.0:
+            assert g.abs().max().item() == 0.0, k
+            continue
+        assert (g - w).abs().max().item() / scale <= atol, k
+        assert not ((w.abs() > 1e-6 * scale) & (g == 0)).any(), k
+
+
+# edge pixels whose rows reach the triangles and every light leaf
+@pytest.mark.parametrize("yy,xx,c", [(25, 117, 2), (52, 179, 1), (60, 50, 0),
+                                     (93, 163, 2)])
+def test_soft_pixel_gradient_probes(cuda_device, yy, xx, c):
+    """Jacobian rows d(pixel / 255)/d(scene leaves) of scene 1, phong +
+    soft shadows: the kernels against the twin and the diff.render_soft
+    oracle, max-abs within 1e-4 (the pixel-gradient bar of BASELINE.md)."""
+    from opencl_ray_tracer_tpu_torch.diff import render_soft
+
+    S, scene, cam, cfg = _soft_case(cuda_device, "scene1", "ortho", "phong", True)
+
+    def row(render):
+        from opencl_ray_tracer_tpu_torch.parallel.train import (
+            scene_leaves,
+            trainable_scene,
+        )
+
+        s = trainable_scene(scene)
+        leaves = scene_leaves(s)
+        px = render(s, cam, cfg)[yy, xx, c] / 255.0
+        grads = torch.autograd.grad(px, list(leaves.values()), allow_unused=True)
+        return [torch.zeros_like(v) if g is None else g
+                for v, g in zip(leaves.values(), grads)]
+
+    got = row(S.render_soft_tiled)
+    for want in (row(_twin), row(render_soft)):
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        assert err <= 1e-4, err

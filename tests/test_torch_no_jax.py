@@ -32,11 +32,15 @@ print(len(names))
 CUDA_CALLS = """
 import torch
 import opencl_ray_tracer_tpu_torch as T
+import opencl_ray_tracer_tpu_torch.cli
 assert not torch.cuda.is_available()
 calls = (
     lambda: T.create_scene1(device="cuda"),
     lambda: T.legacy_ortho_camera(device="cuda"),
     lambda: T.Lights.default("cuda"),
+    lambda: T.get_renderer("soft", width=128, height=64).render(
+        T.create_scene1(device="cuda")),
+    lambda: T.cli.main(["fit", "--steps", "2"]),
 )
 for call in calls:
     try:
@@ -60,7 +64,7 @@ def _run(code_or_args, cwd=REPO, **env):
 def test_port_imports_no_jax():
     proc = _run(IMPORT_ALL)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 18  # every ported module
+    assert int(proc.stdout.split()[-1]) >= 32  # every ported module
 
 
 def test_cuda_device_without_card_raises():
@@ -93,6 +97,31 @@ def test_kernel_wrapper_device_policy():
     meta = [a.to("meta") for a in args]
     with pytest.raises(ValueError, match="cuda or cpu"):
         fwd_tiled.tiled_kernel(*meta, **kw)
+
+    # the soft wrappers (B4, B5): the same policy
+    from opencl_ray_tracer_tpu_torch.kernels import soft_tiled
+
+    scfg = RenderConfig(width=128, height=64, shading="phong", shadows=True,
+                        soft=True, framebuffer_dtype="float")
+    params, taus, tables, counts, kc = soft_tiled.soft_kernel_inputs(
+        packed, legacy_ortho_camera(device=cpu), scfg)
+    tables = tuple(t.detach() for t in tables)
+    before = (soft_tiled.FWD_LAUNCHES, soft_tiled.BWD_LAUNCHES)
+    img = soft_tiled.soft_tiled_fwd(params.detach(), taus, tables, counts, cfg=kc)
+    assert img.shape == (64, 128, 4) and img.dtype == torch.float32
+    grads = soft_tiled.soft_tiled_bwd(params.detach(), taus, tables, counts,
+                                      torch.ones_like(img), cfg=kc)
+    assert [tuple(g.shape) for g in grads] == [
+        tuple(t.shape) for t in (params, taus) + tables]
+    assert (soft_tiled.FWD_LAUNCHES, soft_tiled.BWD_LAUNCHES) == before
+    to_meta = lambda ts: tuple(t.to("meta") for t in ts)  # noqa: E731
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        soft_tiled.soft_tiled_fwd(params.to("meta"), taus.to("meta"),
+                                  to_meta(tables), counts.to("meta"), cfg=kc)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        soft_tiled.soft_tiled_bwd(params.to("meta"), taus.to("meta"),
+                                  to_meta(tables), counts.to("meta"),
+                                  img.to("meta"), cfg=kc)
 
 
 def test_chip_smoke_fails_without_card():
