@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths — the tiled hard forward frame and the soft
-differentiable train step — through the entry points a user calls, and
-fails (non-zero exit, no result line) unless every phase passes:
+Drives the port's three paths — the tiled hard forward frame, the soft
+differentiable train step and the brute render path (forward and
+differentiable) — through the entry points a user calls, and fails
+(non-zero exit, no result line) unless every phase passes:
 
 1. device: torch, CUDA and nvcc versions, the card's name and power limit;
-2. build: nvcc builds kernels/csrc/{fwd_tiled,soft_tiled}.cu from this
-   checkout, one nvcc per source, in parallel;
+2. build: nvcc builds every source in kernels/csrc/ from this checkout,
+   one nvcc per source, in parallel;
 3. kernel vs plain twin at 640x480: scenes 1-3, legacy/lambert/phong with
    and without shadows, ortho and pinhole cameras, packed/int/float frames;
 4. the committed goldens through the kernel at 160x120;
@@ -34,13 +35,47 @@ fails (non-zero exit, no result line) unless every phase passes:
    gradients held against the twin's, the kernels', twin's and whole
    step's CUDA-event times and a device trace of the step; (b) the CLI's
    `fit --scene 1 --steps 60` at 640x480, which must lower the loss and the
-   sphere-origin error.
+   sphere-origin error;
+10. the brute hard kernel B3 against its plain twin: scenes 1 and 2 at
+   640x480 and scene 3 at 256x128, ortho and pinhole, legacy / lambert +
+   shadows / phong + shadows / phong, float and int frames, at the hard
+   bars below; then against the tiled kernel B1 and the oracle on the same
+   frames (two other formulations of the same tests, where an edge pixel may
+   fall on the other side: int frames identical on >= 99.9% of pixels and
+   >= 99.9% of the lit pixels within 0.5/255);
+11. the brute soft kernels B6 (forward) and B7 (backward) against their
+   plain twin at 256x128, through _soft_render_core: the scenes, cameras and
+   four modes of phase 7; images within 0.05/255 on every pixel; the
+   gradient of every leaf (scene, lights, camera, both temperatures) within
+   1e-3 of the twin's normalised by its largest (2e-3 pinhole); then
+   _soft_render_core against render_soft_tiled (ortho), image within
+   0.05/255 and scene-leaf gradients within 1e-3 normalised; then scene 3
+   (1,300 primitives, phong + soft shadows), where B7's accumulators take
+   125 KB of a block's shared memory;
+12. the brute path at full size: render_pallas_packed on the 1080p headline
+   frame (legacy int, the bench's brute row, and phong + shadows float)
+   checked against B1's frames; _soft_render_core forward + backward at
+   1080p phong + soft shadows, step-1 gradients against the tiled path's
+   (within 5e-3 normalised: two paths, see there) and B7 against its twin;
+   CUDA-event times of each brute kernel, its twin and the whole calls,
+   and the two-count slope beside them;
+   then `python -m opencl_ray_tracer_tpu_torch.bench` as a subprocess, whose
+   exit code and JSON line are checked.
 
 Hard kernel vs twin is bounded on every pixel: float frames within 0.5/255,
 packed and int frames within one step of 1/255 (and identical on >= 99.5%
 of pixels).
 
-The second-to-last stdout line is {"kernels": [...]}; the last is
+The second-to-last stdout line is {"kernels": [...]}: per kernel its
+launches on its main path, its error against the twin, its time (ms), the
+twin's (plain_ms), and bound_ms, the least time the card could take for the
+same work: the larger of the bytes it must move (each input read once, each
+output written once) over the card's memory rate and the operations these
+inputs need over its peak float32 rate (see `_OPS`, `_OPS_BWD`: a soft
+pixel that no primitive covers needs no shading, a pixel whose cotangent is
+zero needs no backward). A launch of soft_brute_fwd / soft_brute_bwd is one
+call of its wrapper, which also launches its small row kernels. No single PyTorch call
+computes any of these functions, so library_ms is null. The last line is
 {"ok": true, "device": {...}}. Needs no network and imports no JAX.
 """
 
@@ -60,40 +95,102 @@ def _require(cond, msg):
 def _time_ms(fn, n, warmup=3):
     """Median, min, max milliseconds per call over n calls (CUDA events
     around each call; the host's own stalls inside the call count)."""
-    import torch
+    from opencl_ray_tracer_tpu_torch.bench_util import call_times_ms, median_spread
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times), min(times), max(times)
-
-
-def _back_to_back_ms(fn, n):
-    """Milliseconds per call over n calls issued back to back between two
-    CUDA events: the device time of a launch once the host runs ahead."""
-    import torch
-
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / n
+    return median_spread(call_times_ms(fn, n, warmup))
 
 
 BACKGROUND = -16777216  # 0xFF000000 as int32: opaque black, no hit
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside the
+# tensor cores, and device memory.
+PEAK_FP32 = 67e12
+PEAK_HBM = 3.35e12
+
+# Operations per unit of work, counted from the expressions of the kernels'
+# sources: every add, multiply, compare, select, min/max counts 1, and so
+# does every divide, sqrt, exp, log and log1p (a floor: those take several
+# instruction slots). Reductions across threads are not counted: the
+# function does not need them.
+_OPS = {
+    # hard tests (fwd_tiled.cu, fwd_brute.cu), the nearest-hit update included
+    "tri_affine": 19, "sph_affine": 22, "tri_general": 53, "sph_general": 23,
+    "sh_tri_planes": 76, "sh_sph": 24,
+    # hard shading: hit point, normal, view vector; then per light
+    "shade_fixed": 40, "shade_light": 45,
+    # soft candidates (soft_tiled.cuh): test, three or two sigmoids, rank,
+    # the online max and the aggregate sums
+    "soft_tri_affine": 77, "soft_sph_affine": 100,
+    "soft_tri_general": 120, "soft_sph_general": 101,
+    "occ_tri": 87, "occ_sph": 64,
+    # soft per-pixel finish: aggregate geometry, then shading per light
+    "soft_finish": 60, "soft_light": 70,
+}
+# The reverse of each soft unit above, counted the same way from the
+# hand-written reverses of soft_tiled.cuh (tri_bwd / sph_bwd / tri_sh_bwd /
+# sph_sh_bwd with bary_bwd, sph_cov_t_bwd and cross_bwd, cand_bwd, occ_bwd,
+# shade_agg_bwd + geom_bwd + ctx_bwd): only the expressions that produce a
+# cotangent. What a reverse recomputes of its forward (the sigmoids, u, v,
+# the ray geometry) is not counted again: a backward needs one forward, the
+# unit above, plus this.
+_OPS_BWD = {
+    "soft_tri_affine": 120, "soft_sph_affine": 169,
+    "soft_tri_general": 225, "soft_sph_general": 176,
+    "occ_tri": 189, "occ_sph": 119,
+    "soft_finish": 239, "soft_light": 171,
+}
+
+
+def _bound(ops, nbytes):
+    """(bound_ms, bound_by): the larger of operations over the peak float32
+    rate and bytes over the peak memory rate."""
+    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_HBM * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _per_tile(mask, nty, ntx):
+    """Per-tile sums of a (H, W) pixel mask, (nty * ntx,) int64."""
+    import torch
+
+    h, w = mask.shape
+    full = torch.zeros((nty * 64, ntx * 128), dtype=torch.int64, device=mask.device)
+    full[:h, :w] = mask
+    return full.reshape(nty, 64, ntx, 128).sum((1, 3)).reshape(-1)
+
+
+def _soft_covered(packed, cam, tau_e, h, w):
+    """(H, W) bool: the pixels whose soft coverage 1 - w_bg is not exactly
+    zero in float32, w_bg = prod(1 - cov) over every primitive. Every other
+    pixel of a soft frame is 0 whatever its shading and shadows are, so only
+    these need the finish, the per-light shading and the occluder walks."""
+    import torch
+
+    from opencl_ray_tracer_tpu_torch.kernels import soft as B
+
+    with torch.no_grad():
+        pv = list(B._camera_params(cam, packed.lights))
+        tri_geo, _, sph_geo, _ = B._prep_soft_arrays(packed)
+        te = torch.tensor(tau_e, dtype=torch.float32, device=packed.device)
+        tests = ([(B._tri_chunk_soft, tri_geo, c)
+                  for c in range(-(-packed.n_tris // B.CK))]
+                 + [(B._sph_chunk_soft, sph_geo, c)
+                    for c in range(-(-packed.n_spheres // B.CK))])
+        out = []
+        for p0 in range(0, h * w, 65536):
+            flat = torch.arange(p0, min(p0 + 65536, h * w), device=packed.device)
+            yi = flat // w
+            x = (flat - yi * w).to(torch.float32)[:, None]
+            o, d = B._ray_bundle(pv, x, yi.to(torch.float32)[:, None], cam.normalize)
+            bacc = torch.zeros_like(x)
+            for test, geo, c in tests:
+                cov = test(geo, c, o, d, te)[1]
+                bacc = bacc + torch.log1p(-cov.clamp(0.0, 1.0 - 1e-6)).sum(1, keepdim=True)
+            out.append(1.0 - torch.exp(bacc) != 0.0)
+        return torch.cat(out).reshape(h, w)
 
 
 def _errors(got, want, fmt):
@@ -341,7 +438,35 @@ def main() -> int:
                                     ("whole render_tiled", f_ms)):
             print(f"[time] {label}: {what} median {med:.4f} ms "
                   f"[{lo:.4f}, {hi:.4f}] over >= 50 frames; {smi}")
-        kernel_rows.append((label, k_ms, p_ms, ferr))
+        # B1's bound from this frame's data: every pixel of a non-empty tile
+        # tests the tile's primary candidates; a lit pixel is shaded once per
+        # light; an unoccluded lit pixel tests all of its tile's shadow
+        # candidates, an occluded one (it differs from the frame rendered
+        # without shadows) needs one test
+        cnt = bins.counts.long()
+        inside = _per_tile(torch.ones((cfg.height, cfg.width), dtype=torch.bool,
+                                      device=dev), bins.nty, bins.ntx)
+        nargs, nkw = fwd_tiled.kernel_inputs(
+            packed, ortho, bins, height=cfg.height, width=cfg.width,
+            shading=cfg.shading, shadows=False, out_format="float")
+        unshadowed = fwd_tiled.tiled_kernel(*nargs, **nkw)
+        lit_mask = (fk[..., :3] > 0).any(-1)
+        occluded = lit_mask & (fk != unshadowed).any(-1)
+        lit_t = _per_tile(lit_mask, bins.nty, bins.ntx)
+        occ_t = _per_tile(occluded, bins.nty, bins.ntx)
+        n_l = (cnt.shape[1] - 2) // 2
+        nonempty = (cnt[:, 0] + cnt[:, 1]) > 0
+        ops = (inside * nonempty * (cnt[:, 0] * _OPS["tri_affine"]
+                                    + cnt[:, 1] * _OPS["sph_affine"])).sum()
+        ops = ops + lit_t.sum() * (_OPS["shade_fixed"] + n_l * _OPS["shade_light"])
+        for li in range(n_l):
+            ops = ops + ((lit_t - occ_t) * (cnt[:, 2 + 2 * li] * _OPS["sh_tri_planes"]
+                                            + cnt[:, 3 + 2 * li] * _OPS["sh_sph"])).sum()
+            ops = ops + occ_t.sum() * _OPS["sh_sph"]
+        bound = _bound(float(ops), _nbytes(*args) + cfg.height * cfg.width * 4)
+        print(f"[bound] {label}: {float(ops):.4e} operations, bound "
+              f"{bound[0]:.5f} ms by {bound[1]}")
+        kernel_rows.append((label, k_ms, p_ms, ferr, bound))
 
     # ---- 6. where the frame's time goes ------------------------------------
     # One loop times the stages of render_tiled back to back with CUDA
@@ -385,8 +510,11 @@ def main() -> int:
     soft_phase_golden(T, dev, gdir)             # 8
     soft_rows = soft_phase_train(T, dev, smi)   # 9 (a)
     soft_phase_cli_fit()                        # 9 (b)
+    brute_phase_hard_vs_twin(T, dev)            # 10
+    brute_phase_soft_vs_twin(T, dev)            # 11
+    brute_rows = brute_phase_full_size(T, dev, smi)  # 12
 
-    label, k_ms, p_ms, ferr = kernel_rows[0]
+    label, k_ms, p_ms, ferr, bound = kernel_rows[0]
     print(smi)  # name, power limit exactly as nvidia-smi gives them
     print(json.dumps({"kernels": [{
         "name": "fwd_tiled",
@@ -400,7 +528,10 @@ def main() -> int:
         "shape": label,
         "ms": k_ms[0],
         "plain_ms": p_ms[0],
-    }] + soft_rows}))
+        "bound_ms": bound[0],
+        "bound_by": bound[1],
+        "library_ms": None,
+    }] + soft_rows + brute_rows}))
     # the smoke drives one card (cuda:0), whatever else is visible
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": 1}}))
@@ -570,6 +701,7 @@ def soft_phase_train(T, dev, smi):
     against the twin's; then the stage times and a device trace."""
     import torch
 
+    from opencl_ray_tracer_tpu_torch.bench_util import back_to_back_ms
     from opencl_ray_tracer_tpu_torch.kernels import soft_tiled as S
     from opencl_ray_tracer_tpu_torch.parallel import (
         adam,
@@ -671,7 +803,7 @@ def soft_phase_train(T, dev, smi):
     # the ctypes call); back to back, the launches overlap it
     for what, fn in (("B4", b4), ("B5", b5)):
         print(f"[time] train 1080p phong+shadows: {what} back to back "
-              f"{_back_to_back_ms(fn, 100):.4f} ms per launch over 100; {smi}")
+              f"{back_to_back_ms(fn, 100):.4f} ms per launch over 100; {smi}")
     _train_stages(S, state, cam, cfg, loss_fn, smi)
     kernels, busy, dev_ms, top = _device_profile(lambda: step(state, target), 10)
     print(f"[stages] train step 1080p: {kernels:.1f} device kernels per step, "
@@ -679,6 +811,44 @@ def soft_phase_train(T, dev, smi):
           f"work per step), 10 traced steps; {smi}")
     print("[stages] train step 1080p, device ms per step by kernel: "
           + "; ".join(f"{name} {ms:.4f}" for name, ms in top))
+
+    # B4's bound from this step's tables: every pixel of a non-empty tile
+    # streams the tile's processed candidate rows; only a covered pixel
+    # (1 - w_bg != 0) needs the finish, the shading and the walk over the
+    # processed occluder rows of every light. B5 was timed with a cotangent
+    # that is non-zero on every pixel: each pixel of a non-empty tile needs
+    # its whole forward (d out / d w_bg is the shaded colour) and the reverse
+    # of every unit of it.
+    cnt = counts.long()
+    proc = (cnt + S.CH - 1) // S.CH * S.CH
+    inside = _per_tile(torch.ones((h, w), dtype=torch.bool, device=dev),
+                       kc["nty"], kc["ntx"])
+    nonempty = (cnt[:, 0] + cnt[:, 1]) > 0
+    live = inside * nonempty
+    covered = _per_tile(_soft_covered(scene.pack(), cam, cfg.tau_edge, h, w),
+                        kc["nty"], kc["ntx"]) * nonempty
+    n_l = kc["n_lights"]
+
+    def per_px(ops):
+        prim = proc[:, 0] * ops["soft_tri_affine"] + proc[:, 1] * ops["soft_sph_affine"]
+        rest = ops["soft_finish"] + n_l * ops["soft_light"]
+        for li in range(n_l):
+            rest = rest + (proc[:, 2 + 2 * li] * ops["occ_tri"]
+                           + proc[:, 3 + 2 * li] * ops["occ_sph"])
+        return prim, rest
+
+    prim_f, rest_f = per_px(_OPS)
+    prim_b, rest_b = per_px(_OPS_BWD)
+    ops_fwd = float((live * prim_f + covered * rest_f).sum())
+    ops_bwd = float((live * (prim_f + rest_f + prim_b + rest_b)).sum())
+    in_bytes = _nbytes(params, taus, counts, *tables)
+    b4_bound = _bound(ops_fwd, in_bytes + h * w * 16)
+    b5_bound = _bound(ops_bwd, 2 * in_bytes + h * w * 16)
+    print(f"[bound] train 1080p: {int(live.sum())} pixels in non-empty tiles, "
+          f"{int(covered.sum())} covered; B4 {ops_fwd:.4e} operations, bound "
+          f"{b4_bound[0]:.5f} ms by {b4_bound[1]}; B5 (cotangent non-zero on "
+          f"every pixel) {ops_bwd:.4e} operations, bound {b5_bound[0]:.5f} ms "
+          f"by {b5_bound[1]}")
 
     src = "opencl_ray_tracer_tpu_torch/kernels/csrc/soft_tiled.cu"
     shape = "train step 1920x1080 10sph+1cube phong+soft shadows"
@@ -688,7 +858,8 @@ def soft_phase_train(T, dev, smi):
          "launches": launches[0], "max_abs_err": ferr,
          "tolerance": f"every pixel within {FWD_BAR}/255 of the twin",
          "shape": shape, "ms": times["B4 alone"][0],
-         "plain_ms": times["twin forward"][0]},
+         "plain_ms": times["twin forward"][0], "bound_ms": b4_bound[0],
+         "bound_by": b4_bound[1], "library_ms": None},
         {"name": "soft_tiled_bwd", "route": "cuda", "source": src,
          "replaces": "opencl_ray_tracer_tpu/kernels/soft_tiled.py:1580",
          "launches": launches[1], "max_abs_err": gerr,
@@ -696,7 +867,8 @@ def soft_phase_train(T, dev, smi):
                       "normalised by the twin's largest (max_abs_err is that "
                       "normalised error)",
          "shape": shape, "ms": times["B5 alone"][0],
-         "plain_ms": times["twin backward"][0]},
+         "plain_ms": times["twin backward"][0], "bound_ms": b5_bound[0],
+         "bound_by": b5_bound[1], "library_ms": None},
     ]
 
 
@@ -766,6 +938,476 @@ def soft_phase_cli_fit():
     print(f"[fit] cli fit --scene 1 --steps 60: loss {l0} -> {l1}, max origin "
           f"error {e0} -> {e1}; {time.perf_counter() - t0:.1f} s with start-up")
     _require(l1 < l0 and e1 < e0, "cli fit did not lower the loss and the error")
+
+
+# ---------------------------------------------------------------------------
+# The brute path: B3 (hard), B6 (soft forward) and B7 (soft backward)
+# ---------------------------------------------------------------------------
+
+def _check_other_formulation(label, got, want):
+    """A float frame against the same frame through another formulation of
+    the tests (the tiled kernel's tables, the oracle): truncated int frames
+    identical on >= 99.9% of pixels, and >= 99.9% of the lit pixels within
+    0.5/255 (the least read on an H100 over the 48 comparisons of phase 10:
+    99.979% and 99.943%)."""
+    import torch
+
+    same = (torch.trunc(got) == torch.trunc(want)).all(-1).float().mean().item()
+    close, lit = _lit_agreement(got, want)
+    print(f"{label}: int identical {same:.6f}, {close:.6f} of the lit pixels "
+          f"within 0.5/255 ({lit:.4f} lit; bars 0.999)")
+    _require(same >= 0.999 and close >= 0.999, f"{label}: {same} / {close}")
+
+
+def brute_phase_hard_vs_twin(T, dev):
+    """Phase 10: the brute hard kernel B3 against its plain twin, then
+    against the tiled kernel B1 and the oracle on the same frames."""
+    import torch
+
+    from opencl_ray_tracer_tpu_torch.kernels import fwd, fwd_tiled
+    from opencl_ray_tracer_tpu_torch.ref import render_reference
+
+    before = fwd.BRUTE_LAUNCHES
+    worst, n_cases = 0.0, 0
+    for num, (w, h) in ((1, (640, 480)), (2, (640, 480)), (3, (256, 128))):
+        scene = T.create_scene(num, seed=0, device=dev)
+        packed = scene.pack()
+        for cam_kind in ("ortho", "pinhole"):
+            cam = (T.legacy_ortho_camera(device=dev) if cam_kind == "ortho" else
+                   T.pinhole_camera((w / 2.0, h / 2.0, 60.0), (w / 2.0, h / 2.0, -85.0),
+                                    fov_degrees=80.0, width=w, height=h, device=dev))
+            for shading, shadows in (("legacy", False), ("lambert", True),
+                                     ("phong", True), ("phong", False)):
+                cfg = T.RenderConfig(width=w, height=h, shading=shading,
+                                     shadows=shadows, framebuffer_dtype="float")
+                label = (f"[brute-parity] scene{num} {w}x{h} {cam_kind} {shading} "
+                         f"shadows={shadows}")
+                args, kw = fwd.brute_kernel_inputs(packed, cam, cfg)
+                got = fwd.brute_kernel(*args, **kw)
+                torch.cuda.synchronize()
+                want = fwd._brute_kernel_plain(*args, **kw)
+                _require(bool(torch.isfinite(got).all()), f"{label}: non-finite")
+                worst = max(worst, _check_twin(label, got, want, "float"))
+                _check_twin(label, torch.trunc(got).int(), torch.trunc(want).int(),
+                            "int")
+                _check_other_formulation(
+                    f"{label} vs tiled B1", got,
+                    fwd_tiled.render_tiled_packed(packed, cam, cfg))
+                _check_other_formulation(f"{label} vs oracle", got,
+                                         render_reference(scene, cam, cfg))
+                n_cases += 1
+    launched = fwd.BRUTE_LAUNCHES - before
+    _require(launched >= n_cases, f"phase 10 launched {launched} kernels")
+    print(f"[brute-parity] {n_cases} cases, largest float error vs the twin "
+          f"{worst:.4f} (bar < 0.5), {launched} B3 launches")
+
+
+def _brute_render(scene, cam, cfg, taus=None):
+    """The frame through _soft_render_core: B6/B7 on CUDA tensors."""
+    from opencl_ray_tracer_tpu_torch.kernels.soft import _soft_render_core
+
+    td, te = taus if taus is not None else (cfg.tau_depth, cfg.tau_edge)
+    return _soft_render_core(scene.pack(), cam, td, te, cfg.height, cfg.width,
+                             cfg.shading, cfg.shadows, cam.normalize)
+
+
+def _brute_twin_render(scene, cam, cfg, taus=None):
+    """The same frame through the brute kernels' plain twin (autograd-able),
+    on the same operands."""
+    import torch
+
+    from opencl_ray_tracer_tpu_torch.kernels import soft as B
+
+    packed = scene.pack()
+    td, te = taus if taus is not None else (cfg.tau_depth, cfg.tau_edge)
+    taus_t = torch.stack([torch.as_tensor(t, dtype=torch.float32,
+                                          device=packed.device) for t in (td, te)])
+    return B._soft_brute_plain(
+        B._camera_params(cam, packed.lights), taus_t, *B._prep_soft_arrays(packed),
+        height=cfg.height, width=cfg.width,
+        cfg=B._static_cfg(packed, cfg.shading, cfg.shadows, cam.normalize))
+
+
+_CAMERA_LEAVES = ("o0", "dox", "doy", "d0", "ddx", "ddy")
+
+
+def _all_leaf_grads(render, scene, cam, cfg, loss_fn):
+    """Gradients of every leaf: the scene's and the lights', the camera's
+    six tensors and both temperatures."""
+    import dataclasses
+
+    import torch
+
+    from opencl_ray_tracer_tpu_torch.parallel.train import (
+        scene_leaves,
+        trainable_scene,
+    )
+
+    s = trainable_scene(scene)
+    leaves = dict(scene_leaves(s))
+    cam_t = {k: getattr(cam, k).detach().clone().requires_grad_(True)
+             for k in _CAMERA_LEAVES}
+    leaves.update({f"camera.{k}": v for k, v in cam_t.items()})
+    taus = [torch.tensor(v, dtype=torch.float32, device=cam.device,
+                         requires_grad=True) for v in (cfg.tau_depth, cfg.tau_edge)]
+    leaves.update({"tau_depth": taus[0], "tau_edge": taus[1]})
+    loss = loss_fn(render(s, dataclasses.replace(cam, **cam_t), cfg, taus))
+    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    return {k: torch.zeros_like(v) if g is None else g
+            for (k, v), g in zip(leaves.items(), grads)}
+
+
+def brute_phase_soft_vs_twin(T, dev):
+    """Phase 11: B6/B7 against the twin at 256x128 through
+    _soft_render_core, then the brute path against the tiled path."""
+    import torch
+
+    from opencl_ray_tracer_tpu_torch.kernels import soft as B
+    from opencl_ray_tracer_tpu_torch.kernels import soft_tiled as S
+
+    before = (B.SOFT_BRUTE_FWD_LAUNCHES, B.SOFT_BRUTE_BWD_LAUNCHES)
+    worst_f, worst_g, n = 0.0, 0.0, 0
+    for scene_name in ("test", "scene1"):
+        scene = (T.random_scene(5, 3, seed=4, bounds=(250.0, 120.0), device=dev)
+                 if scene_name == "test" else T.create_scene1(device=dev))
+        for cam_kind in ("ortho", "pinhole"):
+            cam = (T.legacy_ortho_camera(device=dev) if cam_kind == "ortho"
+                   else T.pinhole_camera(**SOFT_PINHOLE, device=dev))
+            atol = 1e-3 if cam_kind == "ortho" else 2e-3
+            for shading, shadows in SOFT_MODES:
+                cfg = _soft_cfg(T, SOFT_W, SOFT_H, shading, shadows)
+                label = (f"[brute-soft-parity] {scene_name} {cam_kind} {shading} "
+                         f"shadows={shadows}")
+                with torch.no_grad():
+                    got = _brute_render(scene, cam, cfg)
+                    want = _brute_twin_render(scene, cam, cfg)
+                torch.cuda.synchronize()
+                _require(bool(torch.isfinite(got).all()), f"{label}: non-finite")
+                ferr = (got - want).abs().max().item()
+                _require(ferr < FWD_BAR, f"{label}: fwd max err {ferr} >= {FWD_BAR}")
+                gk = _all_leaf_grads(_brute_render, scene, cam, cfg, _mean_sq)
+                gt = _all_leaf_grads(_brute_twin_render, scene, cam, cfg, _mean_sq)
+                gerr = _compare_grads(label, gk, gt, atol)
+                msg = (f"{label}: fwd max err {ferr:.5f} (bar {FWD_BAR}), all-leaf "
+                       f"grads normalised max err {gerr:.2e} (bar {atol})")
+                if cam_kind == "ortho":
+                    # the tiled path culls what lies > 16 tau_edge from a
+                    # tile: invisible on these scenes
+                    with torch.no_grad():
+                        terr = (got - S.render_soft_tiled(scene, cam, cfg)
+                                ).abs().max().item()
+                    _require(terr < FWD_BAR, f"{label}: brute vs tiled {terr}")
+                    gs = _leaf_grads(_brute_render, scene, cam, cfg, _mean_sq)
+                    gtile = _leaf_grads(S.render_soft_tiled, scene, cam, cfg, _mean_sq)
+                    tgerr = _compare_grads(f"{label} vs tiled", gs, gtile, 1e-3)
+                    msg += (f"; vs tiled B4/B5: image {terr:.5f}, scene-leaf grads "
+                            f"{tgerr:.2e} (bar 1e-3)")
+                print(msg)
+                worst_f, worst_g, n = max(worst_f, ferr), max(worst_g, gerr), n + 1
+    # scene 3, 1,300 primitives: B7's accumulators take 125 KB of a block's
+    # shared memory (above the 48 KB a kernel gets without asking), one
+    # block a multiprocessor
+    scene = T.create_scene(3, seed=0, device=dev)
+    cam = T.legacy_ortho_camera(device=dev)
+    cfg = _soft_cfg(T, SOFT_W, SOFT_H, "phong", True)
+    label = "[brute-soft-parity] scene3 (1300 primitives) ortho phong shadows=True"
+    with torch.no_grad():
+        ferr = (_brute_render(scene, cam, cfg)
+                - _brute_twin_render(scene, cam, cfg)).abs().max().item()
+    _require(ferr < FWD_BAR, f"{label}: fwd max err {ferr} >= {FWD_BAR}")
+    gerr = _compare_grads(label,
+                          _all_leaf_grads(_brute_render, scene, cam, cfg, _mean_sq),
+                          _all_leaf_grads(_brute_twin_render, scene, cam, cfg, _mean_sq),
+                          1e-3)
+    print(f"{label}: fwd max err {ferr:.5f} (bar {FWD_BAR}), all-leaf grads "
+          f"normalised max err {gerr:.2e} (bar 0.001)")
+    worst_f, worst_g, n = max(worst_f, ferr), max(worst_g, gerr), n + 1
+    launched = (B.SOFT_BRUTE_FWD_LAUNCHES - before[0],
+                B.SOFT_BRUTE_BWD_LAUNCHES - before[1])
+    _require(launched[0] > 0 and launched[1] > 0, f"phase 11 launches {launched}")
+    print(f"[brute-soft-parity] {n} cases: fwd max err {worst_f:.5f}, grads "
+          f"{worst_g:.2e}; {launched[0]} B6 and {launched[1]} B7 launches")
+
+
+def brute_phase_full_size(T, dev, smi):
+    """Phase 12: the brute path at 1080p on the headline scene through its
+    entry points, its kernels' times and bounds, and the port's bench."""
+    import torch
+
+    from opencl_ray_tracer_tpu_torch.bench_util import back_to_back_ms
+    from opencl_ray_tracer_tpu_torch.kernels import fwd, fwd_tiled
+    from opencl_ray_tracer_tpu_torch.kernels import render_pallas_packed
+    from opencl_ray_tracer_tpu_torch.kernels import soft as B
+    from opencl_ray_tracer_tpu_torch.kernels import soft_tiled as S
+
+    w, h = 1920, 1080
+    n_pix = w * h
+    scene = T.random_scene(10, 1, seed=0, bounds=(1910.0, 1070.0), device=dev)
+    packed = scene.pack()
+    cam = T.legacy_ortho_camera(device=dev)
+    cfg_int = T.RenderConfig(width=w, height=h, shading="legacy",
+                             framebuffer_dtype="int")
+    cfg_phong = T.RenderConfig(width=w, height=h, shading="phong", shadows=True,
+                               framebuffer_dtype="float")
+    cfg_soft = _soft_cfg(T, w, h, "phong", True)
+
+    # ---- the main path, counted: both hard frames, one soft fwd + bwd ------
+    fwd.BRUTE_LAUNCHES = 0
+    B.SOFT_BRUTE_FWD_LAUNCHES = B.SOFT_BRUTE_BWD_LAUNCHES = 0
+    frame_int = render_pallas_packed(packed, cam, cfg_int)
+    frame_phong = render_pallas_packed(packed, cam, cfg_phong)
+    g_brute = _leaf_grads(_brute_render, scene, cam, cfg_soft, _mean_sq)
+    torch.cuda.synchronize()
+    launches = (fwd.BRUTE_LAUNCHES, B.SOFT_BRUTE_FWD_LAUNCHES,
+                B.SOFT_BRUTE_BWD_LAUNCHES)
+    print(f"[brute] launches in the main-path run: B3 {launches[0]}, B6 "
+          f"{launches[1]}, B7 {launches[2]}")
+    _require(launches[0] >= 2 and launches[1] >= 1 and launches[2] >= 1,
+             f"the brute path did not go through its kernels: {launches}")
+
+    _require(tuple(frame_int.shape) == (h, w, 4) and frame_int.dtype == torch.int32
+             and tuple(frame_phong.shape) == (h, w, 4)
+             and frame_phong.dtype == torch.float32, "bad brute frames")
+    _require(bool(torch.isfinite(frame_phong).all()), "non-finite brute frame")
+    tiled_int = fwd_tiled.render_tiled_packed(packed, cam, cfg_int)
+    same = (frame_int == tiled_int).all(-1).float().mean().item()
+    lit = (frame_int[..., :3] > 0).any(-1).float().mean().item()
+    print(f"[brute] 1080p legacy int vs tiled B1: {same:.6f} identical (bar "
+          f"0.999), {lit:.4f} of pixels lit")
+    _require(same >= 0.999 and lit > 0.001, f"brute legacy frame vs tiled: {same}")
+    _check_other_formulation("[brute] 1080p phong+shadows float vs tiled B1",
+                             frame_phong,
+                             fwd_tiled.render_tiled_packed(packed, cam, cfg_phong))
+
+    # kernel vs twin on the main path's own inputs (max_abs_err of the rows)
+    args_i, kw_i = fwd.brute_kernel_inputs(packed, cam, cfg_int)
+    args_p, kw_p = fwd.brute_kernel_inputs(packed, cam, cfg_phong)
+    b3_err = max(
+        _check_twin("[brute] 1080p legacy: B3 vs twin", fwd.brute_kernel(*args_i, **kw_i),
+                    fwd._brute_kernel_plain(*args_i, **kw_i), "float"),
+        _check_twin("[brute] 1080p phong+shadows: B3 vs twin",
+                    fwd.brute_kernel(*args_p, **kw_p),
+                    fwd._brute_kernel_plain(*args_p, **kw_p), "float"))
+
+    # Two paths, not a kernel and its twin: the tiled one culls what lies
+    # beyond 16 tau_edge of a tile and evaluates pixel-affine coefficients
+    # with FMAs, the brute one tests general rays in plain float32 at
+    # coordinates up to 1920, and both sum 2 M pixels in their own order.
+    # At 256x128 they agree within 1e-3 (phase 11); here the bar is 5e-3
+    # (the frames themselves differ near tile borders, see below).
+    g_tiled = _leaf_grads(S.render_soft_tiled, scene, cam, cfg_soft, _mean_sq)
+    gerr_tiled = _compare_grads("[brute] 1080p step-1 grads vs tiled", g_brute,
+                                g_tiled, 5e-3)
+    params = B._camera_params(cam, packed.lights).contiguous()
+    taus = torch.tensor([cfg_soft.tau_depth, cfg_soft.tau_edge], device=dev)
+    arrays = [a.contiguous() for a in B._prep_soft_arrays(packed)]
+    inputs = [params, taus] + arrays
+    skw = dict(height=h, width=w, cfg=B._static_cfg(packed, "phong", True, False))
+    from opencl_ray_tracer_tpu_torch.diff import render_soft
+
+    with torch.no_grad():
+        img = B.soft_brute_fwd(*inputs, **skw)
+        twin_img = B._soft_brute_plain(*inputs, **skw)
+        oracle_err = (img - render_soft(scene, cam, cfg_soft)).abs().max().item()
+        tiled_diff = (img - S.render_soft_tiled(scene, cam, cfg_soft)).abs().amax(-1)
+    b6_err = (img - twin_img).abs().max().item()
+    # The brute frame is held to its twin and to the diff.render_soft oracle
+    # on every pixel. The tiled frame is another function near tile borders:
+    # it drops a primitive farther than 16 tau_edge from a tile, whose 1e-7
+    # coverage still shifts the softmin where that primitive is much nearer
+    # than the tile's own (up to ~2/255 on a few hundred pixels of this
+    # frame), so it is held to 99.9% of the pixels.
+    tiled_close = (tiled_diff < FWD_BAR).float().mean().item()
+    _require(b6_err < FWD_BAR and oracle_err < FWD_BAR and tiled_close >= 0.999,
+             f"[brute] 1080p soft frame: vs twin {b6_err}, vs oracle {oracle_err}, "
+             f"{tiled_close} of pixels within {FWD_BAR} of the tiled frame")
+    g = torch.zeros_like(img)
+    g[..., :3] = 2.0 * img[..., :3] / (n_pix * 3)   # d mean(img^2) / d img
+    gk = B.soft_brute_bwd(*inputs, g, **skw)
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    gt = torch.autograd.grad(B._soft_brute_plain(*leaves, **skw), leaves, g,
+                             allow_unused=True)
+    names = ("params", "taus", "tri_geo", "tri_alb", "sph_geo", "sph_alb")
+    b7_err = _compare_grads("[brute] 1080p B7 vs twin", dict(zip(names, gk)),
+                            dict(zip(names, gt)), 1e-3)
+    print(f"[brute] 1080p phong+soft shadows: B6 vs twin {b6_err:.5f}, vs "
+          f"diff.render_soft {oracle_err:.5f} (bar {FWD_BAR}); vs tiled B4 "
+          f"{tiled_close:.6f} of pixels within {FWD_BAR} (bar 0.999), max "
+          f"{tiled_diff.max().item():.4f}; B7 vs the twin's autograd "
+          f"{b7_err:.2e} (bar 1e-3), step-1 scene-leaf grads vs the tiled path "
+          f"{gerr_tiled:.2e} (bar 5e-3)")
+
+    # ---- times: CUDA events, median [min, max] ------------------------------
+    zero_g = torch.zeros_like(g)
+
+    def twin_b7():
+        lv = [t.detach().requires_grad_(True) for t in inputs]
+        torch.autograd.grad(B._soft_brute_plain(*lv, **skw), lv, g, allow_unused=True)
+
+    def twin_b6():
+        with torch.no_grad():
+            B._soft_brute_plain(*inputs, **skw)
+
+    def soft_fwd_bwd(render):
+        def run():
+            from opencl_ray_tracer_tpu_torch.parallel.train import trainable_scene
+
+            _mean_sq(render(trainable_scene(scene), cam, cfg_soft)).backward()
+        return run
+
+    bins = fwd_tiled.bin_for_config(packed, cam, cfg_int.replace(framebuffer_dtype="packed"))
+    fns = {
+        "B3 legacy": (lambda: fwd.brute_kernel(*args_i, **kw_i), 20),
+        "B3 phong+shadows": (lambda: fwd.brute_kernel(*args_p, **kw_p), 20),
+        "B3 legacy twin": (lambda: fwd._brute_kernel_plain(*args_i, **kw_i), 5),
+        "B3 phong+shadows twin": (lambda: fwd._brute_kernel_plain(*args_p, **kw_p), 5),
+        "B6": (lambda: B.soft_brute_fwd(*inputs, **skw), 20),
+        "B7": (lambda: B.soft_brute_bwd(*inputs, g, **skw), 20),
+        "B6 twin": (twin_b6, 3),
+        "B7 twin (forward + autograd backward)": (twin_b7, 2),
+        "whole render_pallas_packed legacy int": (
+            lambda: render_pallas_packed(packed, cam, cfg_int), 50),
+        "whole render_tiled_packed legacy packed, per-frame bins": (
+            lambda: fwd_tiled.render_tiled_packed(
+                packed, cam, cfg_int.replace(framebuffer_dtype="packed")), 50),
+        "whole render_tiled_packed legacy packed, static bins": (
+            lambda: fwd_tiled.render_tiled_packed(
+                packed, cam, cfg_int.replace(framebuffer_dtype="packed"), bins=bins), 50),
+        "whole _soft_render_core fwd+bwd": (soft_fwd_bwd(_brute_render), 20),
+        "whole render_soft_tiled fwd+bwd": (soft_fwd_bwd(S.render_soft_tiled), 20),
+    }
+    times = {}
+    for what, (fn, n) in fns.items():
+        times[what] = _time_ms(fn, n, 1)
+        med, lo, hi = times[what]
+        print(f"[time] brute 1080p 10sph+1cube: {what} median {med:.4f} ms "
+              f"[{lo:.4f}, {hi:.4f}] over {n} runs; {smi}")
+    b2b = {}
+    for what, fn in (("B3 legacy", fns["B3 legacy"][0]),
+                     ("B3 phong+shadows", fns["B3 phong+shadows"][0]),
+                     ("B6", fns["B6"][0]), ("B7", fns["B7"][0]),
+                     ("B7, all-zero cotangent (no atomics)",
+                      lambda: B.soft_brute_bwd(*inputs, zero_g, **skw))):
+        b2b[what] = back_to_back_ms(fn, 50)
+        print(f"[time] brute 1080p 10sph+1cube: {what} back to back "
+              f"{b2b[what]:.4f} ms per launch over 50; {smi}")
+
+    # The JAX package times two frame counts and reports the slope, to cancel
+    # a constant cost per dispatch. Here: the same slope from runs of 13 and
+    # 100 calls, beside the two event timings above.
+    for what in ("whole render_pallas_packed legacy int",
+                 "whole render_tiled_packed legacy packed, static bins"):
+        fn = fns[what][0]
+        t13, t100 = 13 * back_to_back_ms(fn, 13), 100 * back_to_back_ms(fn, 100)
+        med, lo, hi = times[what]
+        print(f"[time] brute 1080p 10sph+1cube: {what}: two-count slope "
+              f"{(t100 - t13) / 87:.4f} ms, events per call median {med:.4f} ms "
+              f"[{lo:.4f}, {hi:.4f}], back to back {t100 / 100:.4f} ms; {smi}")
+
+    # ---- bounds, from this run's data ----------------------------------------
+    n_t, n_s, n_l = packed.n_tris, packed.n_spheres, skw["cfg"]["n_lights"]
+    unshadowed = fwd.brute_kernel(*args_p, **{**kw_p, "shadows": False})
+    lit_mask = (frame_phong[..., :3] > 0).any(-1)
+    n_lit = int(lit_mask.sum())
+    n_occ = int((lit_mask & (frame_phong != unshadowed).any(-1)).sum())
+    # B3 phong + shadows: every pixel tests every primitive (affine); a lit
+    # pixel is shaded; unoccluded lit pixels walk every primitive per light
+    # (general tests), occluded ones need one test
+    ops_b3 = (n_pix * (n_t * _OPS["tri_affine"] + n_s * _OPS["sph_affine"])
+              + n_lit * (_OPS["shade_fixed"] + n_l * _OPS["shade_light"])
+              + n_l * ((n_lit - n_occ) * (n_t * _OPS["tri_general"]
+                                          + n_s * _OPS["sph_general"])
+                       + n_occ * _OPS["sph_general"]))
+    b3_bound = _bound(ops_b3, _nbytes(*args_p) + n_pix * 16)
+    # B6: every pixel streams every primitive; only a covered pixel
+    # (1 - w_bg != 0: the others are 0 whatever their shading) needs the
+    # finish, the shading and, per light, the walk over every primitive as an
+    # occluder. B7: a pixel whose cotangent is zero needs nothing; every
+    # other needs its whole forward once and the reverse of every unit.
+    n_cov = int(_soft_covered(packed, cam, cfg_soft.tau_edge, h, w).sum())
+    n_cot = int((g != 0).any(-1).sum())
+
+    def per_px(ops):
+        return (n_t * ops["soft_tri_general"] + n_s * ops["soft_sph_general"],
+                ops["soft_finish"] + n_l * ops["soft_light"]
+                + n_l * (n_t * ops["occ_tri"] + n_s * ops["occ_sph"]))
+
+    prim_f, rest_f = per_px(_OPS)
+    prim_b, rest_b = per_px(_OPS_BWD)
+    ops_b6 = n_pix * prim_f + n_cov * rest_f
+    ops_b7 = n_cot * (prim_f + rest_f + prim_b + rest_b)
+    in_bytes = _nbytes(*inputs)
+    b6_bound = _bound(ops_b6, in_bytes + n_pix * 16)
+    b7_bound = _bound(ops_b7, 2 * in_bytes + n_pix * 16)
+    print(f"[bound] brute 1080p: B3 phong+shadows {ops_b3:.4e} operations "
+          f"({n_lit} lit, {n_occ} occluded), bound {b3_bound[0]:.5f} ms by "
+          f"{b3_bound[1]}; B6 {ops_b6:.4e} operations ({n_cov} covered pixels of "
+          f"{n_pix}), bound {b6_bound[0]:.5f} ms by {b6_bound[1]}; B7 {ops_b7:.4e} "
+          f"operations ({n_cot} pixels with a non-zero cotangent), bound "
+          f"{b7_bound[0]:.5f} ms by {b7_bound[1]}")
+
+    # ---- the port's bench, as a user runs it ------------------------------------
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "opencl_ray_tracer_tpu_torch.bench"],
+        cwd=root, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": root},
+    )
+    print(proc.stderr.strip())
+    _require(proc.returncode == 0, f"the bench failed:\n{proc.stderr[-4000:]}")
+    lines = proc.stdout.strip().splitlines()
+    _require(len(lines) == 1, f"the bench printed {len(lines)} stdout lines")
+    result = json.loads(lines[0])
+    print(f"[bench] {lines[0]}")
+    for key in ("metric", "value", "unit", "rows", "parity_pixel_grad_max_err",
+                "train_step_ms", "device"):
+        _require(key in result, f"the bench's JSON line lacks {key!r}")
+    _require(len(result["rows"]) == 6 and all(
+        r["ms"] > 0 and r["ms_min"] <= r["ms"] <= r["ms_max"]
+        for r in result["rows"].values()), f"bad bench rows: {result['rows']}")
+    _require(result["parity_legacy_frac_identical"] > 0.999
+             and result["parity_pixel_grad_max_err"] <= 1e-4,
+             "the bench's parity scalars are off their bars")
+    print(f"[bench] {len(result['rows'])} rows, headline {result['value']:.4e} "
+          f"rays/s; {time.perf_counter() - t0:.1f} s with start-up")
+
+    shape = "1920x1080 10sph+1cube, legacy ortho camera"
+    return [
+        {"name": "fwd_brute", "route": "cuda",
+         "source": "opencl_ray_tracer_tpu_torch/kernels/csrc/fwd_brute.cu",
+         "replaces": "opencl_ray_tracer_tpu/kernels/fwd.py:67",
+         "launches": launches[0], "max_abs_err": b3_err,
+         "tolerance": "every pixel within 0.5/255 of the twin",
+         "shape": shape + ", phong + hard shadows, float frame",
+         "ms": times["B3 phong+shadows"][0],
+         "plain_ms": times["B3 phong+shadows twin"][0],
+         "bound_ms": b3_bound[0], "bound_by": b3_bound[1], "library_ms": None},
+        {"name": "soft_brute_fwd", "route": "cuda",
+         "source": "opencl_ray_tracer_tpu_torch/kernels/csrc/soft_brute.cu",
+         "replaces": "opencl_ray_tracer_tpu/kernels/soft.py:494",
+         "launches": launches[1],
+         "launch_is": "one wrapper call: the row kernel, then the pixel kernel",
+         "max_abs_err": b6_err,
+         "tolerance": f"every pixel within {FWD_BAR}/255 of the twin",
+         "shape": shape + ", phong + soft shadows",
+         "ms": times["B6"][0], "plain_ms": times["B6 twin"][0],
+         "bound_ms": b6_bound[0], "bound_by": b6_bound[1], "library_ms": None},
+        {"name": "soft_brute_bwd", "route": "cuda",
+         "source": "opencl_ray_tracer_tpu_torch/kernels/csrc/soft_brute.cu",
+         "replaces": "opencl_ray_tracer_tpu/kernels/soft.py:543",
+         "launches": launches[2],
+         "launch_is": "one wrapper call: the row kernel, the pixel kernel, then "
+                      "the row-gradient kernel",
+         "max_abs_err": b7_err,
+         "tolerance": "every operand's gradient within 1e-3 of the twin's "
+                      "autograd, normalised by its largest (max_abs_err is that "
+                      "normalised error)",
+         "shape": shape + ", phong + soft shadows",
+         "ms": times["B7"][0],
+         "plain_ms": times["B7 twin (forward + autograd backward)"][0],
+         "bound_ms": b7_bound[0], "bound_by": b7_bound[1], "library_ms": None},
+    ]
 
 
 if __name__ == "__main__":

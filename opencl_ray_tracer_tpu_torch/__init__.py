@@ -1,9 +1,9 @@
 """opencl_ray_tracer_tpu_torch — the ray tracer on PyTorch and CUDA.
 
 A port of `opencl_ray_tracer_tpu` (JAX/Pallas) that mirrors its module
-paths. Plain tensor code is PyTorch; the tiled hard forward kernel is CUDA
-C++ written for Hopper (kernels/csrc/fwd_tiled.cu), built with nvcc on first
-use. Every constructor takes an explicit `device=`; a frame runs on the
+paths. Plain tensor code is PyTorch; the kernels (tiled and brute, hard and
+soft, forward and backward) are CUDA C++ written for Hopper (kernels/csrc/),
+built with nvcc on first use. Every constructor takes an explicit `device=`; a frame runs on the
 device its scene lies on (the CUDA kernel on a card, its plain PyTorch twin
 on the CPU). This package imports neither jax nor the JAX package.
 
@@ -11,7 +11,8 @@ on the CPU). This package imports neither jax nor the JAX package.
   camera     affine ray-bundle cameras (legacy ortho + pinhole)
   ops/       vectorised intersection + shading math (torch)
   ref/       brute-force oracle tracer (reference semantics)
-  kernels/   binning + coefficient prep (torch) and the CUDA tiled kernel
+  kernels/   binning + coefficient prep (torch) and the CUDA kernels
+  bench      the benchmark entry (python -m opencl_ray_tracer_tpu_torch.bench)
   models/    renderer facade (render, Renderer, get_renderer, MSAA)
   runtime/   backend discovery & dispatch (torch.cuda)
   utils/     logging, RNG, image/PNG IO (stdlib zlib)

@@ -6,9 +6,11 @@ Subcommands:
   fit       inverse rendering on the card: recover a perturbed library
             scene's spheres through the soft differentiable renderer
   devices   device capability dump (openCLInit's platform/device listing)
+  bench     the port's benchmark on the card (one JSON line on stdout);
+            arguments after `bench` go to opencl_ray_tracer_tpu_torch.bench
 
-The JAX package's compare, app and bench subcommands are not ported yet
-(ROADMAP A10).
+The JAX package's compare and app subcommands are not ported yet (ROADMAP
+A10).
 
 Usage: python -m opencl_ray_tracer_tpu_torch.cli <subcommand> [options]
 """
@@ -208,6 +210,14 @@ def main(argv=None) -> int:
     p = sub.add_parser("devices", help="device capability dump")
     p.set_defaults(fn=cmd_devices)
 
+    sub.add_parser("bench", help="benchmark on the card (one JSON line); "
+                                 "its arguments go to the bench module")
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["bench"]:  # forwarded whole: options included
+        from opencl_ray_tracer_tpu_torch import bench
+
+        return bench.main(argv[1:])
     args = parser.parse_args(argv)
     return args.fn(args)
 

@@ -21,7 +21,7 @@ import time
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "build")
-SOURCES = ("fwd_tiled.cu", "soft_tiled.cu")
+SOURCES = ("fwd_tiled.cu", "fwd_brute.cu", "soft_tiled.cu", "soft_brute.cu")
 HEADERS = ("soft_tiled.cuh",)
 
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -103,6 +103,12 @@ def load_library() -> ctypes.CDLL:
         lib.octrt_soft_tiled_fwd.argtypes = [ptr] * 10 + [i] * 12 + [ptr]
         lib.octrt_soft_tiled_bwd.restype = i
         lib.octrt_soft_tiled_bwd.argtypes = [ptr] * 18 + [i] * 12 + [ptr]
+        lib.octrt_fwd_brute.restype = i
+        lib.octrt_fwd_brute.argtypes = [ptr] * 8 + [i] * 10 + [ptr]
+        lib.octrt_soft_brute_fwd.restype = i
+        lib.octrt_soft_brute_fwd.argtypes = [ptr] * 8 + [i] * 10 + [ptr]
+        lib.octrt_soft_brute_bwd.restype = i
+        lib.octrt_soft_brute_bwd.argtypes = [ptr] * 15 + [i] * 10 + [ptr]
         lib.octrt_cuda_error_string.restype = ctypes.c_char_p
         lib.octrt_cuda_error_string.argtypes = [i]
         _LIB = lib

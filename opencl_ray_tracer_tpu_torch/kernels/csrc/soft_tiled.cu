@@ -74,31 +74,7 @@ struct Args {
   int shading, shadows, projective;
 };
 
-// Sum n <= N per-thread values over the block, then one atomicAdd each.
-// Every thread of the block must call it (it holds barriers).
-struct BlockRed {
-  float* smem;  // [NWARP][RED_W]
-  template <int N>
-  __device__ void add(float* dst, const float* v, int n = N) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      float s = v[i];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        s += __shfl_down_sync(0xffffffffu, s, off);
-      }
-      if (lane == 0) smem[warp * RED_W + i] = s;
-    }
-    __syncthreads();
-    if ((int)threadIdx.x < n) {
-      float s = 0.0f;
-      for (int w = 0; w < NWARP; ++w) s += smem[w * RED_W + threadIdx.x];
-      if (s != 0.0f) atomicAdd(dst + threadIdx.x, s);
-    }
-    __syncthreads();
-  }
-};
+using BlockRed = BlockRedT<THREADS, RED_W>;
 
 struct Pixel {
   int tile, xi, yi;

@@ -1,6 +1,7 @@
-// The tile math of the tiled soft renderer: one copy, shared by the forward
-// kernel (B4) and the backward kernel (B5) in soft_tiled.cu, so the two
-// cannot drift. Every function here works on ONE pixel: the candidate
+// The per-pixel math of the soft renderer: one copy, shared by the tiled
+// forward and backward kernels in soft_tiled.cu and the brute forward and
+// backward kernels in soft_brute.cu (whose own pieces are at the end), so
+// no two of them can drift. Every function here works on ONE pixel: the candidate
 // tests, the rank, the streaming softmin, the aggregate geometry, the soft
 // shadow occluder tests and the shading, each forward beside its
 // hand-written reverse. The formulas and their evaluation order are those
@@ -917,14 +918,11 @@ OCTRT_FN int processed(int cnt, int k) {
   return n < k ? n : k;
 }
 
-// One primary candidate row (r: ROW coefficients, alb: ALB albedo floats)
-// into the streaming finals of one pixel; kind 0 = triangle, 1 = sphere.
-template <bool PROJ>
-OCTRT_FN void stream_row(const Ctx& c, const float* r, const float* alb,
-                         int kind, bool aggregate, int shading, Fin& f) {
-  float t, cov, n[3];
-  if (kind) sph_fwd<PROJ>(r, c, t, cov, n);
-  else tri_fwd<PROJ>(r, c, t, cov, n);
+// One tested candidate (t, cov, explicit normal n, albedo row alb) into the
+// streaming finals of one pixel.
+OCTRT_FN void stream_accum(const Ctx& c, float t, float cov, const float n[3],
+                           const float* alb, bool aggregate, int shading,
+                           Fin& f) {
   float scale;
   const float e = fin_step(f, rank(t, cov, c), scale);
   f.z = f.z * scale + e;
@@ -938,6 +936,17 @@ OCTRT_FN void stream_row(const Ctx& c, const float* r, const float* alb,
     for (int a = 0; a < 3; ++a) f.s[a] = f.s[a] * scale + cc[a];
   }
   f.bacc += log_unocc(cov);
+}
+
+// One primary candidate row (r: ROW coefficients, alb: ALB albedo floats)
+// into the streaming finals of one pixel; kind 0 = triangle, 1 = sphere.
+template <bool PROJ>
+OCTRT_FN void stream_row(const Ctx& c, const float* r, const float* alb,
+                         int kind, bool aggregate, int shading, Fin& f) {
+  float t, cov, n[3];
+  if (kind) sph_fwd<PROJ>(r, c, t, cov, n);
+  else tri_fwd<PROJ>(r, c, t, cov, n);
+  stream_accum(c, t, cov, n, alb, aggregate, shading, f);
 }
 
 // Pass over the primary candidates, rows read straight from the tables:
@@ -981,6 +990,70 @@ OCTRT_FN bool is_aggregate(int shading, bool shadows) {
   return shading == SHADE_PHONG || (shadows && shading == SHADE_LAMBERT);
 }
 
+// Per-primitive shading (legacy, lambert without shadows): the pixel's rgb
+// from the streaming finals, and the finals' cotangents from gout.
+OCTRT_FN void nonagg_finish(const Fin& f, int shading, float out[3]) {
+  const float zinv = 1.0f / fmaxf(f.z, 1e-20f);
+  const float w_bg = expf(f.bacc);
+  const float k = shading == SHADE_LEGACY ? 1.0f : 255.0f;
+  for (int a = 0; a < 3; ++a) {
+    const float y = (1.0f - w_bg) * (f.s[a] * k) * zinv;
+    out[a] = shading == SHADE_LEGACY ? y : clipf(y, 0.0f, 255.0f);
+  }
+}
+
+OCTRT_FN void nonagg_finish_bwd(const Fin& f, int shading, const float gout[3],
+                                Cot& cot) {
+  const float zinv = 1.0f / fmaxf(f.z, 1e-20f);
+  const float w_bg = expf(f.bacc);
+  const float k = shading == SHADE_LEGACY ? 1.0f : 255.0f;
+  float g_zinv = 0.0f, g_wbg = 0.0f;
+  for (int a = 0; a < 3; ++a) {
+    const float s = f.s[a] * k;
+    const float y = (1.0f - w_bg) * s * zinv;
+    const float gy = shading == SHADE_LEGACY
+                         ? gout[a] : gout[a] * gclip(y, 0.0f, 255.0f);
+    cot.s[a] = gy * (1.0f - w_bg) * zinv * k;
+    g_wbg -= gy * s * zinv;
+    g_zinv += gy * (1.0f - w_bg) * s;
+  }
+  cot.bacc = g_wbg * w_bg;
+  cot.z = g_zinv * (-zinv * zinv) * gmax(f.z, 1e-20f);
+}
+
+// Cotangents of one candidate's (t, cov, n, albedo) from the finals'
+// cotangents, with the final m held constant (the output does not depend
+// on it): adds into g_t, g_cov, gn, g_alb (ALB floats) and gc.
+OCTRT_FN void cand_bwd(const Ctx& c, const Fin& f, const Cot& cot, bool agg,
+                       int shading, float t, float cov, const float n[3],
+                       const float* alb, float& g_t, float& g_cov, float gn[3],
+                       float* g_alb, CtxGrad& gc) {
+  const float e = expf(rank(t, cov, c) - f.m);
+  float g_e = cot.z;
+  if (agg) {
+    g_e += cot.st * t;
+    g_t += cot.st * e;
+    for (int a = 0; a < 6; ++a) {
+      g_e += cot.s[a] * alb[a];
+      g_alb[a] += cot.s[a] * e;
+    }
+    for (int q = 0; q < 3; ++q) {
+      g_e += cot.sn[q] * n[q];
+      gn[q] += cot.sn[q] * e;
+    }
+  } else {
+    nonagg_contrib_bwd(shading, c, t, n, alb, e, cot.s, g_e, g_t, gn, g_alb,
+                       gc);
+  }
+  const float g_logit = g_e * e;
+  g_cov += cot.bacc * g_log_unocc(cov);
+  if (cov > 1e-12f) {
+    g_t -= g_logit * c.inv_td;
+    gc.inv_td -= g_logit * t;
+    g_cov += g_logit / clipf(cov, 1e-12f, 1.0f) * gclip(cov, 1e-12f, 1.0f);
+  }
+}
+
 // The forward of one pixel after its streaming pass: shading (and, for
 // aggregate shading, the occluder loops) from the finals f -> rgb (0..255).
 template <bool PROJ>
@@ -988,13 +1061,7 @@ OCTRT_FN void pixel_finish(const Ctx& c, const Tabs& T, const Fin& f,
                            int shading, bool shadows, float out[3]) {
   const bool agg = is_aggregate(shading, shadows);
   if (!agg) {
-    const float zinv = 1.0f / fmaxf(f.z, 1e-20f);
-    const float w_bg = expf(f.bacc);
-    const float k = shading == SHADE_LEGACY ? 1.0f : 255.0f;
-    for (int a = 0; a < 3; ++a) {
-      const float y = (1.0f - w_bg) * (f.s[a] * k) * zinv;
-      out[a] = shading == SHADE_LEGACY ? y : clipf(y, 0.0f, 255.0f);
-    }
+    nonagg_finish(f, shading, out);
     return;
   }
   Geom G;
@@ -1047,21 +1114,7 @@ OCTRT_FN void pixel_bwd(const Ctx& c, const Tabs& T, int shading,
       shade_agg_bwd(G, c, logvis, shading, shadows, gout, g_n, g_a, g_v,
                     g_wbg, g_sd, g_logvis, gc);
     } else {
-      const float zinv = 1.0f / fmaxf(f.z, 1e-20f);
-      const float w_bg = expf(f.bacc);
-      const float k = shading == SHADE_LEGACY ? 1.0f : 255.0f;
-      float g_zinv = 0.0f;
-      for (int a = 0; a < 3; ++a) {
-        const float s = f.s[a] * k;
-        const float y = (1.0f - w_bg) * s * zinv;
-        const float gy = shading == SHADE_LEGACY
-                             ? gout[a] : gout[a] * gclip(y, 0.0f, 255.0f);
-        cot.s[a] = gy * (1.0f - w_bg) * zinv * k;
-        g_wbg -= gy * s * zinv;
-        g_zinv += gy * (1.0f - w_bg) * s;
-      }
-      cot.bacc = g_wbg * w_bg;
-      cot.z = g_zinv * (-zinv * zinv) * gmax(f.z, 1e-20f);
+      nonagg_finish_bwd(f, shading, gout, cot);
     }
   }
 
@@ -1113,32 +1166,9 @@ OCTRT_FN void pixel_bwd(const Ctx& c, const Tabs& T, int shading,
         float t, cov, n[3];
         if (kind) sph_fwd<PROJ>(r, c, t, cov, n);
         else tri_fwd<PROJ>(r, c, t, cov, n);
-        const float logit = rank(t, cov, c);
-        const float e = expf(logit - f.m);
-        float g_e = cot.z, g_t = 0.0f, gn[3] = {0.f, 0.f, 0.f};
-        float* g_alb = g + ROW;
-        if (agg) {
-          g_e += cot.st * t;
-          g_t += cot.st * e;
-          for (int a = 0; a < 6; ++a) {
-            g_e += cot.s[a] * alb[a];
-            g_alb[a] += cot.s[a] * e;
-          }
-          for (int q = 0; q < 3; ++q) {
-            g_e += cot.sn[q] * n[q];
-            gn[q] += cot.sn[q] * e;
-          }
-        } else {
-          nonagg_contrib_bwd(shading, c, t, n, alb, e, cot.s, g_e, g_t, gn,
-                             g_alb, gc);
-        }
-        const float g_logit = g_e * e;
-        float g_cov = cot.bacc * g_log_unocc(cov);
-        if (cov > 1e-12f) {
-          g_t -= g_logit * c.inv_td;
-          gc.inv_td -= g_logit * t;
-          g_cov += g_logit / clipf(cov, 1e-12f, 1.0f) * gclip(cov, 1e-12f, 1.0f);
-        }
+        float g_t = 0.0f, g_cov = 0.0f, gn[3] = {0.f, 0.f, 0.f};
+        cand_bwd(c, f, cot, agg, shading, t, cov, n, alb, g_t, g_cov, gn,
+                 g + ROW, gc);
         if (kind) sph_bwd<PROJ>(r, c, g_t, g_cov, gn, g, gc);
         else tri_bwd<PROJ>(r, c, g_t, g_cov, gn, g, gc);
       }
@@ -1173,5 +1203,351 @@ OCTRT_FN Tabs tile_tabs(const float* tri, const float* tri_alb,
   }
   return T;
 }
+
+
+// ==== the brute soft renderer (soft_brute.cu): every primitive, no tables ==
+// Its rays are per pixel (o, d from the camera bundle), so the primary tests
+// are the general-ray occluder tests above (tri_sh_*, sph_sh_*) plus a
+// normal. Each primitive's raw operand column (tri_geo (14, Tp): v0, e1,
+// e2, |e1|, |e2|, unit normal; sph_geo (4, Sp): centre, radius) is first
+// derived into one ROW-float row of that layout:
+//   triangle  [v0, e1, e2, itu, itv, itw, n (3, unflipped), 0]
+//   sphere    [c, r2, inv2r, twor, rinv, 0 x 9]
+// and a row's gradient is mapped back onto the raw column by *_row_bwd.
+
+OCTRT_FN void tri_row_make(const float* geo, int stride, int i, float tau_e,
+                           float* r) {
+  for (int q = 0; q < 9; ++q) r[q] = OCTRT_LDG(geo + (size_t)q * stride + i);
+  const float s1 = OCTRT_LDG(geo + (size_t)9 * stride + i);
+  const float s2 = OCTRT_LDG(geo + (size_t)10 * stride + i);
+  r[9] = fmaxf(s1, 1e-6f) / tau_e;
+  r[10] = fmaxf(s2, 1e-6f) / tau_e;
+  r[11] = fmaxf(0.5f * (s1 + s2), 1e-6f) / tau_e;
+  for (int q = 0; q < 3; ++q) {
+    r[12 + q] = OCTRT_LDG(geo + (size_t)(11 + q) * stride + i);
+  }
+  r[15] = 0.0f;
+}
+
+// gr: the row's gradient -> the raw column's gradient dcol[14]; returns the
+// row's contribution to d tau_e.
+OCTRT_FN float tri_row_bwd(const float* geo, int stride, int i, float tau_e,
+                           const float* gr, float* dcol) {
+  for (int q = 0; q < 9; ++q) dcol[q] = gr[q];
+  const float s1 = OCTRT_LDG(geo + (size_t)9 * stride + i);
+  const float s2 = OCTRT_LDG(geo + (size_t)10 * stride + i);
+  const float h = 0.5f * (s1 + s2);
+  const float gw = gr[11] * gmax(h, 1e-6f) * 0.5f;
+  dcol[9] = (gr[9] * gmax(s1, 1e-6f) + gw) / tau_e;
+  dcol[10] = (gr[10] * gmax(s2, 1e-6f) + gw) / tau_e;
+  for (int q = 0; q < 3; ++q) dcol[11 + q] = gr[12 + q];
+  const float k0 = fmaxf(s1, 1e-6f) / tau_e, k1 = fmaxf(s2, 1e-6f) / tau_e;
+  const float k2 = fmaxf(h, 1e-6f) / tau_e;
+  return -(gr[9] * k0 + gr[10] * k1 + gr[11] * k2) / tau_e;
+}
+
+OCTRT_FN void sph_row_make(const float* geo, int stride, int i, float* r) {
+  for (int q = 0; q < 3; ++q) r[q] = OCTRT_LDG(geo + (size_t)q * stride + i);
+  const float rad = OCTRT_LDG(geo + (size_t)3 * stride + i);
+  const float twor = fmaxf(2.0f * rad, 1e-6f);
+  r[3] = rad * rad;
+  r[4] = 1.0f / twor;
+  r[5] = twor;
+  r[6] = rad > 0.0f ? 1.0f / rad : 0.0f;  // guarded: padded spheres have r = 0
+  for (int q = 7; q < ROW; ++q) r[q] = 0.0f;
+}
+
+OCTRT_FN void sph_row_bwd(const float* geo, int stride, int i, const float* gr,
+                          float* dcol) {
+  for (int q = 0; q < 3; ++q) dcol[q] = gr[q];
+  const float rad = OCTRT_LDG(geo + (size_t)3 * stride + i);
+  const float twor = fmaxf(2.0f * rad, 1e-6f), inv2r = 1.0f / twor;
+  float g = gr[3] * 2.0f * rad +
+            (gr[5] - gr[4] * inv2r * inv2r) * 2.0f * gmax(2.0f * rad, 1e-6f);
+  if (rad > 0.0f) g -= gr[6] / (rad * rad);
+  dcol[3] = g;
+}
+
+// The brute pixel context: o and d from the camera bundle for either camera
+// family (d = d0 + x ddx + y ddy, normalised for pinhole), in the order of
+// the twin's _ray_bundle; every other field as ctx_make<false>.
+template <bool NORM>
+OCTRT_FN void brute_ctx_make(Ctx& c, const float* prm, float tau_d,
+                             float tau_e, float x, float y, int nl) {
+  ctx_make<false>(c, prm, tau_d, tau_e, x, y, nl);
+  for (int q = 0; q < 3; ++q) {
+    c.du[q] = OCTRT_LDG(prm + P_D0 + q) + x * OCTRT_LDG(prm + P_DDX + q) +
+              y * OCTRT_LDG(prm + P_DDY + q);
+    c.d[q] = c.du[q];
+  }
+  if (NORM) {
+    c.len2 = c.du[0] * c.du[0] + c.du[1] * c.du[1] + c.du[2] * c.du[2];
+    c.inv_len = 1.0f / sqrtf(c.len2);
+    for (int q = 0; q < 3; ++q) c.d[q] = c.du[q] * c.inv_len;
+  }
+}
+
+// Context gradients -> params / taus gradients; consumes g.d.
+template <bool NORM>
+OCTRT_FN void brute_ctx_bwd(const Ctx& c, CtxGrad& g, float tau_d, float* dprm,
+                            float* dtau) {
+  float gdu[3];
+  if (NORM) {  // d = du * inv_len, inv_len = (du . du)^-1/2
+    float g_inv = 0.0f;
+    for (int q = 0; q < 3; ++q) g_inv += g.d[q] * c.du[q];
+    const float il = c.inv_len;
+    const float g_len2 = g_inv * (-0.5f * il * il * il);
+    for (int q = 0; q < 3; ++q) gdu[q] = g.d[q] * il + 2.0f * c.du[q] * g_len2;
+  } else {
+    for (int q = 0; q < 3; ++q) gdu[q] = g.d[q];
+  }
+  for (int q = 0; q < 3; ++q) {
+    dprm[P_D0 + q] += gdu[q];
+    dprm[P_DDX + q] += c.x * gdu[q];
+    dprm[P_DDY + q] += c.y * gdu[q];
+    g.d[q] = 0.0f;
+  }
+  ctx_bwd<false>(c, g, tau_d, dprm, dtau);
+}
+
+// Primary test of one derived row for the pixel's own ray: the general-ray
+// test plus the normal (triangles: the unit normal flipped against the ray;
+// spheres: outward at the soft near intersection).
+template <bool SPHERE>
+OCTRT_FN void brute_prim_fwd(const float* r, const Ctx& c, float& t,
+                             float& cov, float n[3]) {
+  if (SPHERE) {
+    sph_sh_fwd(r, c.o, c.d, c, t, cov);
+    for (int q = 0; q < 3; ++q) n[q] = (c.o[q] + t * c.d[q] - r[q]) * r[6];
+  } else {
+    tri_sh_fwd(r, c.o, c.d, t, cov);
+    const float nd = r[12] * c.d[0] + r[13] * c.d[1] + r[14] * c.d[2];
+    const float fl = nd > 0.0f ? -1.0f : 1.0f;
+    for (int q = 0; q < 3; ++q) n[q] = r[12 + q] * fl;
+  }
+}
+
+template <bool SPHERE>
+OCTRT_FN void brute_prim_bwd(const float* r, const Ctx& c, float gt, float gcov,
+                             const float gn[3], float* gr, CtxGrad& gc) {
+  if (SPHERE) {
+    float t, cov;
+    sph_sh_fwd(r, c.o, c.d, c, t, cov);
+    for (int q = 0; q < 3; ++q) {  // n = (o + t d - ctr) * rinv
+      gr[6] += gn[q] * (c.o[q] + t * c.d[q] - r[q]);
+      const float tmp = gn[q] * r[6];
+      gc.o[q] += tmp;
+      gt += tmp * c.d[q];
+      gc.d[q] += tmp * t;
+      gr[q] -= tmp;
+    }
+    sph_sh_bwd(r, c.o, c.d, c, gt, gcov, gr, gc.o, gc.d, gc);
+  } else {
+    const float nd = r[12] * c.d[0] + r[13] * c.d[1] + r[14] * c.d[2];
+    const float fl = nd > 0.0f ? -1.0f : 1.0f;
+    for (int q = 0; q < 3; ++q) gr[12 + q] += gn[q] * fl;
+    tri_sh_bwd(r, c.o, c.d, gt, gcov, gr, gc.o, gc.d);
+  }
+}
+
+// The derived rows of a scene: triangles then spheres, real primitives only
+// (a padded triangle is degenerate and a padded sphere lies at z = 1e9 with
+// radius 0: both have zero weight wherever any real primitive has any, and
+// a pixel no primitive covers is zeroed by 1 - w_bg = 0 either way).
+struct BTabs {
+  const float *tri, *tri_alb, *sph, *sph_alb;  // (n, ROW) rows, (n, ALB) albedo
+  int n_tri, n_sph;
+};
+
+OCTRT_FN void brute_load(const float* rows, const float* albs, int j, float* r,
+                         float* alb) {
+  for (int q = 0; q < ROW; ++q) r[q] = OCTRT_LDG(rows + (size_t)j * ROW + q);
+  if (alb) {
+    for (int q = 0; q < ALB; ++q) alb[q] = OCTRT_LDG(albs + (size_t)j * ALB + q);
+  }
+}
+
+OCTRT_FN void brute_stream_finals(const Ctx& c, const BTabs& B, bool aggregate,
+                                  int shading, Fin& f) {
+  fin_init(f);
+  float r[ROW], alb[ALB], t, cov, n[3];
+  for (int j = 0; j < B.n_tri; ++j) {
+    brute_load(B.tri, B.tri_alb, j, r, alb);
+    brute_prim_fwd<false>(r, c, t, cov, n);
+    stream_accum(c, t, cov, n, alb, aggregate, shading, f);
+  }
+  for (int j = 0; j < B.n_sph; ++j) {
+    brute_load(B.sph, B.sph_alb, j, r, alb);
+    brute_prim_fwd<true>(r, c, t, cov, n);
+    stream_accum(c, t, cov, n, alb, aggregate, shading, f);
+  }
+}
+
+// Soft shadows over every primitive: the sum of log(1 - occ) along one
+// shadow ray.
+OCTRT_FN float brute_occ_logvis(const Ctx& c, const BTabs& B, const float so[3],
+                                const float sd[3], float dist) {
+  float lv = 0.0f, r[ROW];
+  for (int j = 0; j < B.n_tri; ++j) {
+    brute_load(B.tri, nullptr, j, r, nullptr);
+    lv += occ_fwd<false>(r, so, sd, dist, c);
+  }
+  for (int j = 0; j < B.n_sph; ++j) {
+    brute_load(B.sph, nullptr, j, r, nullptr);
+    lv += occ_fwd<true>(r, so, sd, dist, c);
+  }
+  return lv;
+}
+
+// The forward of one pixel -> rgb (0..255).
+OCTRT_FN void brute_pixel_fwd(const Ctx& c, const BTabs& B, int shading,
+                              bool shadows, float out[3]) {
+  const bool agg = is_aggregate(shading, shadows);
+  Fin f;
+  brute_stream_finals(c, B, agg, shading, f);
+  if (!agg) {
+    nonagg_finish(f, shading, out);
+    return;
+  }
+  Geom G;
+  geom_fwd(f, c, G);
+  float logvis[MAX_L] = {0.f, 0.f, 0.f, 0.f};
+  if (shadows) {
+    for (int l = 0; l < c.nl; ++l) {
+      logvis[l] = brute_occ_logvis(c, B, G.so[l], G.sd[l], G.dist[l]);
+    }
+  }
+  shade_agg_fwd(G, c, logvis, shading, shadows, out);
+}
+
+// The backward of one pixel: recompute the finals, reverse shading and
+// geometry once, then walk the occluders and the primitives again with the
+// final m held constant. Each row's gradient goes through red.add into the
+// row-gradient tables D (laid out like B's); every thread that shares `red`
+// calls with the same B, so the loops are uniform, and threads with
+// active == false contribute zeros.
+struct BDTabs {
+  float *tri, *tri_alb, *sph, *sph_alb;
+};
+
+template <class Red>
+OCTRT_FN void brute_pixel_bwd(const Ctx& c, const BTabs& B, int shading,
+                              bool shadows, const float gout[3], bool active,
+                              Red& red, const BDTabs& D, CtxGrad& gc) {
+  const bool agg = is_aggregate(shading, shadows);
+  Fin f;
+  Cot cot;
+  Geom G;
+  float logvis[MAX_L] = {0.f, 0.f, 0.f, 0.f};
+  float g_logvis[MAX_L] = {0.f, 0.f, 0.f, 0.f};
+  float g_so[MAX_L][3], g_sd[MAX_L][3], g_dist[MAX_L];
+  float g_n[3] = {0.f, 0.f, 0.f}, g_a[3] = {0.f, 0.f, 0.f};
+  float g_v[3] = {0.f, 0.f, 0.f}, g_wbg = 0.0f;
+  for (int l = 0; l < MAX_L; ++l) {
+    g_dist[l] = 0.0f;
+    for (int q = 0; q < 3; ++q) g_so[l][q] = g_sd[l][q] = 0.0f;
+  }
+  if (active) {
+    brute_stream_finals(c, B, agg, shading, f);
+    if (agg) {
+      geom_fwd(f, c, G);
+      if (shadows) {
+        for (int l = 0; l < c.nl; ++l) {
+          logvis[l] = brute_occ_logvis(c, B, G.so[l], G.sd[l], G.dist[l]);
+        }
+      }
+      shade_agg_bwd(G, c, logvis, shading, shadows, gout, g_n, g_a, g_v, g_wbg,
+                    g_sd, g_logvis, gc);
+    } else {
+      nonagg_finish_bwd(f, shading, gout, cot);
+    }
+  }
+
+  // ---- occluders, per light ------------------------------------------------
+  if (agg && shadows) {
+    for (int l = 0; l < c.nl; ++l) {
+      for (int kind = 0; kind < 2; ++kind) {
+        const int nrow = kind ? B.n_sph : B.n_tri;
+        const float* rows = kind ? B.sph : B.tri;
+        float* drows = kind ? D.sph : D.tri;
+        for (int j = 0; j < nrow; ++j) {
+          float gr[ROW];
+          for (int q = 0; q < ROW; ++q) gr[q] = 0.0f;
+          if (active) {
+            float r[ROW];
+            brute_load(rows, nullptr, j, r, nullptr);
+            if (kind) {
+              occ_bwd<true>(r, G.so[l], G.sd[l], G.dist[l], c, g_logvis[l], gr,
+                            g_so[l], g_sd[l], g_dist[l], gc);
+            } else {
+              occ_bwd<false>(r, G.so[l], G.sd[l], G.dist[l], c, g_logvis[l],
+                             gr, g_so[l], g_sd[l], g_dist[l], gc);
+            }
+          }
+          red.template add<12>(drows + (size_t)j * ROW, gr);
+        }
+      }
+    }
+  }
+  if (agg && active) {
+    geom_bwd(f, c, G, g_n, g_a, g_v, g_wbg, g_sd, g_so, g_dist, cot, gc);
+  }
+
+  // ---- primitives ------------------------------------------------------------
+  for (int kind = 0; kind < 2; ++kind) {
+    const int nrow = kind ? B.n_sph : B.n_tri;
+    const float* rows = kind ? B.sph : B.tri;
+    const float* albs = kind ? B.sph_alb : B.tri_alb;
+    float* drows = kind ? D.sph : D.tri;
+    float* dalbs = kind ? D.sph_alb : D.tri_alb;
+    for (int j = 0; j < nrow; ++j) {
+      float g[ROW + ALB];
+      for (int q = 0; q < ROW + ALB; ++q) g[q] = 0.0f;
+      if (active) {
+        float r[ROW], alb[ALB], t, cov, n[3];
+        brute_load(rows, albs, j, r, alb);
+        if (kind) brute_prim_fwd<true>(r, c, t, cov, n);
+        else brute_prim_fwd<false>(r, c, t, cov, n);
+        float g_t = 0.0f, g_cov = 0.0f, gn[3] = {0.f, 0.f, 0.f};
+        cand_bwd(c, f, cot, agg, shading, t, cov, n, alb, g_t, g_cov, gn,
+                 g + ROW, gc);
+        if (kind) brute_prim_bwd<true>(r, c, g_t, g_cov, gn, g, gc);
+        else brute_prim_bwd<false>(r, c, g_t, g_cov, gn, g, gc);
+      }
+      red.template add<ROW>(drows + (size_t)j * ROW, g);
+      red.template add<3>(dalbs + (size_t)j * ALB, g + ROW);
+    }
+  }
+}
+
+#ifdef __CUDACC__
+// Sum n <= N per-thread values over a block of THREADS_ threads, then one
+// atomicAdd each. Every thread of the block must call it (it holds
+// barriers). smem: [THREADS_ / 32][RED_W_] floats, RED_W_ >= N.
+template <int THREADS_, int RED_W_>
+struct BlockRedT {
+  float* smem;
+  template <int N>
+  __device__ void add(float* dst, const float* v, int n = N) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      float s = v[i];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        s += __shfl_down_sync(0xffffffffu, s, off);
+      }
+      if (lane == 0) smem[warp * RED_W_ + i] = s;
+    }
+    __syncthreads();
+    if ((int)threadIdx.x < n) {
+      float s = 0.0f;
+      for (int w = 0; w < THREADS_ / 32; ++w) s += smem[w * RED_W_ + threadIdx.x];
+      if (s != 0.0f) atomicAdd(dst + threadIdx.x, s);
+    }
+    __syncthreads();
+  }
+};
+#endif
 
 }  // namespace octrt_soft

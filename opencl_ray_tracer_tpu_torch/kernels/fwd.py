@@ -1,18 +1,44 @@
-"""Per-frame preparation shared by the forward kernels (plain torch).
+"""Brute-force hard forward frame + the per-frame preparation shared by the
+forward kernels.
 
-This module holds the parameter-vector layout and the per-primitive
-coefficient prep that the tiled kernel (kernels/fwd_tiled.py) consumes. The
-JAX package's brute-force megakernel, which also lives in its `fwd.py`, is
-not ported yet (ROADMAP B3): the port's eager K escalation means the tiled
-kernel never overflows, so the brute kernel is not on the main path.
+1. PREP (plain torch, differentiable): the parameter-vector layout and the
+   per-primitive operand arrays and affine coefficients that both the brute
+   kernel here and the tiled kernel (kernels/fwd_tiled.py) consume.
+2. THE BRUTE KERNEL: every pixel against every primitive, no binning.
+   `brute_kernel` launches kernels/csrc/fwd_brute.cu on CUDA tensors and runs
+   `_brute_kernel_plain`, the same function in vectorised torch, on CPU
+   tensors. Shared-direction cameras take the affine primary tests
+   (`_prep_affine_coefs`), pinhole cameras the general Möller–Trumbore and
+   geometric sphere tests; shadow rays always take the general tests.
+3. ENTRY POINTS: `render_pallas` / `render_pallas_packed` (the names of the
+   JAX package's entry points this ports) -> (H, W, 4) int32 or float32.
+
+Exact-semantics notes: miss-as-0.0 sphere sentinel, tca < 0 miss, negative-t
+wins, strict-< ordering (triangles before spheres), closest init 300000.0,
+the first index wins a tie.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from opencl_ray_tracer_tpu_torch.camera import Camera
-from opencl_ray_tracer_tpu_torch.ops.intersect import EPSILON
+from opencl_ray_tracer_tpu_torch.config import RenderConfig
+from opencl_ray_tracer_tpu_torch.ops.intersect import EPSILON, MISS_T
+from opencl_ray_tracer_tpu_torch.ops.shading import LEGACY_FOG_MAX
+
+PRIM_CHUNK = 128  # the plain twin walks the padded primitives in these chunks
+
+# Launches of the CUDA brute kernel in this process; `brute_kernel` adds one
+# per launch and nowhere else.
+BRUTE_LAUNCHES = 0
+
+# Elements per (pixel batch x chunk) temporary of the plain twin.
+_PLAIN_MAX_ELEMS = 1 << 23
+
+_SHADING_CODES = {"legacy": 0, "lambert": 1, "phong": 2}
 
 # params vector layout: camera affine bundle + material + lights.
 _P_O0, _P_DOX, _P_DOY, _P_D0, _P_DDX, _P_DDY = 0, 3, 6, 9, 12, 15
@@ -153,3 +179,321 @@ def _camera_params(camera: Camera, lights) -> torch.Tensor:
         parts.append(lights.colour[li])
         parts.append(lights.intensity[li : li + 1])
     return torch.cat([p.to(torch.float32) for p in parts])
+
+
+# ---------------------------------------------------------------------------
+# The brute kernel: plain twin + CUDA wrapper
+# ---------------------------------------------------------------------------
+
+def _tri_chunk_t(g, o, d):
+    """Möller–Trumbore over one chunk; g: 9 rows (1, CK), o/d: 3 x (B, 1)."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = g
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    det_ok = torch.abs(det) >= EPSILON
+    inv_det = 1.0 / torch.where(det_ok, det, torch.ones_like(det))
+    tvx, tvy, tvz = ox - v0x, oy - v0y, oz - v0z
+    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
+    t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
+    valid = det_ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
+    return t, valid
+
+
+def _sph_chunk_t(g, o, d):
+    """Geometric sphere test over one chunk (tca < 0 misses, an exact-0
+    distance is discarded); g: 4 rows (1, CK)."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    cx, cy, cz, r = g
+    lx, ly, lz = cx - ox, cy - oy, cz - oz
+    tca = lx * dx + ly * dy + lz * dz
+    m2 = lx * lx + ly * ly + lz * lz - tca * tca
+    r2 = r * r
+    hit = (tca >= 0.0) & (m2 <= r2)
+    t0 = tca - torch.sqrt(torch.clamp(r2 - m2, min=0.0))
+    return t0, hit & (t0 != 0.0)
+
+
+def _tri_chunk_t_affine(c, x, y):
+    u = c[0] + x * c[1] + y * c[2]
+    v = c[3] + x * c[4] + y * c[5]
+    t = c[6] + x * c[7] + y * c[8]
+    return t, (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
+
+
+def _sph_chunk_t_affine(c, x, y, x2, y2, xy):
+    tca = c[0] + x * c[1] + y * c[2]
+    d2 = c[3] + x * c[4] + y * c[5] + x2 * c[6] + y2 * c[7] + xy * c[8]
+    hit = (tca >= 0.0) & (d2 <= c[9])
+    t0 = tca - torch.sqrt(torch.clamp(c[9] - d2, min=0.0))
+    return t0, hit & (t0 != 0.0)
+
+
+def _chunk_rows(arr, c):
+    """Rows of a (R, Np) operand over chunk c, each (1, CK)."""
+    s = slice(c * PRIM_CHUNK, (c + 1) * PRIM_CHUNK)
+    return [arr[q, s][None, :] for q in range(arr.shape[0])]
+
+
+def _brute_kernel_plain(params, tri_geo, tri_attr, sph_geo, sph_attr,
+                        tri_coef, sph_coef, *, height, width, n_tris,
+                        n_spheres, shading, shadows, normalize_dir):
+    """The brute kernel as vectorised torch over (pixel batch, chunk of 128
+    primitives): same inputs and output as `brute_kernel`, the same
+    arithmetic in the same order. It walks the padded primitive arrays
+    (padded triangles are degenerate, padded spheres lie beyond MISS_T), in
+    pixel batches that bound a temporary to `_PLAIN_MAX_ELEMS` elements.
+    Returns (height, width, 4) float32 [r, g, b, 255]."""
+    dev = params.device
+    affine = not normalize_dir
+    n_tri_chunks = tri_geo.shape[1] // PRIM_CHUNK if n_tris else 0
+    n_sph_chunks = sph_geo.shape[1] // PRIM_CHUNK if n_spheres else 0
+    n_lights = (params.shape[0] - _P_LIGHTS) // _LIGHT_STRIDE
+    prm = [params[i] for i in range(params.shape[0])]
+    n_pix = height * width
+    out = torch.empty((n_pix, 4), dtype=torch.float32, device=dev)
+    batch = max(1, _PLAIN_MAX_ELEMS // PRIM_CHUNK)
+
+    def occluded_along(o, d, t_max):
+        occ = torch.zeros_like(t_max, dtype=torch.bool)
+        for c in range(n_tri_chunks):
+            t, valid = _tri_chunk_t(_chunk_rows(tri_geo, c), o, d)
+            blocked = valid & (t > 1e-3) & (t < t_max)
+            occ = occ | blocked.any(dim=1, keepdim=True)
+        for c in range(n_sph_chunks):
+            t, valid = _sph_chunk_t(_chunk_rows(sph_geo, c), o, d)
+            blocked = valid & (t > 1e-3) & (t < t_max)
+            occ = occ | blocked.any(dim=1, keepdim=True)
+        return occ
+
+    for p0 in range(0, n_pix, batch):
+        flat = torch.arange(p0, min(p0 + batch, n_pix), device=dev)
+        yi = flat // width
+        x = (flat - yi * width).to(torch.float32)[:, None]
+        y = yi.to(torch.float32)[:, None]
+        o = tuple(prm[_P_O0 + q] + x * prm[_P_DOX + q] + y * prm[_P_DOY + q]
+                  for q in range(3))
+        d = tuple(prm[_P_D0 + q] + x * prm[_P_DDX + q] + y * prm[_P_DDY + q]
+                  for q in range(3))
+        if normalize_dir:
+            inv = 1.0 / torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+            d = tuple(c_ * inv for c_ in d)
+        x2, y2, xy = x * x, y * y, x * y
+
+        best_t = torch.full_like(x, MISS_T)
+        best_idx = torch.zeros_like(x, dtype=torch.int64)
+        best_sph = torch.zeros_like(x, dtype=torch.bool)
+        for is_sph, n_chunks in ((False, n_tri_chunks), (True, n_sph_chunks)):
+            for c in range(n_chunks):
+                if affine and is_sph:
+                    t, valid = _sph_chunk_t_affine(_chunk_rows(sph_coef, c),
+                                                   x, y, x2, y2, xy)
+                elif affine:
+                    t, valid = _tri_chunk_t_affine(_chunk_rows(tri_coef, c), x, y)
+                elif is_sph:
+                    t, valid = _sph_chunk_t(_chunk_rows(sph_geo, c), o, d)
+                else:
+                    t, valid = _tri_chunk_t(_chunk_rows(tri_geo, c), o, d)
+                tpair = torch.where(valid, t, MISS_T)
+                cmin, first = tpair.min(dim=1, keepdim=True)
+                wins = cmin < best_t
+                best_t = torch.where(wins, cmin, best_t)
+                best_idx = torch.where(wins, first + c * PRIM_CHUNK, best_idx)
+                best_sph = torch.where(wins, is_sph, best_sph)
+
+        hit = best_t < MISS_T
+        idx = best_idx[:, 0]
+        attr = torch.where(best_sph,
+                           sph_attr[idx.clamp(max=sph_attr.shape[0] - 1)],
+                           tri_attr[idx.clamp(max=tri_attr.shape[0] - 1)])
+        attr = torch.where(hit, attr, 0.0)
+        col = [attr[:, q:q + 1] for q in range(8)]
+        cr, cg, cb = col[0], col[1], col[2]
+
+        if shading == "legacy":
+            scalar = 255.0 - best_t * (255.0 / LEGACY_FOG_MAX)
+            rgb = [torch.where(hit, c_ * scalar, 0.0) for c_ in (cr, cg, cb)]
+        else:
+            px = o[0] + best_t * d[0]
+            py = o[1] + best_t * d[1]
+            pz = o[2] + best_t * d[2]
+            ax, ay, az, irad, is_sph = col[3], col[4], col[5], col[6], col[7]
+            nsx = (px - ax) * irad
+            nsy = (py - ay) * irad
+            nsz = (pz - az) * irad
+            flip = torch.where(ax * d[0] + ay * d[1] + az * d[2] > 0, -1.0, 1.0)
+            sph_w = is_sph > 0.5
+            nx = torch.where(sph_w, nsx, ax * flip)
+            ny = torch.where(sph_w, nsy, ay * flip)
+            nz = torch.where(sph_w, nsz, az * flip)
+            ninv = 1.0 / torch.sqrt(torch.clamp(nx * nx + ny * ny + nz * nz,
+                                                min=1e-20))
+            nx, ny, nz = nx * ninv, ny * ninv, nz * ninv
+            vinv = 1.0 / torch.sqrt(torch.clamp(
+                d[0] * d[0] + d[1] * d[1] + d[2] * d[2], min=1e-20))
+            vx, vy, vz = -d[0] * vinv, -d[1] * vinv, -d[2] * vinv
+
+            ambient, spec_k, shine = prm[_P_AMBIENT], prm[_P_SPEC], prm[_P_SHINE]
+            zero = torch.zeros_like(best_t)
+            diff = [zero, zero, zero]
+            spec = [zero, zero, zero]
+            for li in range(n_lights):
+                base = _P_LIGHTS + li * _LIGHT_STRIDE
+                lc = prm[base + 3:base + 6]
+                lint = prm[base + 6]
+                tlx, tly, tlz = prm[base] - px, prm[base + 1] - py, prm[base + 2] - pz
+                dist = torch.sqrt(torch.clamp(tlx * tlx + tly * tly + tlz * tlz,
+                                              min=1e-20))
+                ldx, ldy, ldz = tlx / dist, tly / dist, tlz / dist
+                ndl = nx * ldx + ny * ldy + nz * ldz
+                ndotl = torch.clamp(ndl, min=0.0)
+                if shadows:
+                    so = (px + 1e-2 * nx, py + 1e-2 * ny, pz + 1e-2 * nz)
+                    occ = occluded_along(so, (ldx, ldy, ldz), dist)
+                    vis = torch.where(occ, 0.0, 1.0)
+                else:
+                    vis = 1.0
+                wdiff = lint * ndotl * vis
+                diff = [diff[q] + wdiff * lc[q] for q in range(3)]
+                if shading == "phong":
+                    two_ndl = 2.0 * ndl
+                    rx = two_ndl * nx - ldx
+                    ry = two_ndl * ny - ldy
+                    rz = two_ndl * nz - ldz
+                    rdotv = torch.clamp(rx * vx + ry * vy + rz * vz, min=0.0)
+                    wspec = (spec_k
+                             * torch.exp(shine * torch.log(torch.clamp(rdotv, min=1e-20)))
+                             * lint * vis * (ndotl > 0.0))
+                    spec = [spec[q] + wspec * lc[q] for q in range(3)]
+            rgb = [torch.where(hit, torch.clamp(c_ * (ambient + diff[q]) + spec[q],
+                                                0.0, 1.0) * 255.0, 0.0)
+                   for q, c_ in enumerate((cr, cg, cb))]
+        out[flat] = torch.cat(rgb + [torch.full_like(best_t, 255.0)], dim=1)
+    return out.reshape(height, width, 4)
+
+
+def _check(name, t, dtype, shape=None, device=None):
+    """What every kernel wrapper asks of a tensor before it passes its
+    pointer on."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
+
+
+def brute_kernel(params, tri_geo, tri_attr, sph_geo, sph_attr, tri_coef,
+                 sph_coef, *, height: int, width: int, n_tris: int,
+                 n_spheres: int, shading: str, shadows: bool,
+                 normalize_dir: bool):
+    """The brute hard forward kernel -> (height, width, 4) float32.
+
+    CUDA tensors launch kernels/csrc/fwd_brute.cu (built on first use) or
+    raise; CPU tensors run `_brute_kernel_plain`. Inputs: params (21+7L,);
+    tri_geo (9, Tp), tri_attr (Tp, 8), sph_geo (4, Sp), sph_attr (Sp, 8);
+    for shared-direction cameras (normalize_dir False) also tri_coef
+    (9, Tp) and sph_coef (10, Sp), else None. n_tris / n_spheres are the
+    real primitive counts: the CUDA kernel stops there (no padded primitive
+    can win a hit or block a shadow ray), the twin walks the padding."""
+    global BRUTE_LAUNCHES
+    args = (params, tri_geo, tri_attr, sph_geo, sph_attr, tri_coef, sph_coef)
+    kw = dict(height=height, width=width, n_tris=n_tris, n_spheres=n_spheres,
+              shading=shading, shadows=shadows, normalize_dir=normalize_dir)
+    if shading not in _SHADING_CODES:
+        raise ValueError(f"bad shading {shading!r}")
+    dev = params.device
+    if dev.type == "cpu":
+        return _brute_kernel_plain(*args, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"brute_kernel runs on cuda or cpu tensors, got {dev}")
+
+    n_lights = (params.shape[0] - _P_LIGHTS) // _LIGHT_STRIDE
+    if n_lights < 1 or params.shape[0] != _P_LIGHTS + n_lights * _LIGHT_STRIDE:
+        raise ValueError(f"params length {params.shape[0]} is not 21 + 7L")
+    tp, sp = tri_geo.shape[1], sph_geo.shape[1]
+    if not (0 <= n_tris <= tp and 0 <= n_spheres <= sp and height > 0 and width > 0):
+        raise ValueError("primitive counts or frame size out of range")
+    _check("params", params, torch.float32, params.shape, dev)
+    _check("tri_geo", tri_geo, torch.float32, (9, tp), dev)
+    _check("tri_attr", tri_attr, torch.float32, (tp, 8), dev)
+    _check("sph_geo", sph_geo, torch.float32, (4, sp), dev)
+    _check("sph_attr", sph_attr, torch.float32, (sp, 8), dev)
+    affine = not normalize_dir
+    if affine:
+        _check("tri_coef", tri_coef, torch.float32, (9, tp), dev)
+        _check("sph_coef", sph_coef, torch.float32, (10, sp), dev)
+
+    from opencl_ray_tracer_tpu_torch.kernels._build import load_library
+
+    lib = load_library()
+    out = torch.empty((height, width, 4), dtype=torch.float32, device=dev)
+    p = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else None)  # noqa: E731
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.octrt_fwd_brute(
+            p(params), p(tri_geo), p(tri_attr), p(sph_geo), p(sph_attr),
+            p(tri_coef if affine else None), p(sph_coef if affine else None),
+            p(out), height, width, tp, sp, n_tris, n_spheres, n_lights,
+            _SHADING_CODES[shading], int(bool(shadows)), int(affine),
+            ctypes.c_void_p(stream),
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"fwd_brute kernel launch failed: {lib.octrt_cuda_error_string(rc).decode()}"
+            f" (cudaError {rc})"
+        )
+    BRUTE_LAUNCHES += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Frame entry points
+# ---------------------------------------------------------------------------
+
+def brute_kernel_inputs(packed, camera: Camera, config: RenderConfig):
+    """The (args, kwargs) that `brute_kernel` (and its twin) take for a
+    frame."""
+    tri_geo, tri_attr, sph_geo, sph_attr = _prep_scene_arrays(packed)
+    tri_coef = sph_coef = None
+    if not camera.normalize:  # shared-direction cameras: the affine tests
+        tri_coef, sph_coef = _prep_affine_coefs(packed, camera)
+        tri_coef, sph_coef = tri_coef.contiguous(), sph_coef.contiguous()
+    args = (_camera_params(camera, packed.lights).contiguous(),
+            tri_geo.contiguous(), tri_attr.contiguous(), sph_geo.contiguous(),
+            sph_attr.contiguous(), tri_coef, sph_coef)
+    kw = dict(height=config.height, width=config.width, n_tris=packed.n_tris,
+              n_spheres=packed.n_spheres, shading=config.shading,
+              shadows=config.shadows, normalize_dir=camera.normalize)
+    return args, kw
+
+
+def render_pallas(scene, camera: Camera, config: RenderConfig) -> torch.Tensor:
+    """Render with the brute kernel (every pixel against every primitive).
+    Returns (H, W, 4)."""
+    return render_pallas_packed(scene.pack(), camera, config)
+
+
+@torch.no_grad()
+def render_pallas_packed(packed, camera: Camera, config: RenderConfig) -> torch.Tensor:
+    """Brute render from an already-packed scene: (H, W, 4) int32 (truncated)
+    for framebuffer_dtype "int", else float32. The brute kernel has no
+    packed-word output."""
+    if config.framebuffer_dtype == "packed":
+        raise ValueError("the brute kernel has no packed-word framebuffer; "
+                         "use framebuffer_dtype 'int' or 'float'")
+    args, kw = brute_kernel_inputs(packed, camera, config)
+    rgba = brute_kernel(*args, **kw)
+    if config.framebuffer_dtype == "int":
+        return torch.trunc(rgba).to(torch.int32)
+    return rgba

@@ -18,7 +18,7 @@ see `_prep_projective_coefs`).
 3. OVERFLOW: `render_tiled_packed` re-bins with K doubled until every
    candidate fits (bounded by the primitive count), so the tiled kernel never
    sees a truncated list and the brute-force fallback of the JAX package is
-   never needed on this path.
+   never needed on this path (kernels/fwd.py holds the brute kernel).
 
 Shadows: a point p is occluded by triangle T from point light L iff p lies
 inside T's light frustum — behind T's plane and inside the three side planes
@@ -47,7 +47,9 @@ from opencl_ray_tracer_tpu_torch.kernels.fwd import (
     _P_O0,
     _P_SHINE,
     _P_SPEC,
+    _SHADING_CODES,
     _camera_params,
+    _check,
     _cross,
     _prep_affine_coefs,
     _prep_scene_arrays,
@@ -77,7 +79,6 @@ KERNEL_LAUNCHES = 0
 # 64 MB of float32, small on the card, a few at a time on the CPU.
 _PLAIN_MAX_ELEMS = 1 << 24
 
-_SHADING_CODES = {"legacy": 0, "lambert": 1, "phong": 2}
 _FORMAT_CODES = {"packed": 0, "float": 1}
 
 
@@ -890,17 +891,6 @@ def _shadow_occluded_plain(tri_sh, sph_sh, n_tri, n_sph, li, tri_stride,
     return occ
 
 
-def _check(name, t, dtype, shape=None, device=None):
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if device is not None and t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
-
-
 def tiled_kernel(params, counts, tri_coef_t, tri_attr_t, sph_coef_t,
                  sph_attr_t, tri_sh_t, sph_sh_t, *, height: int, width: int,
                  ntx: int, shading: str, shadows: bool, projective: bool,
@@ -1064,8 +1054,8 @@ def render_tiled_packed(packed, camera: Camera, config: RenderConfig,
 
     Overflow policy: a tile exceeding cull_k / shadow_cull_k re-bins with
     both doubled, up to the primitive count, where no list can overflow.
-    Precomputed `bins` must not overflow (the brute-force fallback is not
-    ported; ROADMAP B3)."""
+    Precomputed `bins` must not overflow: this path has no brute fallback
+    (the brute kernel is reached through kernels.render_pallas)."""
     if bins is None:
         bins = bin_for_config(packed, camera, config)
     elif bool(bins.overflow):

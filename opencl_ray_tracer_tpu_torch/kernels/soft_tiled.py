@@ -47,7 +47,9 @@ from opencl_ray_tracer_tpu_torch.kernels.fwd import (
     _P_O0,
     _P_SHINE,
     _P_SPEC,
+    _SHADING_CODES,
     _camera_params,
+    _check,
     _cross,
     _prep_affine_coefs,
 )
@@ -56,7 +58,6 @@ from opencl_ray_tracer_tpu_torch.kernels.fwd_tiled import (
     TILE_PIX,
     TILE_W,
     _bin_prims,
-    _check,
     _f32,
     _prep_projective_coefs,
     _prim_bboxes,
@@ -65,7 +66,9 @@ from opencl_ray_tracer_tpu_torch.kernels.fwd_tiled import (
     _tile_hit_z,
 )
 from opencl_ray_tracer_tpu_torch.kernels.soft import (
+    MAX_LIGHTS,
     NEG_BIG,
+    _raise_on,
     _safe_norm_rows,
     _safe_unit_rows,
 )
@@ -80,7 +83,6 @@ CH = 8
 # Coverage sigmoids are exp-small this many tau_edge units outside a
 # primitive (16 sigma => sigmoid ~ 1.1e-7): culling is invisible.
 SOFT_CULL_SIGMAS = 16.0
-MAX_LIGHTS = 4  # the CUDA kernels keep per-light state in registers
 
 # Launches of the CUDA kernels in this process; `soft_tiled_fwd` /
 # `soft_tiled_bwd` add one per launch and nowhere else.
@@ -89,8 +91,6 @@ BWD_LAUNCHES = 0
 
 # Elements per (tile batch x candidate x pixel) temporary of the plain twin.
 _PLAIN_MAX_ELEMS = 1 << 22
-
-_SHADING_CODES = {"legacy": 0, "lambert": 1, "phong": 2}
 
 
 # ---------------------------------------------------------------------------
@@ -791,14 +791,6 @@ def _launch_args(params, taus, tables, counts, cfg):
             ssh_t.shape[1] // n_lights, n_lights, _SHADING_CODES[cfg["shading"]],
             int(bool(cfg["shadows"])), int(bool(cfg["projective"]))]
     return ptrs, ints
-
-
-def _raise_on(rc, what):
-    if rc != 0:
-        from opencl_ray_tracer_tpu_torch.kernels._build import load_library
-
-        msg = load_library().octrt_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{what} kernel launch failed: {msg} (cudaError {rc})")
 
 
 def soft_tiled_fwd(params, taus, tables, counts, *, cfg) -> torch.Tensor:

@@ -1,0 +1,77 @@
+"""The port's bench entry without a card: the aggregation policy, the
+argument parsing and row plan, and that a run without a card fails instead
+of timing the CPU."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from opencl_ray_tracer_tpu_torch import bench, bench_util, cli
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("samples,want", [
+    ([3.0], (3.0, 3.0, 3.0)),
+    ([5.0, 1.0, 3.0], (3.0, 1.0, 5.0)),
+    ([4.0, 1.0, 2.0, 3.0], (2.5, 1.0, 4.0)),   # even: the true median
+    (iter([2.0, 1.0]), (1.5, 1.0, 2.0)),       # any iterable
+])
+def test_median_spread(samples, want):
+    assert bench_util.median_spread(samples) == want
+
+
+def test_median_spread_raises_on_empty():
+    with pytest.raises(ValueError, match="at least one"):
+        bench_util.median_spread([])
+
+
+def test_parse_args_defaults_and_flags():
+    a = bench.parse_args([])
+    assert (a.width, a.height, a.scene, a.shading) == (1920, 1080, None, "phong")
+    assert not a.skip_context and not a.no_shadows and a.cull_k is None
+    a = bench.parse_args(["--scene", "3", "--width", "640", "--height", "480",
+                          "--shading", "legacy", "--no-shadows", "--cull-k", "96",
+                          "--skip-context"])
+    assert (a.scene, a.width, a.height, a.shading) == (3, 640, 480, "legacy")
+    assert a.no_shadows and a.cull_k == 96 and a.skip_context
+    with pytest.raises(SystemExit):
+        bench.parse_args(["--scene", "7"])
+
+
+@pytest.mark.parametrize("argv,want", [
+    ([], [bench.HEADLINE, bench.FWD_BWD, bench.TILED_LEGACY,
+          bench.TILED_PINHOLE, bench.BRUTE_LEGACY, bench.TRAIN]),
+    (["--skip-context"], [bench.HEADLINE, bench.FWD_BWD, bench.TRAIN]),
+    (["--scene", "2", "--width", "320", "--height", "200", "--shading", "lambert"],
+     ["scene2 lambert 320x200"]),
+])
+def test_row_plan(argv, want):
+    assert bench.row_plan(bench.parse_args(argv)) == want
+
+
+def test_timing_needs_a_card():
+    assert not torch.cuda.is_available()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_util.call_times_ms(lambda: None, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_util.back_to_back_ms(lambda: None, 1)
+
+
+def test_bench_and_cli_raise_without_card():
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.main(["--skip-context"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["bench", "--scene", "1"])
+
+
+def test_bench_module_exits_nonzero_without_card():
+    proc = subprocess.run(
+        [sys.executable, "-m", "opencl_ray_tracer_tpu_torch.bench",
+         "--skip-context"], cwd=REPO, capture_output=True, text=True,
+        timeout=300, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode != 0
+    assert proc.stdout.strip() == ""  # no JSON line

@@ -113,8 +113,10 @@ SOFT_PINHOLE = dict(position=(128.0, 64.0, 200.0), look_at=(128.0, 64.0, -60.0),
 def _soft_case(device, scene_name, cam_kind, shading, shadows):
     from opencl_ray_tracer_tpu_torch.kernels import soft_tiled as S
 
-    scene = (T.random_scene(5, 3, seed=4, bounds=(250.0, 120.0), device=device)
-             if scene_name == "test" else T.create_scene1(device=device))
+    scene = {"test": lambda: T.random_scene(5, 3, seed=4, bounds=(250.0, 120.0),
+                                            device=device),
+             "scene1": lambda: T.create_scene1(device=device),
+             "scene3": lambda: T.create_scene(3, seed=0, device=device)}[scene_name]()
     cam = (T.legacy_ortho_camera(device=device) if cam_kind == "ortho"
            else T.pinhole_camera(**SOFT_PINHOLE, device=device))
     cfg = T.RenderConfig(width=SOFT_W, height=SOFT_H, shading=shading,
@@ -202,3 +204,92 @@ def test_soft_pixel_gradient_probes(cuda_device, yy, xx, c):
     for want in (row(_twin), row(render_soft)):
         err = max((a - b).abs().max().item() for a, b in zip(got, want))
         assert err <= 1e-4, err
+
+
+# ---- the brute kernels B3 (hard), B6 and B7 (soft) -------------------------
+# Bars (chip_smoke.py phases 10, 11): B3 float frames within 0.5/255 of the
+# twin on every pixel, truncated int frames within 1 and identical on
+# >= 99.5%; B6 images within 0.05/255 on every pixel; B7: every operand's
+# gradient (params, taus, the four scene arrays) within 1e-3 of the twin's
+# autograd, normalised by its largest (2e-3 pinhole).
+
+@pytest.mark.parametrize(
+    "scene_num,cam_kind,shading,shadows",
+    [
+        (1, "ortho", "legacy", False),
+        (1, "pinhole", "phong", True),
+        (2, "ortho", "lambert", True),
+        (3, "ortho", "phong", True),
+        (3, "pinhole", "legacy", False),
+    ],
+)
+def test_brute_kernel_matches_twin(cuda_device, scene_num, cam_kind, shading,
+                                   shadows):
+    from opencl_ray_tracer_tpu_torch.kernels import fwd
+
+    scene = T.create_scene(scene_num, seed=0, device=cuda_device)
+    cam = (T.legacy_ortho_camera(device=cuda_device) if cam_kind == "ortho" else
+           T.pinhole_camera((320.0, 240.0, 60.0), (320.0, 240.0, -85.0),
+                            fov_degrees=80.0, width=W, height=H,
+                            device=cuda_device))
+    cfg = T.RenderConfig(width=W, height=H, shading=shading, shadows=shadows,
+                         framebuffer_dtype="float")
+    args, kw = fwd.brute_kernel_inputs(scene.pack(), cam, cfg)
+    before = fwd.BRUTE_LAUNCHES
+    got = fwd.brute_kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert fwd.BRUTE_LAUNCHES == before + 1
+    want = fwd._brute_kernel_plain(*args, **kw)
+    assert got.shape == want.shape == (H, W, 4)
+    assert (got - want).abs().max().item() < 0.5
+    ierr = (torch.trunc(got) - torch.trunc(want)).abs().amax(-1)
+    assert ierr.max().item() <= 1
+    assert (ierr == 0).float().mean().item() >= 0.995
+    with pytest.raises(ValueError):
+        fwd.brute_kernel(*args, **{**kw, "n_tris": args[1].shape[1] + 1})
+    with pytest.raises(TypeError):
+        fwd.brute_kernel(args[0].double(), *args[1:], **kw)
+
+
+# scene3: 1,300 primitives, so B7's accumulators take 125 KB of a block's
+# shared memory (above the 48 KB a kernel gets without asking), one block a
+# multiprocessor
+@pytest.mark.parametrize(
+    "scene_name,cam_kind,shading,shadows",
+    [("test", cam_kind, shading, shadows)
+     for shading, shadows in (("legacy", False), ("lambert", False),
+                              ("lambert", True), ("phong", True))
+     for cam_kind in ("ortho", "pinhole")] + [("scene3", "ortho", "phong", True)])
+def test_soft_brute_kernels_match_twin(cuda_device, scene_name, cam_kind,
+                                       shading, shadows):
+    from opencl_ray_tracer_tpu_torch.kernels import soft
+
+    _, scene, cam, _ = _soft_case(cuda_device, scene_name, cam_kind, shading,
+                                  shadows)
+    packed = scene.pack()
+    inputs = [soft._camera_params(cam, packed.lights).contiguous(),
+              torch.tensor([1.0, 0.5], device=cuda_device)]
+    inputs += [a.contiguous() for a in soft._prep_soft_arrays(packed)]
+    kw = dict(height=SOFT_H, width=SOFT_W,
+              cfg=soft._static_cfg(packed, shading, shadows, cam.normalize))
+    before = (soft.SOFT_BRUTE_FWD_LAUNCHES, soft.SOFT_BRUTE_BWD_LAUNCHES)
+    got = soft.soft_brute_fwd(*inputs, **kw)
+    with torch.no_grad():
+        want = soft._soft_brute_plain(*inputs, **kw)
+    assert (got - want).abs().max().item() < 0.05
+    g = torch.zeros_like(want)
+    g[..., :3] = 2.0 * want[..., :3] / (SOFT_H * SOFT_W * 3)
+    gk = soft.soft_brute_bwd(*inputs, g, **kw)
+    torch.cuda.synchronize()
+    assert (soft.SOFT_BRUTE_FWD_LAUNCHES, soft.SOFT_BRUTE_BWD_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    gt = torch.autograd.grad(soft._soft_brute_plain(*leaves, **kw), leaves, g,
+                             allow_unused=True)
+    atol = 1e-3 if cam_kind == "ortho" else 2e-3
+    for name, a, b in zip(("params", "taus", "tri_geo", "tri_alb", "sph_geo",
+                           "sph_alb"), gk, gt):
+        assert torch.isfinite(a).all(), name
+        scale = b.abs().max().item()
+        assert (a - b).abs().max().item() <= atol * scale + 1e-12, name
+

@@ -41,6 +41,7 @@ calls = (
     lambda: T.get_renderer("soft", width=128, height=64).render(
         T.create_scene1(device="cuda")),
     lambda: T.cli.main(["fit", "--steps", "2"]),
+    lambda: T.cli.main(["bench", "--skip-context"]),
 )
 for call in calls:
     try:
@@ -64,7 +65,7 @@ def _run(code_or_args, cwd=REPO, **env):
 def test_port_imports_no_jax():
     proc = _run(IMPORT_ALL)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 32  # every ported module
+    assert int(proc.stdout.split()[-1]) >= 34  # every ported module
 
 
 def test_cuda_device_without_card_raises():
@@ -122,6 +123,48 @@ def test_kernel_wrapper_device_policy():
         soft_tiled.soft_tiled_bwd(params.to("meta"), taus.to("meta"),
                                   to_meta(tables), counts.to("meta"),
                                   img.to("meta"), cfg=kc)
+
+
+def test_brute_wrappers_device_policy():
+    """The brute wrappers (B3, B6, B7): CPU tensors take the plain twin (no
+    launch counted); a device that is neither CPU nor CUDA is refused."""
+    from opencl_ray_tracer_tpu_torch import (
+        RenderConfig,
+        create_scene1,
+        legacy_ortho_camera,
+    )
+    from opencl_ray_tracer_tpu_torch.kernels import fwd, soft
+
+    cpu = torch.device("cpu")
+    packed = create_scene1(device=cpu).pack()
+    cam = legacy_ortho_camera(device=cpu)
+    cfg = RenderConfig(width=64, height=32, shading="phong", shadows=True,
+                       framebuffer_dtype="float")
+    args, kw = fwd.brute_kernel_inputs(packed, cam, cfg)
+    before = fwd.BRUTE_LAUNCHES
+    out = fwd.brute_kernel(*args, **kw)
+    assert out.shape == (32, 64, 4) and out.dtype == torch.float32
+    assert fwd.BRUTE_LAUNCHES == before
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fwd.brute_kernel(*(a.to("meta") for a in args), **kw)
+    with pytest.raises(ValueError, match="shading"):
+        fwd.brute_kernel(*args, **{**kw, "shading": "toon"})
+
+    inputs = [soft._camera_params(cam, packed.lights), torch.tensor([1.0, 0.5])]
+    inputs += list(soft._prep_soft_arrays(packed))
+    skw = dict(height=32, width=64,
+               cfg=soft._static_cfg(packed, "phong", True, False))
+    before = (soft.SOFT_BRUTE_FWD_LAUNCHES, soft.SOFT_BRUTE_BWD_LAUNCHES)
+    img = soft.soft_brute_fwd(*inputs, **skw)
+    assert img.shape == (32, 64, 4) and img.dtype == torch.float32
+    grads = soft.soft_brute_bwd(*inputs, torch.ones_like(img), **skw)
+    assert [tuple(g.shape) for g in grads] == [tuple(t.shape) for t in inputs]
+    assert (soft.SOFT_BRUTE_FWD_LAUNCHES, soft.SOFT_BRUTE_BWD_LAUNCHES) == before
+    meta = [t.to("meta") for t in inputs]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        soft.soft_brute_fwd(*meta, **skw)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        soft.soft_brute_bwd(*meta, img.to("meta"), **skw)
 
 
 def test_chip_smoke_fails_without_card():
