@@ -50,15 +50,23 @@ differentiable) — through the entry points a user calls, and fails
    1e-3 of the twin's normalised by its largest (2e-3 pinhole); then
    _soft_render_core against render_soft_tiled (ortho), image within
    0.05/255 and scene-leaf gradients within 1e-3 normalised; then scene 3
-   (1,300 primitives, phong + soft shadows), where B7's accumulators take
-   125 KB of a block's shared memory;
+   (1,300 primitives, phong + soft shadows); then two and three lights
+   (the kernels' builds for a light count read at run time; one light has
+   builds of its own); then B7's handling of its cotangent: exact zeros for
+   an all-zero one, and a cotangent on a few scattered pixels and one full
+   8x4 patch against the twin's autograd, the list of live patches that the
+   card built equal to its plain version each time; then 2,600 primitives
+   at 64x32 against the twin (B7 once held at most 2,400);
 12. the brute path at full size: render_pallas_packed on the 1080p headline
    frame (legacy int, the bench's brute row, and phong + shadows float)
    checked against B1's frames; _soft_render_core forward + backward at
    1080p phong + soft shadows, step-1 gradients against the tiled path's
    (within 5e-3 normalised: two paths, see there) and B7 against its twin;
    CUDA-event times of each brute kernel, its twin and the whole calls,
-   and the two-count slope beside them;
+   and the two-count slope beside them; B7 also with a cotangent that is
+   non-zero on every pixel and on scene 3 (1,300 primitives) at 256x128, B6
+   also on scene 3 at 640x480, each beside its own bound and the time of
+   the kernels before their redesign;
    then `python -m opencl_ray_tracer_tpu_torch.bench` as a subprocess, whose
    exit code and JSON line are checked.
 
@@ -1028,6 +1036,93 @@ def _brute_twin_render(scene, cam, cfg, taus=None):
         cfg=B._static_cfg(packed, cfg.shading, cfg.shadows, cam.normalize))
 
 
+def _brute_operands(scene, cam, cfg):
+    """The brute soft kernels' operands for a scene: ([params, taus, tri_geo,
+    tri_alb, sph_geo, sph_alb], the wrappers' keywords)."""
+    import torch
+
+    from opencl_ray_tracer_tpu_torch.kernels import soft as B
+
+    packed = scene.pack()
+    inputs = [B._camera_params(cam, packed.lights).contiguous(),
+              torch.tensor([cfg.tau_depth, cfg.tau_edge], device=packed.device),
+              *(a.contiguous() for a in B._prep_soft_arrays(packed))]
+    return inputs, dict(height=cfg.height, width=cfg.width,
+                        cfg=B._static_cfg(packed, cfg.shading, cfg.shadows,
+                                          cam.normalize))
+
+
+_OPERANDS = ("params", "taus", "tri_geo", "tri_alb", "sph_geo", "sph_alb")
+
+
+def _live_count(label, live, g):
+    """The list of live patches that B7 built on the card for the cotangent
+    g, held against its plain version: the same patches, in any order.
+    Returns their number, read from the kernel's counter."""
+    import torch
+
+    from opencl_ray_tracer_tpu_torch.kernels import soft as B
+
+    want = B._live_patches(g)
+    n = int(live[0].item())
+    _require(n == want.numel(), f"{label}: the card lists {n} live patches, the "
+                                f"plain version {want.numel()}")
+    _require(torch.equal(live[2:2 + n].sort().values.long(), want),
+             f"{label}: the card's live patches differ from the plain version's")
+    return n
+
+
+def _b7_vs_twin(label, inputs, g, skw, atol=1e-3):
+    """B7 on a cotangent g against the twin's autograd on the same operands:
+    the largest error over the six operands, each normalised by its largest."""
+    import torch
+
+    from opencl_ray_tracer_tpu_torch.kernels import soft as B
+
+    got, live = B._soft_brute_bwd_cuda(inputs, g, skw["height"], skw["width"],
+                                       skw["cfg"])
+    _live_count(label, live, g)
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    want = torch.autograd.grad(B._soft_brute_plain(*leaves, **skw), leaves, g,
+                               allow_unused=True)
+    want = [torch.zeros_like(t) if w is None else w for t, w in zip(inputs, want)]
+    return _compare_grads(label, dict(zip(_OPERANDS, got)),
+                          dict(zip(_OPERANDS, want)), atol)
+
+
+def _brute_soft_bounds(scene, cam, cfg, inputs, g):
+    """(B6's bound, B7's bound for the cotangent g, covered pixels, pixels
+    with a cotangent). B6: every pixel streams every primitive; only a
+    covered pixel (1 - w_bg != 0: the others are 0 whatever their shading)
+    needs the finish, the shading and, per light, the walk over every
+    primitive as an occluder. B7: a pixel whose cotangent is zero needs
+    nothing; every other needs its whole forward once (d out / d w_bg is the
+    shaded colour) and the reverse of its primary tests; the reverse of the
+    finish, the shading and the occluders only where the pixel is covered
+    (elsewhere their cotangents are exactly zero)."""
+    packed = scene.pack()
+    n_t, n_s = packed.n_tris, packed.n_spheres
+    n_l = packed.lights.position.shape[0]
+    n_pix = cfg.height * cfg.width
+    covered = _soft_covered(packed, cam, cfg.tau_edge, cfg.height, cfg.width)
+    has_cot = (g[..., :3] != 0).any(-1)
+    n_cov, n_cot = int(covered.sum()), int(has_cot.sum())
+    n_both = int((covered & has_cot).sum())
+
+    def per_px(ops):
+        return (n_t * ops["soft_tri_general"] + n_s * ops["soft_sph_general"],
+                ops["soft_finish"] + n_l * ops["soft_light"]
+                + n_l * (n_t * ops["occ_tri"] + n_s * ops["occ_sph"]))
+
+    prim_f, rest_f = per_px(_OPS)
+    prim_b, rest_b = per_px(_OPS_BWD)
+    ops_b6 = n_pix * prim_f + n_cov * rest_f
+    ops_b7 = n_cot * (prim_f + rest_f + prim_b) + n_both * rest_b
+    in_bytes = _nbytes(*inputs)
+    return (_bound(ops_b6, in_bytes + n_pix * 16) + (ops_b6,),
+            _bound(ops_b7, 2 * in_bytes + n_pix * 16) + (ops_b7,), n_cov, n_cot)
+
+
 _CAMERA_LEAVES = ("o0", "dox", "doy", "d0", "ddx", "ddy")
 
 
@@ -1104,9 +1199,7 @@ def brute_phase_soft_vs_twin(T, dev):
                             f"{tgerr:.2e} (bar 1e-3)")
                 print(msg)
                 worst_f, worst_g, n = max(worst_f, ferr), max(worst_g, gerr), n + 1
-    # scene 3, 1,300 primitives: B7's accumulators take 125 KB of a block's
-    # shared memory (above the 48 KB a kernel gets without asking), one
-    # block a multiprocessor
+    # scene 3: 1,300 primitives
     scene = T.create_scene(3, seed=0, device=dev)
     cam = T.legacy_ortho_camera(device=dev)
     cfg = _soft_cfg(T, SOFT_W, SOFT_H, "phong", True)
@@ -1122,6 +1215,73 @@ def brute_phase_soft_vs_twin(T, dev):
     print(f"{label}: fwd max err {ferr:.5f} (bar {FWD_BAR}), all-leaf grads "
           f"normalised max err {gerr:.2e} (bar 0.001)")
     worst_f, worst_g, n = max(worst_f, ferr), max(worst_g, gerr), n + 1
+
+    # Two and three lights: one light has kernels of its own, built with the
+    # light count known; any other count runs the builds that read it at run
+    # time, which the one-light scenes above never launch. (The lights stand
+    # where every leaf's gradient is well conditioned: with the second one
+    # at (20, 110, 150) the phong frame's d tau_edge cancels to 0.85 beside
+    # d tau_depth's 36, and the twin's own float32 sum is 3e-3 off its
+    # float64 value there.)
+    for n_lights, shading, shadows in ((2, "phong", True), (3, "lambert", True)):
+        f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
+        lights = T.Lights(
+            position=f32([[200.0, 100.0, 200.0], [250.0, 10.0, 180.0],
+                          [130.0, -40.0, 120.0]][:n_lights]),
+            colour=f32([[1.0, 1.0, 1.0], [1.0, 0.6, 0.3],
+                        [0.3, 0.5, 1.0]][:n_lights]),
+            intensity=f32([1.0, 0.5, 0.5][:n_lights]), ambient=f32(0.1),
+            spec_strength=f32(0.5), shininess=f32(32.0))
+        scene = T.random_scene(5, 3, seed=4, bounds=(250.0, 120.0), lights=lights,
+                               device=dev)
+        cfg_l = _soft_cfg(T, SOFT_W, SOFT_H, shading, shadows)
+        label = (f"[brute-soft-parity] test, {n_lights} lights, ortho {shading} "
+                 f"shadows={shadows}")
+        with torch.no_grad():
+            ferr = (_brute_render(scene, cam, cfg_l)
+                    - _brute_twin_render(scene, cam, cfg_l)).abs().max().item()
+        _require(ferr < FWD_BAR, f"{label}: fwd max err {ferr} >= {FWD_BAR}")
+        gk = _all_leaf_grads(_brute_render, scene, cam, cfg_l, _mean_sq)
+        gt = _all_leaf_grads(_brute_twin_render, scene, cam, cfg_l, _mean_sq)
+        gerr = _compare_grads(label, gk, gt, 1e-3)
+        _require(bool((gk["lights.position"][n_lights - 1] != 0).any()),
+                 f"{label}: the last light's position has no gradient")
+        print(f"{label}: fwd max err {ferr:.5f} (bar {FWD_BAR}), all-leaf grads "
+              f"normalised max err {gerr:.2e} (bar 0.001)")
+        worst_f, worst_g, n = max(worst_f, ferr), max(worst_g, gerr), n + 1
+
+    # B7 and its cotangent: the kernel works only where g is non-zero
+    scene = T.random_scene(5, 3, seed=4, bounds=(250.0, 120.0), device=dev)
+    inputs, skw = _brute_operands(scene, cam, cfg)
+    zero_g = torch.zeros((SOFT_H, SOFT_W, 4), device=dev)
+    zeros, live = B._soft_brute_bwd_cuda(inputs, zero_g, SOFT_H, SOFT_W, skw["cfg"])
+    _require(all(bool((t == 0).all()) for t in zeros) and live[0].item() == 0,
+             "[brute-soft-parity] B7 with an all-zero cotangent is not exactly zero")
+    g = zero_g.clone()
+    g[3, 5, 1], g[77, 200, 0], g[SOFT_H - 1, SOFT_W - 1, 2] = 1.0, -2.0, 0.5
+    g[40:44, 96:104, :3] = 0.5  # one whole patch
+    gerr = _b7_vs_twin("[brute-soft-parity] B7, scattered pixels + one patch",
+                       inputs, g, skw)
+    print(f"[brute-soft-parity] B7: all-zero cotangent -> exact zeros; 3 scattered "
+          f"pixels + one 8x4 patch vs the twin's autograd {gerr:.2e} (bar 0.001)")
+    worst_g = max(worst_g, gerr)
+    # more primitives than the kernel's accumulators once held (2,400)
+    big = T.random_scene(200, 200, seed=1, bounds=(60.0, 30.0), device=dev)
+    cfg_big = _soft_cfg(T, 64, 32, "phong", True)
+    inputs, skw = _brute_operands(big, cam, cfg_big)
+    n_prims = skw["cfg"]["n_tris"] + skw["cfg"]["n_spheres"]
+    _require(n_prims > 2400, f"the big scene has {n_prims} primitives")
+    with torch.no_grad():
+        img = B.soft_brute_fwd(*inputs, **skw)
+        ferr = (img - B._soft_brute_plain(*inputs, **skw)).abs().max().item()
+    _require(ferr < FWD_BAR, f"[brute-soft-parity] {n_prims} primitives: fwd {ferr}")
+    g = torch.zeros_like(img)
+    g[..., :3] = 2.0 * img[..., :3] / (64 * 32 * 3)
+    gerr = _b7_vs_twin(f"[brute-soft-parity] {n_prims} primitives", inputs, g, skw)
+    print(f"[brute-soft-parity] {n_prims} primitives at 64x32: fwd max err "
+          f"{ferr:.5f} (bar {FWD_BAR}), B7 vs the twin's autograd {gerr:.2e} "
+          f"(bar 0.001)")
+    worst_f, worst_g, n = max(worst_f, ferr), max(worst_g, gerr), n + 2
     launched = (B.SOFT_BRUTE_FWD_LAUNCHES - before[0],
                 B.SOFT_BRUTE_BWD_LAUNCHES - before[1])
     _require(launched[0] > 0 and launched[1] > 0, f"phase 11 launches {launched}")
@@ -1198,11 +1358,7 @@ def brute_phase_full_size(T, dev, smi):
     g_tiled = _leaf_grads(S.render_soft_tiled, scene, cam, cfg_soft, _mean_sq)
     gerr_tiled = _compare_grads("[brute] 1080p step-1 grads vs tiled", g_brute,
                                 g_tiled, 5e-3)
-    params = B._camera_params(cam, packed.lights).contiguous()
-    taus = torch.tensor([cfg_soft.tau_depth, cfg_soft.tau_edge], device=dev)
-    arrays = [a.contiguous() for a in B._prep_soft_arrays(packed)]
-    inputs = [params, taus] + arrays
-    skw = dict(height=h, width=w, cfg=B._static_cfg(packed, "phong", True, False))
+    inputs, skw = _brute_operands(scene, cam, cfg_soft)
     from opencl_ray_tracer_tpu_torch.diff import render_soft
 
     with torch.no_grad():
@@ -1223,13 +1379,7 @@ def brute_phase_full_size(T, dev, smi):
              f"{tiled_close} of pixels within {FWD_BAR} of the tiled frame")
     g = torch.zeros_like(img)
     g[..., :3] = 2.0 * img[..., :3] / (n_pix * 3)   # d mean(img^2) / d img
-    gk = B.soft_brute_bwd(*inputs, g, **skw)
-    leaves = [t.detach().requires_grad_(True) for t in inputs]
-    gt = torch.autograd.grad(B._soft_brute_plain(*leaves, **skw), leaves, g,
-                             allow_unused=True)
-    names = ("params", "taus", "tri_geo", "tri_alb", "sph_geo", "sph_alb")
-    b7_err = _compare_grads("[brute] 1080p B7 vs twin", dict(zip(names, gk)),
-                            dict(zip(names, gt)), 1e-3)
+    b7_err = _b7_vs_twin("[brute] 1080p B7 vs twin", inputs, g, skw)
     print(f"[brute] 1080p phong+soft shadows: B6 vs twin {b6_err:.5f}, vs "
           f"diff.render_soft {oracle_err:.5f} (bar {FWD_BAR}); vs tiled B4 "
           f"{tiled_close:.6f} of pixels within {FWD_BAR} (bar 0.999), max "
@@ -1239,6 +1389,21 @@ def brute_phase_full_size(T, dev, smi):
 
     # ---- times: CUDA events, median [min, max] ------------------------------
     zero_g = torch.zeros_like(g)
+    dense_g = torch.full_like(g, 1e-6)
+    # scene 3 (1,300 primitives): B7 at phase 11's size, B6 on a frame that
+    # it mostly covers
+    scene3 = T.create_scene(3, seed=0, device=dev)
+    cfg3 = _soft_cfg(T, SOFT_W, SOFT_H, "phong", True)
+    cfg3_big = _soft_cfg(T, 640, 480, "phong", True)
+    in3, skw3 = _brute_operands(scene3, cam, cfg3)
+    in3_big, skw3_big = _brute_operands(scene3, cam, cfg3_big)
+    img3 = B.soft_brute_fwd(*in3, **skw3)
+    g3 = torch.zeros_like(img3)
+    g3[..., :3] = 2.0 * img3[..., :3] / (SOFT_W * SOFT_H * 3)
+    dense_err = _b7_vs_twin("[brute] 1080p B7, dense cotangent, vs twin", inputs,
+                            dense_g, skw)
+    print(f"[brute] 1080p B7 with a cotangent of 1e-6 on every pixel vs the "
+          f"twin's autograd {dense_err:.2e} (bar 1e-3)")
 
     def twin_b7():
         lv = [t.detach().requires_grad_(True) for t in inputs]
@@ -1263,6 +1428,9 @@ def brute_phase_full_size(T, dev, smi):
         "B3 phong+shadows twin": (lambda: fwd._brute_kernel_plain(*args_p, **kw_p), 5),
         "B6": (lambda: B.soft_brute_fwd(*inputs, **skw), 20),
         "B7": (lambda: B.soft_brute_bwd(*inputs, g, **skw), 20),
+        "B7, dense cotangent": (lambda: B.soft_brute_bwd(*inputs, dense_g, **skw), 20),
+        "B6, scene 3 640x480": (lambda: B.soft_brute_fwd(*in3_big, **skw3_big), 20),
+        "B7, scene 3 256x128": (lambda: B.soft_brute_bwd(*in3, g3, **skw3), 20),
         "B6 twin": (twin_b6, 3),
         "B7 twin (forward + autograd backward)": (twin_b7, 2),
         "whole render_pallas_packed legacy int": (
@@ -1286,8 +1454,11 @@ def brute_phase_full_size(T, dev, smi):
     for what, fn in (("B3 legacy", fns["B3 legacy"][0]),
                      ("B3 phong+shadows", fns["B3 phong+shadows"][0]),
                      ("B6", fns["B6"][0]), ("B7", fns["B7"][0]),
-                     ("B7, all-zero cotangent (no atomics)",
-                      lambda: B.soft_brute_bwd(*inputs, zero_g, **skw))):
+                     ("B7, dense cotangent", fns["B7, dense cotangent"][0]),
+                     ("B7, all-zero cotangent",
+                      lambda: B.soft_brute_bwd(*inputs, zero_g, **skw)),
+                     ("B6, scene 3 640x480", fns["B6, scene 3 640x480"][0]),
+                     ("B7, scene 3 256x128", fns["B7, scene 3 256x128"][0])):
         b2b[what] = back_to_back_ms(fn, 50)
         print(f"[time] brute 1080p 10sph+1cube: {what} back to back "
               f"{b2b[what]:.4f} ms per launch over 50; {smi}")
@@ -1319,32 +1490,51 @@ def brute_phase_full_size(T, dev, smi):
                                           + n_s * _OPS["sph_general"])
                        + n_occ * _OPS["sph_general"]))
     b3_bound = _bound(ops_b3, _nbytes(*args_p) + n_pix * 16)
-    # B6: every pixel streams every primitive; only a covered pixel
-    # (1 - w_bg != 0: the others are 0 whatever their shading) needs the
-    # finish, the shading and, per light, the walk over every primitive as an
-    # occluder. B7: a pixel whose cotangent is zero needs nothing; every
-    # other needs its whole forward once and the reverse of every unit.
-    n_cov = int(_soft_covered(packed, cam, cfg_soft.tau_edge, h, w).sum())
-    n_cot = int((g != 0).any(-1).sum())
-
-    def per_px(ops):
-        return (n_t * ops["soft_tri_general"] + n_s * ops["soft_sph_general"],
-                ops["soft_finish"] + n_l * ops["soft_light"]
-                + n_l * (n_t * ops["occ_tri"] + n_s * ops["occ_sph"]))
-
-    prim_f, rest_f = per_px(_OPS)
-    prim_b, rest_b = per_px(_OPS_BWD)
-    ops_b6 = n_pix * prim_f + n_cov * rest_f
-    ops_b7 = n_cot * (prim_f + rest_f + prim_b + rest_b)
-    in_bytes = _nbytes(*inputs)
-    b6_bound = _bound(ops_b6, in_bytes + n_pix * 16)
-    b7_bound = _bound(ops_b7, 2 * in_bytes + n_pix * 16)
+    b6_bound, b7_bound, n_cov, n_cot = _brute_soft_bounds(scene, cam, cfg_soft,
+                                                          inputs, g)
     print(f"[bound] brute 1080p: B3 phong+shadows {ops_b3:.4e} operations "
           f"({n_lit} lit, {n_occ} occluded), bound {b3_bound[0]:.5f} ms by "
-          f"{b3_bound[1]}; B6 {ops_b6:.4e} operations ({n_cov} covered pixels of "
-          f"{n_pix}), bound {b6_bound[0]:.5f} ms by {b6_bound[1]}; B7 {ops_b7:.4e} "
-          f"operations ({n_cot} pixels with a non-zero cotangent), bound "
-          f"{b7_bound[0]:.5f} ms by {b7_bound[1]}")
+          f"{b3_bound[1]}; B6 {b6_bound[2]:.4e} operations ({n_cov} covered pixels "
+          f"of {n_pix}), bound {b6_bound[0]:.5f} ms by {b6_bound[1]}; B7 "
+          f"{b7_bound[2]:.4e} operations ({n_cot} pixels with a non-zero "
+          f"cotangent), bound {b7_bound[0]:.5f} ms by {b7_bound[1]}")
+    # The redesigned kernels beside their bounds and beside the same inputs
+    # through the kernels as they were before (one thread a pixel in 32x1
+    # strips, every pixel's backward whatever its cotangent, accumulators in
+    # shared memory). The earlier times are RECORDED, not measured in this
+    # run: the `ms` column (back to back per launch, as `b2b` here; not its
+    # `device_ms`) of scripts/torch_soft_brute_times.py on the earlier tree,
+    # on an NVIDIA H100 80GB HBM3 at 700.00 W, old and new trees in turns on
+    # one card. They stay out of the `kernels` line.
+    before = {"B6": 0.9326, "B7": 8.8283, "B7, dense cotangent": 8.8046,
+              "B7, all-zero cotangent": 8.7326, "B6, scene 3 640x480": 8.9490,
+              "B7, scene 3 256x128": 10.5906}
+    bounds = {
+        "B6": b6_bound, "B7": b7_bound,
+        "B7, dense cotangent": _brute_soft_bounds(scene, cam, cfg_soft, inputs,
+                                                  dense_g)[1],
+        "B7, all-zero cotangent": _brute_soft_bounds(scene, cam, cfg_soft, inputs,
+                                                     zero_g)[1],
+        "B6, scene 3 640x480": _brute_soft_bounds(
+            scene3, cam, cfg3_big, in3_big, torch.zeros((480, 640, 4), device=dev))[0],
+        "B7, scene 3 256x128": _brute_soft_bounds(scene3, cam, cfg3, in3, g3)[1],
+    }
+    walked = [_live_count(f"[redesign] {what}",
+                          B._soft_brute_bwd_cuda(ins, cot, kw_["height"],
+                                                 kw_["width"], kw_["cfg"])[1], cot)
+              for what, ins, cot, kw_ in (("headline", inputs, g, skw),
+                                          ("scene 3", in3, g3, skw3))]
+    print(f"[redesign] B7's list kernel found {walked[0]} of "
+          f"{-(-w // B.PATCH_W) * -(-h // B.PATCH_H)} 8x4 patches live for the "
+          f"loss's cotangent on the headline frame, {walked[1]} of "
+          f"{-(-SOFT_W // B.PATCH_W) * -(-SOFT_H // B.PATCH_H)} on scene 3 (read "
+          f"from the kernel's counter; the lists equal their plain version)")
+    for what, (bound_ms, by, ops) in bounds.items():
+        print(f"[redesign] {what}: {b2b[what]:.4f} ms back to back per launch "
+              f"(measured in this run); recorded before the redesign "
+              f"{before[what]:.4f} ms (recorded / measured = "
+              f"{before[what] / b2b[what]:.1f}); bound {bound_ms:.5f} ms by {by} "
+              f"({ops:.4e} operations), {b2b[what] / bound_ms:.1f}x over it; {smi}")
 
     # ---- the port's bench, as a user runs it ------------------------------------
     root = os.path.dirname(os.path.abspath(__file__))
@@ -1397,13 +1587,14 @@ def brute_phase_full_size(T, dev, smi):
          "source": "opencl_ray_tracer_tpu_torch/kernels/csrc/soft_brute.cu",
          "replaces": "opencl_ray_tracer_tpu/kernels/soft.py:543",
          "launches": launches[2],
-         "launch_is": "one wrapper call: the row kernel, the pixel kernel, then "
-                      "the row-gradient kernel",
+         "launch_is": "one wrapper call: the row kernel, the kernel that lists "
+                      "the live patches, the pixel kernel, then the row-gradient "
+                      "kernel",
          "max_abs_err": b7_err,
          "tolerance": "every operand's gradient within 1e-3 of the twin's "
                       "autograd, normalised by its largest (max_abs_err is that "
                       "normalised error)",
-         "shape": shape + ", phong + soft shadows",
+         "shape": shape + ", phong + soft shadows, the cotangent of mean(img^2)",
          "ms": times["B7"][0],
          "plain_ms": times["B7 twin (forward + autograd backward)"][0],
          "bound_ms": b7_bound[0], "bound_by": b7_bound[1], "library_ms": None},

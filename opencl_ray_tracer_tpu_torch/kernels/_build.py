@@ -108,7 +108,7 @@ def load_library() -> ctypes.CDLL:
         lib.octrt_soft_brute_fwd.restype = i
         lib.octrt_soft_brute_fwd.argtypes = [ptr] * 8 + [i] * 10 + [ptr]
         lib.octrt_soft_brute_bwd.restype = i
-        lib.octrt_soft_brute_bwd.argtypes = [ptr] * 15 + [i] * 10 + [ptr]
+        lib.octrt_soft_brute_bwd.argtypes = [ptr] * 16 + [i] * 10 + [ptr]
         lib.octrt_cuda_error_string.restype = ctypes.c_char_p
         lib.octrt_cuda_error_string.argtypes = [i]
         _LIB = lib

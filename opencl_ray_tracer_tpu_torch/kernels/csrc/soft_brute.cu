@@ -1,5 +1,5 @@
 // Brute soft differentiable renderer for Hopper (sm_90a): forward (B6) and
-// backward (B7), one thread per pixel, every pixel against every primitive.
+// backward (B7), every pixel against every primitive, no binning, no cull.
 //
 // Replaces the TPU kernels opencl_ray_tracer_tpu/kernels/soft.py:
 // _soft_pallas_fwd (494, body _tile_soft_math) and _soft_pallas_bwd_arrays
@@ -14,32 +14,58 @@
 // Operands are the raw scene arrays (tri_geo (14, Tp), tri_alb (Tp, 8),
 // sph_geo (4, Sp), sph_alb (Sp, 8)), and the gradients come back in that
 // layout. A first small kernel derives one 16-float row per real primitive
-// (edge temperatures, r^2, guarded reciprocals) into scratch; the pixel
-// kernels read those rows through the read-only cache (every thread of a
-// warp reads the same address: a broadcast).
+// (edge temperatures, r^2, guarded reciprocals) into scratch, and a last
+// one maps the row gradients back onto the raw columns and tau_edge.
 //
-// Forward: each pixel streams every triangle, then every sphere, through
-// the online softmin, then shades: per primitive (legacy, lambert) or on
-// the aggregated hit (phong, lambert + soft shadows, with one occluder loop
-// over all primitives per light).
+// Both pixel kernels give a warp an 8 x 4 patch of pixels, so that the
+// pixels a warp shares a fate with (covered or not, cotangent or not) are
+// neighbours in both directions, and read each row as float4s that every
+// lane of the warp asks for at once (a broadcast).
 //
-// Backward: recompute, then reverse, per pixel (no residuals). The TPU
-// kernel adds every grid step's gradients into revisited output blocks,
-// which needs its sequential grid. Here a fixed grid of blocks walks the
-// frame in groups of 256 pixels; a row's gradient is summed over a warp
-// with shuffles and added to the block's own accumulators in shared memory
-// (one shared atomicAdd per element and warp), and each block adds its
-// accumulators to the scratch gradient rows once, at its end (one global
-// atomicAdd per element and block). params/taus gradients stay in registers
-// across the groups and go through one block reduction. A last small
-// kernel maps the row gradients back onto the raw columns and tau_edge.
+// Forward (B6), what bounds it: FP32 ALU and special-function work, pixels
+// x primitives soft tests (three sigmoids, a log, an exp and a log1p each,
+// none of them fast-math) for the streaming softmin; the scene is a few KB
+// and the image 16 B a pixel. What the design does: a block of 8 patches
+// stages the rows through shared memory once (128 primitives at a time for
+// larger scenes), so a test costs 4-6 shared float4 reads, not 24 scalar
+// loads; and a pixel that nothing covers (1 - w_bg is exactly 0, so its
+// value is exactly 0) skips the finish, the shading and the occluder walk
+// of every light, which is all but the primary tests on a sparse frame. No
+// primitive is culled for any pixel: the softmin sees every coverage.
+// Both kernels are also built for exactly one light, the common scene, which
+// keeps the per-light arrays in registers (B7's local frame falls from
+// 1,024 to 280 bytes).
+//
+// Backward (B7): recompute, then reverse, per pixel (no residuals). What
+// bounds it: the same arithmetic about four times over (a recompute and the
+// reverse of every test), but only for pixels whose cotangent is not zero,
+// plus one pass over the cotangents (16 B a pixel); and the sums over
+// pixels, which the TPU kernel takes by revisiting output blocks on its
+// sequential grid. What the design does:
+//   - a first kernel reads the cotangents once and writes the list of
+//     patches that hold a non-zero one (count kept on the device); the
+//     pixel kernel's warps draw from that list through a counter (or, when
+//     it is shorter than the grid, take one entry each), each on its own
+//     with no block barrier, so no warp spends time on a patch that needs
+//     nothing and a costly patch holds up one warp only;
+//   - inside a live patch a lane whose cotangent is zero computes nothing
+//     and adds zeros (every gradient is linear in the cotangent);
+//   - a primitive's row gradient is summed over the warp only if some lane
+//     holds a non-zero value (a primitive whose coverage underflowed over
+//     the whole patch gives exact zeros), with a transposing butterfly
+//     (16 values in 16 shuffles, not 80), then one atomicAdd per value from
+//     the lane that holds it, straight onto the scratch gradient rows in
+//     device memory. With the vote these atomics are few enough that
+//     accumulators in shared memory buy nothing (timed: no gain on a sparse
+//     or a dense cotangent, a loss at 1,300 primitives), and without them
+//     any number of primitives works, as on the TPU, and the block keeps
+//     its shared memory;
+//   - a light's occluder reverse is skipped where d logvis is zero for the
+//     whole warp (every pixel that nothing covers);
+//   - params/taus gradients stay in registers across a warp's patches and
+//     go through one block reduction.
 // Atomics make the order of the sums vary from run to run: gradients agree
 // with the twin to float32 rounding, not bit for bit.
-//
-// What bounds it on this card: FP32 ALU and special-function work, pixels x
-// primitives x (1 + lights) tests of ~100 operations in the forward and
-// about three times that, plus the warp reductions, in the backward; the
-// scene is a few KB and the image 16 B per pixel.
 //
 // Numerics: as soft_tiled.cu (no fast math, -fmad=false, 1/sqrtf).
 
@@ -54,10 +80,14 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int NWARP = THREADS / 32;
 constexpr int RED_W = 64;                     // >= MAX_P
-constexpr int ACC_W = ROW + ALB;              // accumulator floats per primitive
-// A block's accumulators must fit its shared memory: at most 2,400
-// primitives (the wrapper's MAX_BWD_PRIMITIVES refuses more by name).
-constexpr int MAX_SMEM = 227 * 1024;
+constexpr int CHUNK = 128;                    // rows the forward stages at a time
+constexpr int LIVE_PER_WARP = 8;              // patches a warp of the list kernel tests
+constexpr unsigned FULL = 0xffffffffu;
+// Blocks a multiprocessor that the compiler must leave registers for: the
+// forward runs fastest at 64 registers, the backward at 128 (at 80 it
+// spills: slower on all but the dense headline frame).
+constexpr int FWD_BLOCKS = 4;
+constexpr int BWD_BLOCKS = 2;
 
 struct Args {
   const float* params;
@@ -71,13 +101,6 @@ struct Args {
 
 // scratch layout: n rows of ROW floats, then n albedo rows of ALB floats,
 // triangles before spheres (the gradient scratch has the same layout)
-__device__ __forceinline__ BTabs tabs_of(const Args& a, const float* rows) {
-  const int n = a.n_tris + a.n_spheres;
-  const float* albs = rows + (size_t)n * ROW;
-  return BTabs{rows, albs, rows + (size_t)a.n_tris * ROW,
-               albs + (size_t)a.n_tris * ALB, a.n_tris, a.n_spheres};
-}
-
 __global__ void rows_kernel(Args a, float* rows) {
   const int n = a.n_tris + a.n_spheres;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -94,86 +117,269 @@ __global__ void rows_kernel(Args a, float* rows) {
   }
 }
 
-template <bool NORM>
-__global__ void __launch_bounds__(THREADS) soft_brute_fwd_kernel(
-    Args a, const float* rows, float4* out) {
-  const int flat = blockIdx.x * THREADS + (int)threadIdx.x;
-  if (flat >= a.height * a.width) return;
-  const int yi = flat / a.width, xi = flat - yi * a.width;
-  Ctx c;
-  brute_ctx_make<NORM>(c, a.params, __ldg(a.taus), __ldg(a.taus + 1), (float)xi,
-                       (float)yi, a.nl);
-  float rgb[3];
-  brute_pixel_fwd(c, tabs_of(a, rows), a.shading, a.shadows != 0, rgb);
-  out[flat] = make_float4(rgb[0], rgb[1], rgb[2], 255.0f);
-}
-
-// Sum N per-thread values over the warp, then one atomicAdd each into the
-// block's shared accumulators. Every lane of a warp must call it.
-struct WarpRed {
-  template <int N>
-  __device__ void add(float* dst, const float* v) {
-    const int lane = threadIdx.x & 31;
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      float s = v[i];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        s += __shfl_down_sync(0xffffffffu, s, off);
-      }
-      if (lane == 0 && s != 0.0f) atomicAdd(dst + i, s);
-    }
+// A frame cut into patches of 8 x 4 pixels, one lane each, row-major.
+struct Patches {
+  int npx, count;
+  __host__ __device__ Patches(int height, int width)
+      : npx((width + 7) >> 3), count(npx * ((height + 3) >> 2)) {}
+  // the pixel of `lane` in patch (px, py)
+  __device__ void pixel(int px, int py, int lane, int& xi, int& yi) const {
+    xi = (px << 3) + (lane & 7);
+    yi = (py << 2) + (lane >> 3);
   }
 };
 
-template <bool NORM>
-__global__ void __launch_bounds__(THREADS) soft_brute_bwd_kernel(
-    Args a, const float* rows, const float4* g, float* d_rows, float* d_par,
-    float* d_tau) {
-  extern __shared__ float smem[];  // n * ACC_W accumulators, then the reduce
-  const int n = a.n_tris + a.n_spheres;
-  float* acc = smem;
-  float* red_smem = smem + (size_t)n * ACC_W;
-  for (int i = threadIdx.x; i < n * ACC_W; i += THREADS) acc[i] = 0.0f;
-  __syncthreads();
+__device__ __forceinline__ void unpack4(const float4 v, float* dst) {
+  dst[0] = v.x;
+  dst[1] = v.y;
+  dst[2] = v.z;
+  dst[3] = v.w;
+}
 
-  const BTabs B = tabs_of(a, rows);
-  float* acc_alb = acc + (size_t)n * ROW;
-  const BDTabs D{acc, acc_alb, acc + (size_t)a.n_tris * ROW,
-                 acc_alb + (size_t)a.n_tris * ALB};
+// The rows straight from the scratch in device memory, read by every lane
+// of a warp at once; the warp walks alone.
+struct GlobalRows {
+  const float4* rows;  // (n, ROW / 4)
+  const float4* albs;  // (n, ALB / 4)
+  int n_tri, n;
+
+  template <bool WITH_ALB, bool SPH, class F>
+  __device__ __forceinline__ void one(int i, F& f) const {
+    float r[ROW], alb[ALB];
+#pragma unroll
+    for (int k = 0; k < ROW / 4; ++k) unpack4(__ldg(rows + (size_t)i * (ROW / 4) + k), r + 4 * k);
+    if (WITH_ALB) {
+#pragma unroll
+      for (int k = 0; k < ALB / 4; ++k) unpack4(__ldg(albs + (size_t)i * (ALB / 4) + k), alb + 4 * k);
+    }
+    f(i, Kind<SPH>{}, r, alb);
+  }
+  template <bool WITH_ALB, class F>
+  __device__ __forceinline__ void for_each(F f) const {
+    for (int i = 0; i < n_tri; ++i) one<WITH_ALB, false>(i, f);
+    for (int i = n_tri; i < n; ++i) one<WITH_ALB, true>(i, f);
+  }
+  __device__ __forceinline__ bool any(bool p) const { return __any_sync(FULL, p); }
+};
+
+// The rows staged through a block's shared memory, CHUNK primitives at a
+// time; the block walks together. A scene of at most CHUNK primitives is
+// staged once, and then its warps walk (and vote) each on their own.
+struct StagedRows {
+  const float4* rows;
+  const float4* albs;
+  int n_tri, n;
+  float4* s_rows;  // [CHUNK * ROW / 4]
+  float4* s_albs;  // [CHUNK * ALB / 4]
+  int staged;      // first primitive of the staged chunk, -1: none
+
+  __device__ __forceinline__ void stage(int base, int m) {
+    if (staged == base) return;
+    __syncthreads();
+    for (int q = threadIdx.x; q < m * (ROW / 4); q += THREADS) {
+      s_rows[q] = __ldg(rows + (size_t)base * (ROW / 4) + q);
+    }
+    for (int q = threadIdx.x; q < m * (ALB / 4); q += THREADS) {
+      s_albs[q] = __ldg(albs + (size_t)base * (ALB / 4) + q);
+    }
+    __syncthreads();
+    staged = base;
+  }
+  template <bool WITH_ALB, bool SPH, class F>
+  __device__ __forceinline__ void one(int i, int j, F& f) const {
+    float r[ROW], alb[ALB];
+#pragma unroll
+    for (int k = 0; k < ROW / 4; ++k) unpack4(s_rows[j * (ROW / 4) + k], r + 4 * k);
+    if (WITH_ALB) {
+#pragma unroll
+      for (int k = 0; k < ALB / 4; ++k) unpack4(s_albs[j * (ALB / 4) + k], alb + 4 * k);
+    }
+    f(i, Kind<SPH>{}, r, alb);
+  }
+  template <bool WITH_ALB, class F>
+  __device__ __forceinline__ void for_each(F f) {
+    for (int base = 0; base < n; base += CHUNK) {
+      const int end = min(base + CHUNK, n);
+      stage(base, end - base);
+      for (int i = base; i < min(end, n_tri); ++i) one<WITH_ALB, false>(i, i - base, f);
+      for (int i = max(base, n_tri); i < end; ++i) one<WITH_ALB, true>(i, i - base, f);
+    }
+  }
+  __device__ __forceinline__ bool any(bool p) const {
+    return n <= CHUNK ? __any_sync(FULL, p) : __syncthreads_or(p) != 0;
+  }
+};
+
+// NL: the number of lights, or 0 to read it at run time. With NL known every
+// per-light array is indexed by constants and stays in registers.
+template <bool NORM, int NL>
+__global__ void __launch_bounds__(THREADS, FWD_BLOCKS) soft_brute_fwd_kernel(
+    Args a, const float* rows, float4* out) {
+  __shared__ float4 s_rows[CHUNK * ROW / 4];
+  __shared__ float4 s_albs[CHUNK * ALB / 4];
+  const Patches P(a.height, a.width);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // a block: 4 x 2 patches
+  int xi, yi;
+  P.pixel(blockIdx.x * 4 + (warp & 3), blockIdx.y * 2 + (warp >> 2), lane, xi, yi);
+  const bool inside = xi < a.width && yi < a.height;
+  Ctx c;
+  brute_ctx_make<NORM>(c, a.params, __ldg(a.taus), __ldg(a.taus + 1), (float)xi,
+                       (float)yi, NL ? NL : a.nl);
+  const int n = a.n_tris + a.n_spheres;
+  const float4* r4 = reinterpret_cast<const float4*>(rows);
+  StagedRows B{r4, r4 + (size_t)n * (ROW / 4), a.n_tris, n, s_rows, s_albs, -1};
+  float rgb[3];
+  brute_pixel_fwd(c, B, a.shading, a.shadows != 0, inside, rgb);
+  if (inside) out[(size_t)yi * a.width + xi] = make_float4(rgb[0], rgb[1], rgb[2], 255.0f);
+}
+
+__device__ __forceinline__ bool has_cotangent(const float4 g) {
+  return g.x != 0.0f || g.y != 0.0f || g.z != 0.0f;  // alpha is a constant
+}
+
+// live[0]: the number of patches that hold a non-zero cotangent; live[2...]:
+// those patches, in no order. live[0] must be zero at the start (live[1] is
+// the pixel kernel's counter).
+__global__ void __launch_bounds__(THREADS) live_patches_kernel(
+    const float4* g, int height, int width, int* live) {
+  const Patches P(height, width);
+  const int lane = threadIdx.x & 31;
+  const int first = (blockIdx.x * NWARP + (threadIdx.x >> 5)) * LIVE_PER_WARP;
+  unsigned mask = 0;
+  for (int q = 0; q < LIVE_PER_WARP; ++q) {
+    const int patch = first + q;
+    if (patch >= P.count) break;
+    int xi, yi;
+    P.pixel(patch % P.npx, patch / P.npx, lane, xi, yi);
+    const bool nz = xi < width && yi < height &&
+                    has_cotangent(__ldg(g + (size_t)yi * width + xi));
+    if (__any_sync(FULL, nz)) mask |= 1u << q;
+  }
+  if (mask == 0) return;
+  int base = 0;
+  if (lane == 0) base = atomicAdd(live, __popc(mask));
+  base = __shfl_sync(FULL, base, 0);
+  if (lane < LIVE_PER_WARP && (mask >> lane & 1u)) {
+    live[2 + base + __popc(mask & ((1u << lane) - 1u))] = first + lane;
+  }
+}
+
+// The sums of a patch's row gradients over its warp, added to the gradient
+// rows in device memory. Every lane of the warp must call.
+struct PatchRed {
+  float* d_rows;  // the scratch layout for n primitives
+  int n, lane;
+
+  template <int N>
+  __device__ __forceinline__ bool none(const float* v) const {
+    bool nz = false;
+#pragma unroll
+    for (int q = 0; q < N; ++q) nz |= v[q] != 0.0f;
+    return !__any_sync(FULL, nz);
+  }
+
+  // dst[q] += sum over the warp of v[q], q < N <= NP (a power of two). The
+  // butterfly halves the values a lane holds at each of log2(NP) steps
+  // while it doubles the lanes summed into each, then finishes the rest of
+  // the five steps on its one value: value q ends in the lanes whose upper
+  // log2(NP) bits are q.
+  template <int N, int NP>
+  __device__ __forceinline__ void sum(float* dst, const float* v) const {
+    float w[NP];
+#pragma unroll
+    for (int q = 0; q < NP; ++q) w[q] = q < N ? v[q] : 0.0f;
+    int spare = 5;  // the lane's low bits that do not select a value
+#pragma unroll
+    for (int s = 0; s < 5; ++s) {
+      const int off = 16 >> s, cnt = NP >> (s + 1);
+      if (cnt >= 1) {
+        const bool hi = (lane & off) != 0;
+#pragma unroll
+        for (int q = 0; q < NP / 2; ++q) {
+          if (q < cnt) {
+            const float send = hi ? w[q] : w[q + cnt];
+            const float keep = hi ? w[q + cnt] : w[q];
+            w[q] = keep + __shfl_xor_sync(FULL, send, off);
+          }
+        }
+        spare = 4 - s;
+      } else {
+        w[0] += __shfl_xor_sync(FULL, w[0], off);
+      }
+    }
+    const int q = lane >> spare;
+    if ((lane & ((1 << spare) - 1)) == 0 && q < N && w[0] != 0.0f) {
+      atomicAdd(dst + q, w[0]);
+    }
+  }
+
+  __device__ __forceinline__ void prim(int i, const float* g) const {
+    if (none<ROW + 3>(g)) return;
+    sum<ROW, 16>(d_rows + (size_t)i * ROW, g);
+    sum<3, 4>(d_rows + (size_t)n * ROW + (size_t)i * ALB, g + ROW);
+  }
+  __device__ __forceinline__ void occ(int i, const float* gr) const {
+    if (none<12>(gr)) return;
+    sum<12, 16>(d_rows + (size_t)i * ROW, gr);
+  }
+};
+
+template <bool NORM, int NL>
+__global__ void __launch_bounds__(THREADS, BWD_BLOCKS) soft_brute_bwd_kernel(
+    Args a, const float* rows, const float4* g, int* live, float* d_rows,
+    float* d_par, float* d_tau) {
+  __shared__ float red_smem[NWARP * RED_W];
+  const int n = a.n_tris + a.n_spheres;
+  const int nl = NL ? NL : a.nl;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const Patches P(a.height, a.width);
+  const float4* r4 = reinterpret_cast<const float4*>(rows);
+  GlobalRows B{r4, r4 + (size_t)n * (ROW / 4), a.n_tris, n};
+  PatchRed red{d_rows, n, lane};
   const float tau_d = __ldg(a.taus), tau_e = __ldg(a.taus + 1);
   float dprm[MAX_P], dtau[2] = {0.0f, 0.0f};
   for (int i = 0; i < MAX_P; ++i) dprm[i] = 0.0f;
-  WarpRed red;
 
-  const int n_pix = a.height * a.width;
-  const int n_groups = (n_pix + THREADS - 1) / THREADS;
-  for (int grp = blockIdx.x; grp < n_groups; grp += gridDim.x) {
-    const int flat = grp * THREADS + (int)threadIdx.x;
-    const bool active = flat < n_pix;
-    const int pf = active ? flat : n_pix - 1;
-    const int yi = pf / a.width, xi = pf - yi * a.width;
-    Ctx c;
-    brute_ctx_make<NORM>(c, a.params, tau_d, tau_e, (float)xi, (float)yi, a.nl);
+  // Each warp draws its next live patch from a counter: the patches differ
+  // in cost (a covered pixel also reverses its occluders). Where the list
+  // is so short that no warp gets a second patch the warps of all blocks
+  // take their own entries instead, interleaved so that the list spreads
+  // over every block, and nobody waits for the counter.
+  const int n_work = live[0];
+  const int stride = gridDim.x * NWARP;
+  const bool drawn = n_work > stride;
+  int k = warp * gridDim.x + blockIdx.x;
+  for (;;) {
+    if (drawn) {
+      if (lane == 0) k = atomicAdd(live + 1, 1);
+      k = __shfl_sync(FULL, k, 0);
+    }
+    if (k >= n_work) break;
+    const int patch = live[2 + k];
+    k += stride;
+    int xi, yi;
+    P.pixel(patch % P.npx, patch / P.npx, lane, xi, yi);
     float gout[3] = {0.0f, 0.0f, 0.0f};
-    if (active) {
-      const float4 gv = g[flat];
+    bool active = false;
+    if (xi < a.width && yi < a.height) {
+      const float4 gv = __ldg(g + (size_t)yi * a.width + xi);
+      active = has_cotangent(gv);
       gout[0] = gv.x;
       gout[1] = gv.y;
       gout[2] = gv.z;
     }
+    if (!__any_sync(FULL, active)) continue;
+    Ctx c;
+    brute_ctx_make<NORM>(c, a.params, tau_d, tau_e, (float)xi, (float)yi, nl);
     CtxGrad gc;
     zero_ctx_grad(gc);
-    brute_pixel_bwd(c, B, a.shading, a.shadows != 0, gout, active, red, D, gc);
+    brute_pixel_bwd(c, B, a.shading, a.shadows != 0, gout, active, red, gc);
     if (active) brute_ctx_bwd<NORM>(c, gc, tau_d, dprm, dtau);
   }
 
-  __syncthreads();
-  for (int i = threadIdx.x; i < n * ACC_W; i += THREADS) {
-    if (acc[i] != 0.0f) atomicAdd(d_rows + i, acc[i]);
-  }
   BlockRedT<THREADS, RED_W> bred{red_smem};
-  const int n_params = P_LIGHTS + a.nl * LSTRIDE;
+  const int n_params = P_LIGHTS + nl * LSTRIDE;
   bred.add<MAX_P>(d_par, dprm, n_params);
   bred.add<2>(d_tau, dtau);
 }
@@ -215,29 +421,41 @@ int launch_rows(const Args& a, float* rows, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-template <bool NORM>
-int launch_bwd(const Args& a, const float* rows, const float4* g, float* d_rows,
-               float* d_par, float* d_tau, cudaStream_t s) {
-  const int n = a.n_tris + a.n_spheres;
-  const size_t smem = ((size_t)n * ACC_W + NWARP * RED_W) * sizeof(float);
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  auto kernel = soft_brute_bwd_kernel<NORM>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <bool NORM, int NL>
+int launch_bwd(const Args& a, const float* rows, const float4* g, int* live,
+               float* d_rows, float* d_par, float* d_tau, cudaStream_t s) {
+  const Patches P(a.height, a.width);
+  cudaError_t err = cudaMemsetAsync(live, 0, 2 * sizeof(int), s);
   if (err != cudaSuccess) return (int)err;
+  const int per_block = NWARP * LIVE_PER_WARP;
+  live_patches_kernel<<<(P.count + per_block - 1) / per_block, THREADS, 0, s>>>(
+      g, a.height, a.width, live);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  auto kernel = soft_brute_bwd_kernel<NORM, NL>;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS,
-                                                      smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, 0);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidValue;
-  const int n_groups = (a.height * a.width + THREADS - 1) / THREADS;
-  const int grid = n_groups < sms * per_sm ? n_groups : sms * per_sm;
-  kernel<<<grid, THREADS, smem, s>>>(a, rows, g, d_rows, d_par, d_tau);
+  const int want = (P.count + NWARP - 1) / NWARP;
+  const int grid = want < sms * per_sm ? want : sms * per_sm;
+  kernel<<<grid, THREADS, 0, s>>>(a, rows, g, live, d_rows, d_par, d_tau);
   return (int)cudaGetLastError();
 }
+
+template <bool NORM, int NL>
+int launch_fwd(const Args& a, const float* rows, float4* out, cudaStream_t s) {
+  const dim3 grid((a.width + 31) / 32, (a.height + 7) / 8);  // 4 x 2 patches
+  soft_brute_fwd_kernel<NORM, NL><<<grid, THREADS, 0, s>>>(a, rows, out);
+  return (int)cudaGetLastError();
+}
+
+// One light is the common scene: the kernels are also built for exactly one.
+#define OCTRT_DISPATCH(fn, norm, one_light, ...)                          \
+  ((norm) ? ((one_light) ? fn<true, 1>(__VA_ARGS__) : fn<true, 0>(__VA_ARGS__)) \
+          : ((one_light) ? fn<false, 1>(__VA_ARGS__) : fn<false, 0>(__VA_ARGS__)))
 
 }  // namespace
 
@@ -254,26 +472,22 @@ extern "C" int octrt_soft_brute_fwd(
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   int rc = launch_rows(a, scratch, s);
   if (rc != 0) return rc;
-  const dim3 grid((height * width + THREADS - 1) / THREADS), block(THREADS);
-  float4* o = reinterpret_cast<float4*>(out);
-  if (normalize_dir) {
-    soft_brute_fwd_kernel<true><<<grid, block, 0, s>>>(a, scratch, o);
-  } else {
-    soft_brute_fwd_kernel<false><<<grid, block, 0, s>>>(a, scratch, o);
-  }
-  return (int)cudaGetLastError();
+  return OCTRT_DISPATCH(launch_fwd, normalize_dir != 0, nl == 1, a, scratch,
+                        reinterpret_cast<float4*>(out), s);
 }
 
 // scratch as above; d_scratch has the same size and must be zero; the six
-// gradient outputs must be zero too (padded columns are not written).
+// gradient outputs must be zero too (padded columns are not written); live
+// holds 2 + ceil(width / 8) * ceil(height / 4) ints and comes back as the
+// count of live patches, the pixel kernel's counter and the live patches.
 extern "C" int octrt_soft_brute_bwd(
     const float* params, const float* taus, const float* tri_geo,
     const float* tri_alb, const float* sph_geo, const float* sph_alb,
     const float* g, float* d_par, float* d_tau, float* d_tri_geo,
     float* d_tri_alb, float* d_sph_geo, float* d_sph_alb, float* scratch,
-    float* d_scratch, int height, int width, int tp, int sp, int n_tris,
-    int n_spheres, int nl, int shading, int shadows, int normalize_dir,
-    void* stream) {
+    float* d_scratch, int* live, int height, int width, int tp, int sp,
+    int n_tris, int n_spheres, int nl, int shading, int shadows,
+    int normalize_dir, void* stream) {
   const Args a{params, taus, tri_geo, tri_alb, sph_geo, sph_alb, height, width,
                tp, sp, n_tris, n_spheres, nl, shading, shadows};
   if (bad_args(a)) return (int)cudaErrorInvalidValue;
@@ -281,9 +495,8 @@ extern "C" int octrt_soft_brute_bwd(
   int rc = launch_rows(a, scratch, s);
   if (rc != 0) return rc;
   const float4* g4 = reinterpret_cast<const float4*>(g);
-  rc = normalize_dir
-           ? launch_bwd<true>(a, scratch, g4, d_scratch, d_par, d_tau, s)
-           : launch_bwd<false>(a, scratch, g4, d_scratch, d_par, d_tau, s);
+  rc = OCTRT_DISPATCH(launch_bwd, normalize_dir != 0, nl == 1, a, scratch, g4,
+                      live, d_scratch, d_par, d_tau, s);
   if (rc != 0) return rc;
   const int n = n_tris + n_spheres;
   if (n > 0) {

@@ -1354,86 +1354,94 @@ OCTRT_FN void brute_prim_bwd(const float* r, const Ctx& c, float gt, float gcov,
 // (a padded triangle is degenerate and a padded sphere lies at z = 1e9 with
 // radius 0: both have zero weight wherever any real primitive has any, and
 // a pixel no primitive covers is zeroed by 1 - w_bg = 0 either way).
-struct BTabs {
-  const float *tri, *tri_alb, *sph, *sph_alb;  // (n, ROW) rows, (n, ALB) albedo
-  int n_tri, n_sph;
+//
+// The pixel functions below take the rows through a `Rows` object, so that
+// a kernel chooses where they come from (straight from device memory, or
+// staged through shared memory) and which threads walk them together:
+//   template <bool WITH_ALB, class F> void for_each(F f)
+//     calls f(i, Kind<SPHERE>{}, r, alb) for every primitive i in order
+//     (triangles, then spheres) with its ROW coefficients r and, if
+//     WITH_ALB, its ALB albedo floats; every thread that shares the Rows
+//     walks the same loop (it may hold barriers);
+//   bool any(bool p): true if p holds for any of those threads.
+template <bool SPHERE>
+struct Kind {
+  static constexpr bool sphere = SPHERE;
 };
 
-OCTRT_FN void brute_load(const float* rows, const float* albs, int j, float* r,
-                         float* alb) {
-  for (int q = 0; q < ROW; ++q) r[q] = OCTRT_LDG(rows + (size_t)j * ROW + q);
-  if (alb) {
-    for (int q = 0; q < ALB; ++q) alb[q] = OCTRT_LDG(albs + (size_t)j * ALB + q);
-  }
-}
+// The gradient sink of brute_pixel_bwd: `prim(i, g)` takes primitive i's
+// ROW row gradients and, behind them, its 3 albedo gradients; `occ(i, gr)`
+// the 12 row gradients of primitive i as an occluder. Every thread that
+// shares the Rows calls both for every primitive (threads with nothing to
+// add pass zeros), so an implementation may sum across them first.
 
-OCTRT_FN void brute_stream_finals(const Ctx& c, const BTabs& B, bool aggregate,
-                                  int shading, Fin& f) {
+template <class Rows>
+OCTRT_FN void brute_stream_finals(const Ctx& c, Rows& B, bool active,
+                                  bool aggregate, int shading, Fin& f) {
   fin_init(f);
-  float r[ROW], alb[ALB], t, cov, n[3];
-  for (int j = 0; j < B.n_tri; ++j) {
-    brute_load(B.tri, B.tri_alb, j, r, alb);
-    brute_prim_fwd<false>(r, c, t, cov, n);
-    stream_accum(c, t, cov, n, alb, aggregate, shading, f);
-  }
-  for (int j = 0; j < B.n_sph; ++j) {
-    brute_load(B.sph, B.sph_alb, j, r, alb);
-    brute_prim_fwd<true>(r, c, t, cov, n);
-    stream_accum(c, t, cov, n, alb, aggregate, shading, f);
-  }
+  B.template for_each<true>(
+      [&](int, auto kind, const float* r, const float* alb) {
+        if (!active) return;
+        float t, cov, n[3];
+        brute_prim_fwd<decltype(kind)::sphere>(r, c, t, cov, n);
+        stream_accum(c, t, cov, n, alb, aggregate, shading, f);
+      });
 }
 
 // Soft shadows over every primitive: the sum of log(1 - occ) along one
 // shadow ray.
-OCTRT_FN float brute_occ_logvis(const Ctx& c, const BTabs& B, const float so[3],
-                                const float sd[3], float dist) {
-  float lv = 0.0f, r[ROW];
-  for (int j = 0; j < B.n_tri; ++j) {
-    brute_load(B.tri, nullptr, j, r, nullptr);
-    lv += occ_fwd<false>(r, so, sd, dist, c);
-  }
-  for (int j = 0; j < B.n_sph; ++j) {
-    brute_load(B.sph, nullptr, j, r, nullptr);
-    lv += occ_fwd<true>(r, so, sd, dist, c);
-  }
+template <class Rows>
+OCTRT_FN float brute_occ_logvis(const Ctx& c, Rows& B, bool active,
+                                const float so[3], const float sd[3],
+                                float dist) {
+  float lv = 0.0f;
+  B.template for_each<false>(
+      [&](int, auto kind, const float* r, const float*) {
+        if (active) lv += occ_fwd<decltype(kind)::sphere>(r, so, sd, dist, c);
+      });
   return lv;
 }
 
-// The forward of one pixel -> rgb (0..255).
-OCTRT_FN void brute_pixel_fwd(const Ctx& c, const BTabs& B, int shading,
-                              bool shadows, float out[3]) {
+// The forward of one pixel -> rgb (0..255); threads with active == false
+// only walk the loops. A pixel that nothing covers (1 - w_bg is exactly 0)
+// is exactly 0 whatever its shading and shadows are (0 times a finite
+// colour), so it skips the finish and, where no thread sharing the Rows is
+// covered, the occluder walks too.
+template <class Rows>
+OCTRT_FN void brute_pixel_fwd(const Ctx& c, Rows& B, int shading, bool shadows,
+                              bool active, float out[3]) {
   const bool agg = is_aggregate(shading, shadows);
   Fin f;
-  brute_stream_finals(c, B, agg, shading, f);
+  brute_stream_finals(c, B, active, agg, shading, f);
+  out[0] = out[1] = out[2] = 0.0f;
   if (!agg) {
-    nonagg_finish(f, shading, out);
+    if (active) nonagg_finish(f, shading, out);
     return;
   }
+  const bool fin = active && 1.0f - expf(f.bacc) != 0.0f;
   Geom G;
-  geom_fwd(f, c, G);
+  if (fin) geom_fwd(f, c, G);
   float logvis[MAX_L] = {0.f, 0.f, 0.f, 0.f};
-  if (shadows) {
+  if (shadows && B.any(fin)) {
     for (int l = 0; l < c.nl; ++l) {
-      logvis[l] = brute_occ_logvis(c, B, G.so[l], G.sd[l], G.dist[l]);
+      logvis[l] = brute_occ_logvis(c, B, fin, G.so[l], G.sd[l],
+                                   fin ? G.dist[l] : 0.0f);
     }
   }
-  shade_agg_fwd(G, c, logvis, shading, shadows, out);
+  if (fin) shade_agg_fwd(G, c, logvis, shading, shadows, out);
 }
 
 // The backward of one pixel: recompute the finals, reverse shading and
 // geometry once, then walk the occluders and the primitives again with the
-// final m held constant. Each row's gradient goes through red.add into the
-// row-gradient tables D (laid out like B's); every thread that shares `red`
-// calls with the same B, so the loops are uniform, and threads with
-// active == false contribute zeros.
-struct BDTabs {
-  float *tri, *tri_alb, *sph, *sph_alb;
-};
-
-template <class Red>
-OCTRT_FN void brute_pixel_bwd(const Ctx& c, const BTabs& B, int shading,
-                              bool shadows, const float gout[3], bool active,
-                              Red& red, const BDTabs& D, CtxGrad& gc) {
+// final m held constant. Threads with active == false (outside the frame,
+// or with a zero cotangent: every gradient is linear in gout) only walk the
+// loops and hand zeros to `red`. The occluder walk of a light is skipped
+// where no thread's d logvis is non-zero: every occluder gradient is linear
+// in it.
+template <class Rows, class Red>
+OCTRT_FN void brute_pixel_bwd(const Ctx& c, Rows& B, int shading, bool shadows,
+                              const float gout[3], bool active, Red& red,
+                              CtxGrad& gc) {
   const bool agg = is_aggregate(shading, shadows);
   Fin f;
   Cot cot;
@@ -1447,45 +1455,50 @@ OCTRT_FN void brute_pixel_bwd(const Ctx& c, const BTabs& B, int shading,
     g_dist[l] = 0.0f;
     for (int q = 0; q < 3; ++q) g_so[l][q] = g_sd[l][q] = 0.0f;
   }
-  if (active) {
-    brute_stream_finals(c, B, agg, shading, f);
-    if (agg) {
-      geom_fwd(f, c, G);
-      if (shadows) {
-        for (int l = 0; l < c.nl; ++l) {
-          logvis[l] = brute_occ_logvis(c, B, G.so[l], G.sd[l], G.dist[l]);
-        }
+  brute_stream_finals(c, B, active, agg, shading, f);
+  if (agg) {
+    if (active) geom_fwd(f, c, G);
+    if (shadows) {
+      for (int l = 0; l < c.nl; ++l) {
+        logvis[l] = brute_occ_logvis(c, B, active, G.so[l], G.sd[l],
+                                     active ? G.dist[l] : 0.0f);
       }
+    }
+    if (active) {
       shade_agg_bwd(G, c, logvis, shading, shadows, gout, g_n, g_a, g_v, g_wbg,
                     g_sd, g_logvis, gc);
-    } else {
-      nonagg_finish_bwd(f, shading, gout, cot);
     }
+  } else if (active) {
+    nonagg_finish_bwd(f, shading, gout, cot);
   }
 
   // ---- occluders, per light ------------------------------------------------
   if (agg && shadows) {
     for (int l = 0; l < c.nl; ++l) {
-      for (int kind = 0; kind < 2; ++kind) {
-        const int nrow = kind ? B.n_sph : B.n_tri;
-        const float* rows = kind ? B.sph : B.tri;
-        float* drows = kind ? D.sph : D.tri;
-        for (int j = 0; j < nrow; ++j) {
-          float gr[ROW];
-          for (int q = 0; q < ROW; ++q) gr[q] = 0.0f;
-          if (active) {
-            float r[ROW];
-            brute_load(rows, nullptr, j, r, nullptr);
-            if (kind) {
-              occ_bwd<true>(r, G.so[l], G.sd[l], G.dist[l], c, g_logvis[l], gr,
-                            g_so[l], g_sd[l], g_dist[l], gc);
-            } else {
-              occ_bwd<false>(r, G.so[l], G.sd[l], G.dist[l], c, g_logvis[l],
-                             gr, g_so[l], g_sd[l], g_dist[l], gc);
+      const float glv = g_logvis[l];
+      const bool act = active && glv != 0.0f;
+      if (!B.any(act)) continue;
+      float so[3], sd[3], gso[3] = {0.f, 0.f, 0.f}, gsd[3] = {0.f, 0.f, 0.f};
+      float gdist = 0.0f;
+      const float dist = act ? G.dist[l] : 0.0f;
+      for (int q = 0; q < 3; ++q) {
+        so[q] = act ? G.so[l][q] : 0.0f;
+        sd[q] = act ? G.sd[l][q] : 0.0f;
+      }
+      B.template for_each<false>(
+          [&](int i, auto kind, const float* r, const float*) {
+            float gr[12];
+            for (int q = 0; q < 12; ++q) gr[q] = 0.0f;
+            if (act) {
+              occ_bwd<decltype(kind)::sphere>(r, so, sd, dist, c, glv, gr, gso,
+                                              gsd, gdist, gc);
             }
-          }
-          red.template add<12>(drows + (size_t)j * ROW, gr);
-        }
+            red.occ(i, gr);
+          });
+      g_dist[l] += gdist;
+      for (int q = 0; q < 3; ++q) {
+        g_so[l][q] += gso[q];
+        g_sd[l][q] += gsd[q];
       }
     }
   }
@@ -1494,30 +1507,21 @@ OCTRT_FN void brute_pixel_bwd(const Ctx& c, const BTabs& B, int shading,
   }
 
   // ---- primitives ------------------------------------------------------------
-  for (int kind = 0; kind < 2; ++kind) {
-    const int nrow = kind ? B.n_sph : B.n_tri;
-    const float* rows = kind ? B.sph : B.tri;
-    const float* albs = kind ? B.sph_alb : B.tri_alb;
-    float* drows = kind ? D.sph : D.tri;
-    float* dalbs = kind ? D.sph_alb : D.tri_alb;
-    for (int j = 0; j < nrow; ++j) {
-      float g[ROW + ALB];
-      for (int q = 0; q < ROW + ALB; ++q) g[q] = 0.0f;
-      if (active) {
-        float r[ROW], alb[ALB], t, cov, n[3];
-        brute_load(rows, albs, j, r, alb);
-        if (kind) brute_prim_fwd<true>(r, c, t, cov, n);
-        else brute_prim_fwd<false>(r, c, t, cov, n);
-        float g_t = 0.0f, g_cov = 0.0f, gn[3] = {0.f, 0.f, 0.f};
-        cand_bwd(c, f, cot, agg, shading, t, cov, n, alb, g_t, g_cov, gn,
-                 g + ROW, gc);
-        if (kind) brute_prim_bwd<true>(r, c, g_t, g_cov, gn, g, gc);
-        else brute_prim_bwd<false>(r, c, g_t, g_cov, gn, g, gc);
-      }
-      red.template add<ROW>(drows + (size_t)j * ROW, g);
-      red.template add<3>(dalbs + (size_t)j * ALB, g + ROW);
-    }
-  }
+  B.template for_each<true>(
+      [&](int i, auto kind, const float* r, const float* alb) {
+        constexpr bool SPH = decltype(kind)::sphere;
+        float g[ROW + ALB];
+        for (int q = 0; q < ROW + ALB; ++q) g[q] = 0.0f;
+        if (active) {
+          float t, cov, n[3];
+          brute_prim_fwd<SPH>(r, c, t, cov, n);
+          float g_t = 0.0f, g_cov = 0.0f, gn[3] = {0.f, 0.f, 0.f};
+          cand_bwd(c, f, cot, agg, shading, t, cov, n, alb, g_t, g_cov, gn,
+                   g + ROW, gc);
+          brute_prim_bwd<SPH>(r, c, g_t, g_cov, gn, g, gc);
+        }
+        red.prim(i, g);
+      });
 }
 
 #ifdef __CUDACC__

@@ -13,7 +13,7 @@ helpers the tiled soft path shares.
    and `soft_brute_bwd` launch kernels/csrc/soft_brute.cu (the backward
    recomputes the forward per pixel); on CPU tensors both run
    `_soft_brute_plain`, the same function in vectorised torch, whose
-   autograd is the backward's plain version.
+   autograd is the backward's plain version. Any number of primitives.
 3. ENTRY POINTS: `_soft_render_core` (the brute path, with gradients for
    every scene leaf, the camera, the lights and both temperatures) and
    `render_soft_pallas` (the tiled path of kernels/soft_tiled.py, which
@@ -59,9 +59,8 @@ from opencl_ray_tracer_tpu_torch.ops.shading import LEGACY_FOG_MAX
 NEG_BIG = -1e30
 CK = 128         # the plain twin walks the padded primitives in these chunks
 MAX_LIGHTS = 4   # the CUDA kernels keep per-light state in registers
-# The CUDA backward sums each real primitive's 16 + 8 row gradients in the
-# block's shared memory: 227 KB a block on sm_90a, 2 KB of it the reduction's.
-MAX_BWD_PRIMITIVES = 2400
+# The CUDA kernels give each warp a patch of PATCH_W x PATCH_H pixels.
+PATCH_W, PATCH_H = 8, 4
 
 # Launches of the CUDA brute soft kernels in this process; `soft_brute_fwd` /
 # `soft_brute_bwd` add one per launch and nowhere else.
@@ -417,13 +416,20 @@ def _check_brute(params, taus, tri_geo, tri_alb, sph_geo, sph_alb, height,
         _check(name, t, torch.float32, shape, dev)
 
 
-def _check_bwd_primitives(cfg):
-    n = cfg["n_tris"] + cfg["n_spheres"]
-    if n > MAX_BWD_PRIMITIVES:
-        raise ValueError(
-            f"the CUDA brute soft backward holds at most {MAX_BWD_PRIMITIVES} "
-            f"primitives (triangles + spheres; its accumulators live in shared "
-            f"memory), got {n}: use the tiled path, render_soft_pallas")
+def _live_patches(g, patch_h=PATCH_H, patch_w=PATCH_W):
+    """The patches of a cotangent g (H, W, 4) that hold a non-zero value in
+    a colour channel (alpha is a constant: its cotangent reaches nothing),
+    as sorted flat patch indices, row-major over ceil(H / patch_h) x
+    ceil(W / patch_w) patches. The CUDA backward builds this list on the
+    card (in no order) and walks nothing else; this is its plain version,
+    which `_soft_brute_bwd_cuda`'s callers hold the card's list against."""
+    h, w = g.shape[:2]
+    npy, npx = -(-h // patch_h), -(-w // patch_w)
+    nz = torch.zeros((npy * patch_h, npx * patch_w), dtype=torch.bool,
+                     device=g.device)
+    nz[:h, :w] = (g[..., :3] != 0).any(-1)
+    live = nz.reshape(npy, patch_h, npx, patch_w).any(3).any(1)
+    return torch.nonzero(live.reshape(-1))[:, 0]
 
 
 def _brute_ints(tri_geo, sph_geo, height, width, cfg):
@@ -482,11 +488,10 @@ def soft_brute_bwd(params, taus, tri_geo, tri_alb, sph_geo, sph_alb, g, *,
                    height, width, cfg):
     """B7, the brute soft backward: pixel cotangents g (H, W, 4) -> gradients
     of (params, taus, tri_geo, tri_alb, sph_geo, sph_alb). CUDA tensors
-    launch the CUDA backward (it recomputes the forward per pixel and sums
-    over pixels with atomics, so sums vary in their last bits from run to
-    run; at most `MAX_BWD_PRIMITIVES` primitives, else ValueError); CPU
-    tensors take autograd of `_soft_brute_plain`."""
-    global SOFT_BRUTE_BWD_LAUNCHES
+    launch the CUDA backward (it works only on the patches of g that hold a
+    non-zero value, recomputes the forward per pixel there and sums over
+    pixels with atomics, so sums vary in their last bits from run to run);
+    CPU tensors take autograd of `_soft_brute_plain`."""
     inputs = (params, taus, tri_geo, tri_alb, sph_geo, sph_alb)
     dev = params.device
     if dev.type == "cpu":
@@ -498,27 +503,43 @@ def soft_brute_bwd(params, taus, tri_geo, tri_alb, sph_geo, sph_alb, g, *,
                      for t, gr in zip(inputs, grads))
     if dev.type != "cuda":
         raise ValueError(f"soft_brute_bwd runs on cuda or cpu tensors, got {dev}")
+    return _soft_brute_bwd_cuda(inputs, g, height, width, cfg)[0]
+
+
+def _soft_brute_bwd_cuda(inputs, g, height, width, cfg):
+    """Launch B7 on CUDA tensors -> (the six gradients, live). `live` is the
+    kernel's int32 work list as it leaves it: live[0] the number of patches
+    of g that hold a non-zero cotangent, live[2 : 2 + live[0]] those patches
+    in no order (`_live_patches` is its plain version)."""
+    global SOFT_BRUTE_BWD_LAUNCHES
+    params, _, tri_geo, _, sph_geo, _ = inputs
+    dev = params.device
     _check_brute(*inputs, height, width, cfg)
-    _check_bwd_primitives(cfg)
     g = g.to(torch.float32).contiguous()
     _check("g", g, torch.float32, (height, width, 4), dev)
     from opencl_ray_tracer_tpu_torch.kernels._build import load_library
 
     lib = load_library()
-    grads = [torch.zeros_like(t) for t in inputs]
+    # one zeroed buffer for the row-gradient scratch and the six gradients
+    # (views of it): one allocation and one fill, not seven
     scratch = _row_scratch(cfg, dev, torch.empty)
-    d_scratch = _row_scratch(cfg, dev, torch.zeros)
+    sizes = [scratch.numel()] + [t.numel() for t in inputs]
+    d_scratch, *grads = torch.zeros(sum(sizes), dtype=torch.float32,
+                                    device=dev).split(sizes)
+    grads = [gr.view_as(t) for gr, t in zip(grads, inputs)]
+    live = torch.empty(2 + -(-width // PATCH_W) * -(-height // PATCH_H),
+                       dtype=torch.int32, device=dev)
     p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.octrt_soft_brute_bwd(
             *(p(t) for t in inputs), p(g), *(p(t) for t in grads),
-            p(scratch), p(d_scratch),
+            p(scratch), p(d_scratch), p(live),
             *_brute_ints(tri_geo, sph_geo, height, width, cfg),
             ctypes.c_void_p(stream))
     _raise_on(rc, "soft_brute backward")
     SOFT_BRUTE_BWD_LAUNCHES += 1
-    return tuple(grads)
+    return tuple(grads), live
 
 
 class SoftBruteFunction(torch.autograd.Function):
@@ -532,8 +553,6 @@ class SoftBruteFunction(torch.autograd.Function):
                 width, cfg):
         ctx.save_for_backward(params, taus, tri_geo, tri_alb, sph_geo, sph_alb)
         ctx.frame = (height, width, cfg)
-        if params.device.type == "cuda" and any(ctx.needs_input_grad):
-            _check_bwd_primitives(cfg)  # fail before the forward, not after
         return soft_brute_fwd(params, taus, tri_geo, tri_alb, sph_geo, sph_alb,
                               height=height, width=width, cfg=cfg)
 

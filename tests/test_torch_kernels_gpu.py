@@ -113,10 +113,25 @@ SOFT_PINHOLE = dict(position=(128.0, 64.0, 200.0), look_at=(128.0, 64.0, -60.0),
 def _soft_case(device, scene_name, cam_kind, shading, shadows):
     from opencl_ray_tracer_tpu_torch.kernels import soft_tiled as S
 
+    def lights(n):  # n point lights of different colours around the volume
+        f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=device)  # noqa: E731
+        return T.Lights(
+            position=f32([[200.0, 100.0, 200.0], [250.0, 10.0, 180.0],
+                          [130.0, -40.0, 120.0]][:n]),
+            colour=f32([[1.0, 1.0, 1.0], [1.0, 0.6, 0.3], [0.3, 0.5, 1.0]][:n]),
+            intensity=f32([1.0, 0.5, 0.5][:n]), ambient=f32(0.1),
+            spec_strength=f32(0.5), shininess=f32(32.0))
+
     scene = {"test": lambda: T.random_scene(5, 3, seed=4, bounds=(250.0, 120.0),
                                             device=device),
+             "two_lights": lambda: T.random_scene(
+                 5, 3, seed=4, bounds=(250.0, 120.0), lights=lights(2), device=device),
+             "three_lights": lambda: T.random_scene(
+                 5, 3, seed=4, bounds=(250.0, 120.0), lights=lights(3), device=device),
              "scene1": lambda: T.create_scene1(device=device),
-             "scene3": lambda: T.create_scene(3, seed=0, device=device)}[scene_name]()
+             "scene3": lambda: T.create_scene(3, seed=0, device=device),
+             "big": lambda: T.random_scene(200, 200, seed=1, bounds=(250.0, 120.0),
+                                           device=device)}[scene_name]()
     cam = (T.legacy_ortho_camera(device=device) if cam_kind == "ortho"
            else T.pinhole_camera(**SOFT_PINHOLE, device=device))
     cfg = T.RenderConfig(width=SOFT_W, height=SOFT_H, shading=shading,
@@ -251,17 +266,39 @@ def test_brute_kernel_matches_twin(cuda_device, scene_num, cam_kind, shading,
         fwd.brute_kernel(args[0].double(), *args[1:], **kw)
 
 
-# scene3: 1,300 primitives, so B7's accumulators take 125 KB of a block's
-# shared memory (above the 48 KB a kernel gets without asking), one block a
-# multiprocessor
+def _cotangent(kind, want):
+    """Pixel cotangents for B7: that of mean(img^2), zeros, a few scattered
+    pixels, one whole 8x4 patch of the kernel, or every pixel."""
+    g = torch.zeros_like(want)
+    if kind == "loss":
+        g[..., :3] = 2.0 * want[..., :3] / (SOFT_H * SOFT_W * 3)
+    elif kind == "scattered":
+        g[3, 5, 1], g[77, 200, 0], g[SOFT_H - 1, SOFT_W - 1, 2] = 1.0, -2.0, 0.5
+    elif kind == "patch":
+        g[40:44, 96:104, :3] = 0.5
+    elif kind == "dense":
+        g[..., :3] = 1e-3
+    return g
+
+
+# scene3: 1,300 primitives; big: 2,600, more than B7's accumulators once held;
+# two_lights / three_lights: the kernels built for a light count read at run
+# time (one light has a build of its own)
 @pytest.mark.parametrize(
-    "scene_name,cam_kind,shading,shadows",
-    [("test", cam_kind, shading, shadows)
+    "scene_name,cam_kind,shading,shadows,cotangent",
+    [("test", cam_kind, shading, shadows, "loss")
      for shading, shadows in (("legacy", False), ("lambert", False),
                               ("lambert", True), ("phong", True))
-     for cam_kind in ("ortho", "pinhole")] + [("scene3", "ortho", "phong", True)])
+     for cam_kind in ("ortho", "pinhole")]
+    + [("scene3", "ortho", "phong", True, "loss"),
+       ("big", "ortho", "phong", True, "loss"),
+       ("two_lights", "ortho", "phong", True, "loss"),
+       ("two_lights", "pinhole", "lambert", True, "loss"),
+       ("three_lights", "ortho", "lambert", False, "dense")]
+    + [("test", "ortho", "phong", True, kind)
+       for kind in ("zero", "scattered", "patch", "dense")])
 def test_soft_brute_kernels_match_twin(cuda_device, scene_name, cam_kind,
-                                       shading, shadows):
+                                       shading, shadows, cotangent):
     from opencl_ray_tracer_tpu_torch.kernels import soft
 
     _, scene, cam, _ = _soft_case(cuda_device, scene_name, cam_kind, shading,
@@ -277,12 +314,18 @@ def test_soft_brute_kernels_match_twin(cuda_device, scene_name, cam_kind,
     with torch.no_grad():
         want = soft._soft_brute_plain(*inputs, **kw)
     assert (got - want).abs().max().item() < 0.05
-    g = torch.zeros_like(want)
-    g[..., :3] = 2.0 * want[..., :3] / (SOFT_H * SOFT_W * 3)
-    gk = soft.soft_brute_bwd(*inputs, g, **kw)
+    g = _cotangent(cotangent, want)
+    gk, live = soft._soft_brute_bwd_cuda(inputs, g, SOFT_H, SOFT_W, kw["cfg"])
     torch.cuda.synchronize()
     assert (soft.SOFT_BRUTE_FWD_LAUNCHES, soft.SOFT_BRUTE_BWD_LAUNCHES) == (
         before[0] + 1, before[1] + 1)
+    # the list of live patches that the card built, against its plain version
+    want_live = soft._live_patches(g)
+    assert live[0].item() == want_live.numel()
+    assert torch.equal(live[2:2 + want_live.numel()].sort().values.long(), want_live)
+    if cotangent == "zero":
+        assert all(bool((a == 0).all()) for a in gk)
+        return
     leaves = [t.detach().requires_grad_(True) for t in inputs]
     gt = torch.autograd.grad(soft._soft_brute_plain(*leaves, **kw), leaves, g,
                              allow_unused=True)
@@ -292,4 +335,3 @@ def test_soft_brute_kernels_match_twin(cuda_device, scene_name, cam_kind,
         assert torch.isfinite(a).all(), name
         scale = b.abs().max().item()
         assert (a - b).abs().max().item() <= atol * scale + 1e-12, name
-

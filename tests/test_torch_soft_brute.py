@@ -182,20 +182,93 @@ def test_brute_matches_tiled_grads(scenes):
         assert (gb[k] - w).abs().max().item() <= 1e-3 * scale + 1e-12, k
 
 
-@pytest.mark.parametrize("n_tris,n_spheres,ok", [(1200, 1200, True),
-                                                 (2400, 0, True),
-                                                 (1200, 1201, False),
-                                                 (0, 2401, False)])
-def test_backward_primitive_limit(n_tris, n_spheres, ok):
-    """The CUDA backward's accumulators live in a block's shared memory:
-    (16 + 8) floats a primitive plus 2 KB must fit 227 KB, so 2,400
-    primitives pass and one more is refused with a ValueError that names
-    the limit (not an opaque launch error)."""
-    cfg = dict(n_tris=n_tris, n_spheres=n_spheres)
-    assert (S.MAX_BWD_PRIMITIVES * 24 + 512) * 4 <= 227 * 1024
-    assert ((S.MAX_BWD_PRIMITIVES + 1) * 24 + 512) * 4 > 227 * 1024
-    if ok:
-        S._check_bwd_primitives(cfg)
-    else:
-        with pytest.raises(ValueError, match="2400"):
-            S._check_bwd_primitives(cfg)
+@pytest.mark.parametrize("n_tris,n_spheres,within_old_limit,shading,shadows",
+                         [(1200, 1200, True, "legacy", False),
+                          (2400, 0, True, "lambert", False),
+                          (1200, 1201, False, "lambert", True),
+                          (0, 2401, False, "phong", False)],
+                         ids=["1200-1200-True", "2400-0-True", "1200-1201-False",
+                              "0-2401-False"])
+def test_backward_primitive_limit(n_tris, n_spheres, within_old_limit, shading,
+                                  shadows):
+    """The backward takes any number of primitives (its CUDA kernel once held
+    at most 2,400 in shared memory): at and above that count, on a 6x3
+    frame, `soft_brute_bwd` passes the wrappers' checks and its gradients of
+    all six operands agree with the JAX backward kernel's
+    (`_soft_pallas_bwd_arrays` in interpret mode) on the same arrays within
+    1e-3 of each operand's largest, finite and with exact zeros in the
+    padded columns. (One case walks the occluders: the JAX kernel takes
+    about a minute to trace at this primitive count with soft shadows.)"""
+    rng = np.random.default_rng(n_tris + 7 * n_spheres)
+    h, w = 3, 6
+    tp, sp = -(-max(n_tris, 1) // 128) * 128, -(-max(n_spheres, 1) // 128) * 128
+    v0 = rng.uniform([-2, -2, -40], [8, 5, -20], (n_tris, 3))
+    e1, e2 = rng.uniform(-3, 3, (2, n_tris, 3))
+    tris = np.zeros((9, tp), np.float32)
+    tris[:, :n_tris] = np.concatenate([v0, e1, e2], axis=1).T
+    sph = np.zeros((4, sp), np.float32)
+    sph[2, n_spheres:] = 1e9  # padded spheres: far away, radius 0
+    sph[:, :n_spheres] = np.concatenate(
+        [rng.uniform([-2, -2, -40], [8, 5, -20], (n_spheres, 3)),
+         rng.uniform(0.5, 2.0, (n_spheres, 1))], axis=1).T
+    colours = rng.uniform(0.1, 1.0, (2, 4, max(tp, sp))).astype(np.float32)
+    base = scene_from_arrays(scene_to_arrays(J.random_scene(1, 1, seed=0)), CPU).pack()
+    packed = dataclasses.replace(
+        base, tri_v0=torch.tensor(tris[0:3]), tri_e1=torch.tensor(tris[3:6]),
+        tri_e2=torch.tensor(tris[6:9]), tri_colour=torch.tensor(colours[0][:, :tp]),
+        sph_origin=torch.tensor(sph[0:3]), sph_radius=torch.tensor(sph[3:4]),
+        sph_colour=torch.tensor(colours[1][:, :sp]), n_tris=n_tris,
+        n_spheres=n_spheres)
+    assert (n_tris + n_spheres <= 2400) == within_old_limit
+    cam = T.legacy_ortho_camera(device=CPU)
+    inputs = [S._camera_params(cam, packed.lights), torch.tensor([1.0, 0.5]),
+              *S._prep_soft_arrays(packed)]
+    cfg = S._static_cfg(packed, shading, shadows, False)
+    S._check_brute(*inputs, h, w, cfg)
+    g = rng.normal(size=(h, w, 4)).astype(np.float32)
+    got = S.soft_brute_bwd(*inputs, torch.tensor(g), height=h, width=w, cfg=cfg)
+
+    pix = jsoft.BWD_TILE_PIXELS
+    g8 = np.zeros((8, pix), np.float32)
+    g8[0:4, :h * w] = g.reshape(h * w, 4).T
+    jcfg = dict(n_tri_chunks=tp // jsoft.CK if n_tris else 0,
+                n_sph_chunks=sp // jsoft.CK if n_spheres else 0,
+                n_lights=cfg["n_lights"], shading=shading, shadows=shadows,
+                normalize_dir=False, tp=pix)
+    d_tri_geo, d_tri_alb, d_sph_geo, d_sph_alb, d_par, d_taus = (
+        jsoft._soft_pallas_bwd_arrays(
+            *(jnp.asarray(t.numpy()) for t in inputs), jnp.asarray(g8), width=w,
+            cfg=jcfg, interpret=True))
+    want = (np.asarray(d_par)[0], np.asarray(d_taus)[0], d_tri_geo, d_tri_alb,
+            d_sph_geo, d_sph_alb)
+    for name, a, b, t in zip(("params", "taus", "tri_geo", "tri_alb", "sph_geo",
+                              "sph_alb"), got, want, inputs):
+        a, b = a.numpy(), np.asarray(b)
+        assert a.shape == b.shape == tuple(t.shape) and np.isfinite(a).all(), name
+        scale = np.abs(b).max()
+        assert np.abs(a - b).max() <= 1e-3 * scale, (name, scale)
+    assert got[0].abs().max() > 0 and got[1].abs().min() > 0
+    assert got[2].abs().max() > 0 or n_tris == 0
+    assert got[4].abs().max() > 0 or n_spheres == 0
+    assert got[2][:, n_tris:].abs().max() == 0 and got[4][:, n_spheres:].abs().max() == 0
+
+
+@pytest.mark.parametrize("h,w,ph,pw", [(8, 16, 4, 8), (13, 21, 4, 8), (5, 70, 1, 32)])
+def test_live_patches_match_numpy(h, w, ph, pw):
+    """`_live_patches` (the plain version of the list the CUDA backward
+    walks) against a numpy loop over the patches: a patch is live when any
+    colour channel of any of its pixels inside the frame is non-zero; alpha
+    does not count."""
+    rng = np.random.default_rng(h * 100 + w)
+    g = np.zeros((h, w, 4), np.float32)
+    ys, xs = rng.integers(0, h, 5), rng.integers(0, w, 5)
+    g[ys, xs, rng.integers(0, 3, 5)] = rng.normal(size=5).astype(np.float32)
+    g[h - 1, w - 1, 2] = -0.0  # a negative zero is a zero
+    g[0, :, 3] = 1.0           # alpha everywhere on the first row
+    npy, npx = -(-h // ph), -(-w // pw)
+    want = [py * npx + px for py in range(npy) for px in range(npx)
+            if (g[py * ph:(py + 1) * ph, px * pw:(px + 1) * pw, :3] != 0).any()]
+    got = S._live_patches(torch.tensor(g), ph, pw)
+    assert got.dtype == torch.int64 and got.tolist() == want and want
+    assert S._live_patches(torch.zeros((h, w, 4)), ph, pw).numel() == 0
+    assert S._live_patches(torch.ones((h, w, 4)), ph, pw).tolist() == list(range(npy * npx))
