@@ -29,11 +29,19 @@ differentiable) — through the entry points a user calls, and fails
    pixel, every scene leaf's gradient within 1e-3 of the twin's normalised
    by its largest (2e-3 pinhole); then 16 pixel-gradient Jacobian rows
    (bench.py:434-460) within 1e-4 of the twin's and of diff.render_soft's;
+   then B5's handling of its cotangent: exact zeros for an all-zero one, a
+   cotangent on a few scattered pixels and one full 8x4 patch and a dense
+   one against the twin's autograd, the list of live patches that the card
+   built equal to its plain version each time; then two and three lights
+   (the backward's build for a light count read at run time);
 8. the soft golden (pallas_soft_scene1_phong) through the kernels;
 9. the train path at full size: (a) 10 Adam steps of the bench's 1080p
    phong + soft-shadow train step through make_train_step, step 1's
    gradients held against the twin's, the kernels', twin's and whole
-   step's CUDA-event times and a device trace of the step; (b) the CLI's
+   step's CUDA-event times and a device trace of the step; B5 on the
+   step's own cotangent, on zeros and on a dense one, through a pinhole
+   camera and on scene 3 (1,300 primitives) at 640x480, each beside its
+   bound and the time of the kernel before its redesign; (b) the CLI's
    `fit --scene 1 --steps 60` at 640x480, which must lower the loss and the
    sphere-origin error;
 10. the brute hard kernel B3 against its plain twin: scenes 1 and 2 at
@@ -42,7 +50,9 @@ differentiable) — through the entry points a user calls, and fails
    bars below; then against the tiled kernel B1 and the oracle on the same
    frames (two other formulations of the same tests, where an edge pixel may
    fall on the other side: int frames identical on >= 99.9% of pixels and
-   >= 99.9% of the lit pixels within 0.5/255);
+   >= 99.9% of the lit pixels within 0.5/255); then 4,800 triangles at
+   160x120 against the twin (more geometry than shared memory holds: the
+   shadow walk that stages it in pieces);
 11. the brute soft kernels B6 (forward) and B7 (backward) against their
    plain twin at 256x128, through _soft_render_core: the scenes, cameras and
    four modes of phase 7; images within 0.05/255 on every pixel; the
@@ -65,8 +75,9 @@ differentiable) — through the entry points a user calls, and fails
    CUDA-event times of each brute kernel, its twin and the whole calls,
    and the two-count slope beside them; B7 also with a cotangent that is
    non-zero on every pixel and on scene 3 (1,300 primitives) at 256x128, B6
-   also on scene 3 at 640x480, each beside its own bound and the time of
-   the kernels before their redesign;
+   also on scene 3 at 640x480, B3 also through a pinhole camera and on
+   scene 3 at 640x480, each beside its own bound and the time of the
+   kernels before their redesign;
    then `python -m opencl_ray_tracer_tpu_torch.bench` as a subprocess, whose
    exit code and JSON line are checked.
 
@@ -81,7 +92,8 @@ same work: the larger of the bytes it must move (each input read once, each
 output written once) over the card's memory rate and the operations these
 inputs need over its peak float32 rate (see `_OPS`, `_OPS_BWD`: a soft
 pixel that no primitive covers needs no shading, a pixel whose cotangent is
-zero needs no backward). A launch of soft_brute_fwd / soft_brute_bwd is one
+zero needs no backward, and the tiled soft kernels need neither the rows nor
+the cotangent of an empty tile). A launch of soft_brute_fwd / soft_brute_bwd is one
 call of its wrapper, which also launches its small row kernels. No single PyTorch call
 computes any of these functions, so library_ms is null. The last line is
 {"ok": true, "device": {...}}. Needs no network and imports no JAX.
@@ -515,6 +527,7 @@ def main() -> int:
               f"device work per frame), 20 traced frames; {smi}")
 
     soft_phase_kernel_vs_twin(T, dev)           # 7
+    soft_phase_cotangents(T, dev)               # 7, B5 and its cotangent
     soft_phase_golden(T, dev, gdir)             # 8
     soft_rows = soft_phase_train(T, dev, smi)   # 9 (a)
     soft_phase_cli_fit()                        # 9 (b)
@@ -688,6 +701,123 @@ def soft_phase_kernel_vs_twin(T, dev):
     _require(err_twin <= 1e-4 and err_oracle <= 1e-4, "pixel-gradient probes over 1e-4")
 
 
+_SOFT_OPERANDS = ("params", "taus", "tri_t", "tri_alb", "sph_t", "sph_alb",
+                  "tsh_t", "ssh_t")
+
+
+def _soft_operands(scene, cam, cfg):
+    """The tiled soft kernels' operands for a frame, detached: (params, taus,
+    tables, counts, the kernels' cfg)."""
+    import torch
+
+    from opencl_ray_tracer_tpu_torch.kernels import soft_tiled as S
+
+    with torch.no_grad():
+        return S.soft_kernel_inputs(scene.pack(), cam, cfg)
+
+
+def _b5_live(label, live, g, counts, kc):
+    """The list of live patches that B5 built on the card for the cotangent
+    g, held against its plain version: the same patches, in any order.
+    Returns their number, read from the kernel's counter."""
+    import torch
+
+    from opencl_ray_tracer_tpu_torch.kernels import soft_tiled as S
+
+    want = S._live_patches(g, counts, cfg=kc)
+    n = int(live[0].item())
+    _require(n == want.numel(), f"{label}: the card lists {n} live patches, the "
+                                f"plain version {want.numel()}")
+    _require(torch.equal(live[2:2 + n].sort().values.long(), want),
+             f"{label}: the card's live patches differ from the plain version's")
+    return n
+
+
+def _b5_vs_twin(label, operands, g, atol=1e-3):
+    """B5 on a cotangent g against the twin's autograd on the same operands
+    (and its live list against the plain version): the largest error over
+    the eight operands, each normalised by its largest."""
+    import torch
+
+    from opencl_ray_tracer_tpu_torch.kernels import soft_tiled as S
+
+    params, taus, tables, counts, kc = operands
+    got, live = S._soft_tiled_bwd_cuda(params, taus, tables, counts, g, kc)
+    _b5_live(label, live, g, counts, kc)
+    leaves = [t.detach().requires_grad_(True) for t in (params, taus) + tuple(tables)]
+    out = S._soft_tiled_plain(leaves[0], leaves[1], leaves[2:], counts, cfg=kc)
+    want = torch.autograd.grad(out, leaves, g, allow_unused=True)
+    want = [torch.zeros_like(t) if w is None else w for t, w in zip(leaves, want)]
+    return _compare_grads(label, dict(zip(_SOFT_OPERANDS, got)),
+                          dict(zip(_SOFT_OPERANDS, want)), atol)
+
+
+def _multi_light_scene(T, dev, n_lights):
+    """The 256x128 test scene under two or three lights. (The lights stand
+    where every leaf's gradient is well conditioned: with the second one at
+    (20, 110, 150) the phong frame's d tau_edge cancels to 0.85 beside
+    d tau_depth's 36, and the twin's own float32 sum is 3e-3 off its float64
+    value there.)"""
+    import torch
+
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
+    lights = T.Lights(
+        position=f32([[200.0, 100.0, 200.0], [250.0, 10.0, 180.0],
+                      [130.0, -40.0, 120.0]][:n_lights]),
+        colour=f32([[1.0, 1.0, 1.0], [1.0, 0.6, 0.3],
+                    [0.3, 0.5, 1.0]][:n_lights]),
+        intensity=f32([1.0, 0.5, 0.5][:n_lights]), ambient=f32(0.1),
+        spec_strength=f32(0.5), shininess=f32(32.0))
+    return T.random_scene(5, 3, seed=4, bounds=(250.0, 120.0), lights=lights,
+                          device=dev)
+
+
+def soft_phase_cotangents(T, dev):
+    """Phase 7, continued: B5 works only where its cotangent is non-zero,
+    and has a build of its own for one light."""
+    import torch
+
+    from opencl_ray_tracer_tpu_torch.kernels import soft_tiled as S
+
+    cam = T.legacy_ortho_camera(device=dev)
+    scene = T.random_scene(5, 3, seed=4, bounds=(250.0, 120.0), device=dev)
+    w, h = 250, 123  # ragged right and bottom tiles
+    ops = _soft_operands(scene, cam, _soft_cfg(T, w, h, "phong", True))
+    params, taus, tables, counts, kc = ops
+    zero_g = torch.zeros((h, w, 4), device=dev)
+    zero_g[..., 3] = 1.0  # alpha's cotangent reaches nothing
+    zeros, live = S._soft_tiled_bwd_cuda(params, taus, tables, counts, zero_g, kc)
+    _require(all(bool((t == 0).all()) for t in zeros) and live[0].item() == 0,
+             "[soft-cotangent] B5 with an all-zero cotangent is not exactly zero")
+    g = torch.zeros((h, w, 4), device=dev)
+    g[3, 5, 1], g[77, 200, 0], g[h - 1, w - 1, 2] = 1.0, -2.0, 0.5
+    g[40:44, 96:104, :3] = 0.5  # one whole patch
+    err_s = _b5_vs_twin("[soft-cotangent] B5, scattered pixels + one patch", ops, g)
+    err_d = _b5_vs_twin("[soft-cotangent] B5, dense cotangent", ops,
+                        torch.full((h, w, 4), 1e-3, device=dev))
+    print(f"[soft-cotangent] B5 at {w}x{h}: all-zero cotangent -> exact zeros and "
+          f"an empty list; 3 scattered pixels + one 8x4 patch vs the twin's "
+          f"autograd {err_s:.2e}, dense {err_d:.2e} (bar 0.001); the card's live "
+          f"lists equal their plain version")
+    # two and three lights: the build that reads the light count at run time
+    for n_lights, shading, shadows in ((2, "phong", True), (3, "lambert", True)):
+        scene_l = _multi_light_scene(T, dev, n_lights)
+        cfg_l = _soft_cfg(T, SOFT_W, SOFT_H, shading, shadows)
+        label = (f"[soft-cotangent] test, {n_lights} lights, ortho {shading} "
+                 f"shadows={shadows}")
+        with torch.no_grad():
+            ferr = (S.render_soft_tiled(scene_l, cam, cfg_l)
+                    - _twin_render(scene_l, cam, cfg_l)).abs().max().item()
+        _require(ferr < FWD_BAR, f"{label}: fwd max err {ferr} >= {FWD_BAR}")
+        gk = _leaf_grads(S.render_soft_tiled, scene_l, cam, cfg_l, _mean_sq)
+        gt = _leaf_grads(_twin_render, scene_l, cam, cfg_l, _mean_sq)
+        gerr = _compare_grads(label, gk, gt, 1e-3)
+        _require(bool((gk["lights.position"][n_lights - 1] != 0).any()),
+                 f"{label}: the last light's position has no gradient")
+        print(f"{label}: fwd max err {ferr:.5f} (bar {FWD_BAR}), leaf grads "
+              f"normalised max err {gerr:.2e} (bar 0.001)")
+
+
 def soft_phase_golden(T, dev, gdir):
     """Phase 8: the soft golden through the kernel (tests/test_golden.py)."""
     from opencl_ray_tracer_tpu_torch.kernels.soft import render_soft_pallas
@@ -702,6 +832,70 @@ def soft_phase_golden(T, dev, gdir):
     _require(same >= 0.999, f"soft golden below its bar: {same}")
 
 
+def _tiled_soft_bounds(scene, cam, cfg, operands, g):
+    """(B4's bound, B5's bound for the cotangent g, pixels in non-empty
+    tiles, covered pixels, pixels with a cotangent), each bound with its
+    operations behind it; counted as `_brute_soft_bounds` counts. B4: every
+    pixel of a non-empty tile streams the tile's processed candidate rows;
+    only a covered pixel (1 - w_bg != 0) needs the finish, the shading and
+    the walk over the processed occluder rows of every light. B5: a pixel
+    whose cotangent is zero (or whose tile is empty) needs nothing; every
+    other needs its whole forward once and the reverse of its primary
+    tests; the reverse of the finish, the shading and the occluders only
+    where the pixel is covered. (A pinhole frame is counted with the affine
+    tests' operations: a floor.)
+
+    Bytes, each read or written once. Both read params, taus and the
+    counts. B4 reads the real rows (the counts') of its non-empty tiles and
+    writes the frame. B5 reads the cotangent in the non-empty tiles only
+    (an empty tile's gradient is zero whatever g holds there), the real
+    rows of the tiles that hold a non-zero cotangent, and writes every
+    gradient table, params and taus row once."""
+    import torch
+
+    from opencl_ray_tracer_tpu_torch.kernels import soft_tiled as S
+
+    params, taus, tables, counts, kc = operands
+    h, w = cfg.height, cfg.width
+    cnt = counts.long()
+    proc = (cnt + S.CH - 1) // S.CH * S.CH
+    nonempty = (cnt[:, 0] + cnt[:, 1]) > 0
+    covered_px = _soft_covered(scene.pack(), cam, cfg.tau_edge, h, w)
+    has_cot = (g[..., :3] != 0).any(-1)
+    per_tile = lambda m: _per_tile(m, kc["nty"], kc["ntx"]) * nonempty  # noqa: E731
+    live = per_tile(torch.ones((h, w), dtype=torch.bool, device=g.device))
+    covered, cot, both = per_tile(covered_px), per_tile(has_cot), per_tile(has_cot & covered_px)
+    n_l = kc["n_lights"]
+
+    def per_px(ops):
+        prim = proc[:, 0] * ops["soft_tri_affine"] + proc[:, 1] * ops["soft_sph_affine"]
+        rest = ops["soft_finish"] + n_l * ops["soft_light"]
+        for li in range(n_l):
+            rest = rest + (proc[:, 2 + 2 * li] * ops["occ_tri"]
+                           + proc[:, 3 + 2 * li] * ops["occ_sph"])
+        return prim, rest
+
+    def row_bytes(tiles):
+        """Bytes of the real rows of the tiles in the (n_tiles,) mask: 16 + 8
+        floats a candidate, 16 an occluder; a pinhole frame's occluder rows
+        are one table for all tiles, read once if any tile is in the mask."""
+        sh = cnt[:, 2:].sum(1)
+        sh = sh[:1] * tiles.any() if kc["projective"] else (sh * tiles).sum()
+        return int(((cnt[:, 0] + cnt[:, 1]) * tiles).sum()) * 96 + int(sh) * 64
+
+    prim_f, rest_f = per_px(_OPS)
+    prim_b, rest_b = per_px(_OPS_BWD)
+    ops_b4 = float((live * prim_f + covered * rest_f).sum())
+    ops_b5 = float((cot * (prim_f + rest_f + prim_b) + both * rest_b).sum())
+    small = _nbytes(params, taus, counts)
+    bytes_b4 = small + row_bytes(nonempty) + h * w * 16
+    bytes_b5 = (small + int(live.sum()) * 16 + row_bytes(cot > 0)
+                + _nbytes(params, taus, *tables))
+    return (_bound(ops_b4, bytes_b4) + (ops_b4,),
+            _bound(ops_b5, bytes_b5) + (ops_b5,),
+            int(live.sum()), int(covered.sum()), int(cot.sum()))
+
+
 def soft_phase_train(T, dev, smi):
     """Phase 9 (a): the bench's train step (bench.py:149-171, 619-629):
     headline scene, 1920x1080, phong + soft shadows, Adam lr 1e-3, a zero
@@ -709,7 +903,7 @@ def soft_phase_train(T, dev, smi):
     against the twin's; then the stage times and a device trace."""
     import torch
 
-    from opencl_ray_tracer_tpu_torch.bench_util import back_to_back_ms
+    from opencl_ray_tracer_tpu_torch.bench_util import back_to_back_ms, device_ms
     from opencl_ray_tracer_tpu_torch.kernels import soft_tiled as S
     from opencl_ray_tracer_tpu_torch.parallel import (
         adam,
@@ -761,10 +955,14 @@ def soft_phase_train(T, dev, smi):
              f"the train step did not go through both kernels: {launches}")
 
     # stage times, CUDA events, >= 20 runs each
-    with torch.no_grad():
-        params, taus, tables, counts, kc = S.soft_kernel_inputs(
-            scene.pack(), cam, cfg)
-    g = torch.full((h, w, 4), 1e-6, dtype=torch.float32, device=dev)
+    operands = _soft_operands(scene, cam, cfg)
+    params, taus, tables, counts, kc = operands
+    # the train step's own cotangent, d loss_fn / d img: non-zero where the
+    # frame is; beside it a dense one and zeros
+    g = torch.zeros((h, w, 4), dtype=torch.float32, device=dev)
+    g[..., :3] = 2.0 * fimg[..., :3] * (inv_npix / (255.0 * 255.0))
+    dense_g = torch.full((h, w, 4), 1e-6, dtype=torch.float32, device=dev)
+    zero_g = torch.zeros((h, w, 4), dtype=torch.float32, device=dev)
     leaves_in = [t.detach().requires_grad_(True) for t in (params, taus) + tuple(tables)]
     with torch.enable_grad():
         twin_out = S._soft_tiled_plain(leaves_in[0], leaves_in[1], leaves_in[2:],
@@ -820,43 +1018,67 @@ def soft_phase_train(T, dev, smi):
     print("[stages] train step 1080p, device ms per step by kernel: "
           + "; ".join(f"{name} {ms:.4f}" for name, ms in top))
 
-    # B4's bound from this step's tables: every pixel of a non-empty tile
-    # streams the tile's processed candidate rows; only a covered pixel
-    # (1 - w_bg != 0) needs the finish, the shading and the walk over the
-    # processed occluder rows of every light. B5 was timed with a cotangent
-    # that is non-zero on every pixel: each pixel of a non-empty tile needs
-    # its whole forward (d out / d w_bg is the shaded colour) and the reverse
-    # of every unit of it.
-    cnt = counts.long()
-    proc = (cnt + S.CH - 1) // S.CH * S.CH
-    inside = _per_tile(torch.ones((h, w), dtype=torch.bool, device=dev),
-                       kc["nty"], kc["ntx"])
-    nonempty = (cnt[:, 0] + cnt[:, 1]) > 0
-    live = inside * nonempty
-    covered = _per_tile(_soft_covered(scene.pack(), cam, cfg.tau_edge, h, w),
-                        kc["nty"], kc["ntx"]) * nonempty
-    n_l = kc["n_lights"]
+    # bounds from this step's tables and cotangent (`_tiled_soft_bounds`)
+    b4_bound, b5_bound, n_live, n_cov, n_cot = _tiled_soft_bounds(
+        scene, cam, cfg, operands, g)
+    print(f"[bound] train 1080p: {n_live} pixels in non-empty tiles, {n_cov} "
+          f"covered, {n_cot} with a non-zero cotangent; B4 {b4_bound[2]:.4e} "
+          f"operations, bound {b4_bound[0]:.5f} ms by {b4_bound[1]}; B5 (the "
+          f"step's cotangent) {b5_bound[2]:.4e} operations, bound "
+          f"{b5_bound[0]:.5f} ms by {b5_bound[1]}")
 
-    def per_px(ops):
-        prim = proc[:, 0] * ops["soft_tri_affine"] + proc[:, 1] * ops["soft_sph_affine"]
-        rest = ops["soft_finish"] + n_l * ops["soft_light"]
-        for li in range(n_l):
-            rest = rest + (proc[:, 2 + 2 * li] * ops["occ_tri"]
-                           + proc[:, 3 + 2 * li] * ops["occ_sph"])
-        return prim, rest
+    # The redesigned B5 beside its bounds and beside the same inputs through
+    # the kernel as it was before (one thread a pixel of every non-empty
+    # tile whatever its cotangent, three block reductions a row). Device
+    # time, behind a spin: a call of the wrapper now costs the host more than
+    # the kernel costs the card. The earlier times are RECORDED, not measured
+    # in this run: the `device_ms` column of scripts/torch_kernel_times.py on
+    # the earlier tree, on an NVIDIA H100 80GB HBM3 at 700.00 W, old and new
+    # trees in turns on one card. They stay out of the `kernels` line.
+    pin = T.pinhole_camera((960.0, 540.0, 1100.0), (960.0, 540.0, -60.0),
+                           fov_degrees=50.0, width=w, height=h, device=dev)
+    scene3 = T.create_scene(3, seed=0, device=dev)
+    cfg3 = _soft_cfg(T, 640, 480, "phong", True)
+    ops_pin = _soft_operands(scene, pin, cfg)
+    ops3 = _soft_operands(scene3, cam, cfg3)
 
-    prim_f, rest_f = per_px(_OPS)
-    prim_b, rest_b = per_px(_OPS_BWD)
-    ops_fwd = float((live * prim_f + covered * rest_f).sum())
-    ops_bwd = float((live * (prim_f + rest_f + prim_b + rest_b)).sum())
-    in_bytes = _nbytes(params, taus, counts, *tables)
-    b4_bound = _bound(ops_fwd, in_bytes + h * w * 16)
-    b5_bound = _bound(ops_bwd, 2 * in_bytes + h * w * 16)
-    print(f"[bound] train 1080p: {int(live.sum())} pixels in non-empty tiles, "
-          f"{int(covered.sum())} covered; B4 {ops_fwd:.4e} operations, bound "
-          f"{b4_bound[0]:.5f} ms by {b4_bound[1]}; B5 (cotangent non-zero on "
-          f"every pixel) {ops_bwd:.4e} operations, bound {b5_bound[0]:.5f} ms "
-          f"by {b5_bound[1]}")
+    def loss_cotangent(ops_):
+        img = S.soft_tiled_fwd(*ops_[:4], cfg=ops_[4])
+        g_ = torch.zeros_like(img)
+        g_[..., :3] = 2.0 * img[..., :3] / (255.0 * 255.0 * img.shape[0] * img.shape[1] * 3)
+        return g_
+
+    g_pin, g3 = loss_cotangent(ops_pin), loss_cotangent(ops3)
+    perr = _b5_vs_twin("[redesign] B5, pinhole 1080p, vs twin", ops_pin, g_pin, 2e-3)
+    print(f"[redesign] B5 through a pinhole camera at 1080p vs the twin's autograd "
+          f"{perr:.2e} (bar 2e-3)")
+    cases = (
+        ("B5, the step's cotangent", scene, cam, cfg, operands, g, 0.5175, 50),
+        ("B5, all-zero cotangent", scene, cam, cfg, operands, zero_g, 0.5170, 50),
+        ("B5, dense cotangent", scene, cam, cfg, operands, dense_g, 0.5181, 50),
+        ("B5, pinhole camera, the loss's cotangent", scene, pin, cfg, ops_pin,
+         g_pin, 0.8342, 50),
+        ("B5, scene 3 640x480, the loss's cotangent", scene3, cam, cfg3, ops3,
+         g3, 3.9002, 10),
+        ("B5, scene 3 640x480, dense cotangent", scene3, cam, cfg3, ops3,
+         torch.full((480, 640, 4), 1e-6, device=dev), 3.8961, 10),
+    )
+    for what, sc_, cam_, cfg_, ops_, g_, before, n in cases:
+        grads, live_ = S._soft_tiled_bwd_cuda(*ops_[:4], g_, ops_[4])
+        n_patches = _b5_live(f"[redesign] {what}", live_, g_, ops_[3], ops_[4])
+        if what == "B5, all-zero cotangent":
+            _require(all(bool((t == 0).all()) for t in grads),
+                     "[redesign] B5 with an all-zero cotangent is not exactly zero")
+        run = lambda: S.soft_tiled_bwd(*ops_[:4], g_, cfg=ops_[4])  # noqa: E731
+        ms, b2b_ms = device_ms(run, n), back_to_back_ms(run, n)
+        bound_ms, by, n_ops = _tiled_soft_bounds(sc_, cam_, cfg_, ops_, g_)[1]
+        print(f"[redesign] {what}: {ms:.4f} ms of device time per launch, "
+              f"{b2b_ms:.4f} back to back with the wrapper (measured in this run; "
+              f"{n_patches} live patches, the card's list equals its plain "
+              f"version); recorded before the redesign {before:.4f} ms of device "
+              f"time (recorded / measured = {before / ms:.1f}); bound "
+              f"{bound_ms:.5f} ms by {by} ({n_ops:.4e} operations), "
+              f"{ms / bound_ms:.1f}x over it; {smi}")
 
     src = "opencl_ray_tracer_tpu_torch/kernels/csrc/soft_tiled.cu"
     shape = "train step 1920x1080 10sph+1cube phong+soft shadows"
@@ -874,7 +1096,10 @@ def soft_phase_train(T, dev, smi):
          "tolerance": "every scene-leaf gradient within 1e-3 of the twin's, "
                       "normalised by the twin's largest (max_abs_err is that "
                       "normalised error)",
-         "shape": shape, "ms": times["B5 alone"][0],
+         "shape": shape + ", the step's own cotangent",
+         "launch_is": "one wrapper call: the kernel that lists the live "
+                      "patches, then the pixel kernel",
+         "ms": times["B5 alone"][0],
          "plain_ms": times["twin backward"][0], "bound_ms": b5_bound[0],
          "bound_by": b5_bound[1], "library_ms": None},
     ]
@@ -1004,6 +1229,28 @@ def brute_phase_hard_vs_twin(T, dev):
                 _check_other_formulation(f"{label} vs oracle", got,
                                          render_reference(scene, cam, cfg))
                 n_cases += 1
+    # 400 cubes (4,800 triangles, 230 KB of geometry): more than the shadow
+    # walk can hold in shared memory, so it stages 128 primitives at a time
+    # behind block barriers, which no smaller scene does
+    big = T.random_scene(20, 400, seed=2, bounds=(150.0, 110.0), device=dev)
+    for cam_kind in ("ortho", "pinhole"):
+        w, h = 160, 120
+        cam = (T.legacy_ortho_camera(device=dev) if cam_kind == "ortho" else
+               T.pinhole_camera((w / 2.0, h / 2.0, 60.0), (w / 2.0, h / 2.0, -85.0),
+                                fov_degrees=80.0, width=w, height=h, device=dev))
+        cfg = T.RenderConfig(width=w, height=h, shading="phong", shadows=True,
+                             framebuffer_dtype="float")
+        args, kw = fwd.brute_kernel_inputs(big.pack(), cam, cfg)
+        _require(kw["n_tris"] * 48 + kw["n_spheres"] * 16 > 200 * 1024,
+                 "the big scene fits in shared memory")
+        got = fwd.brute_kernel(*args, **kw)
+        unshadowed = fwd.brute_kernel(*args, **{**kw, "shadows": False})
+        _require(bool((got != unshadowed).any()), "the big scene casts no shadow")
+        worst = max(worst, _check_twin(
+            f"[brute-parity] 4800 triangles {w}x{h} {cam_kind} phong shadows=True "
+            f"(staged shadow walk)", got, fwd._brute_kernel_plain(*args, **kw),
+            "float"))
+        n_cases += 1
     launched = fwd.BRUTE_LAUNCHES - before
     _require(launched >= n_cases, f"phase 10 launched {launched} kernels")
     print(f"[brute-parity] {n_cases} cases, largest float error vs the twin "
@@ -1218,22 +1465,9 @@ def brute_phase_soft_vs_twin(T, dev):
 
     # Two and three lights: one light has kernels of its own, built with the
     # light count known; any other count runs the builds that read it at run
-    # time, which the one-light scenes above never launch. (The lights stand
-    # where every leaf's gradient is well conditioned: with the second one
-    # at (20, 110, 150) the phong frame's d tau_edge cancels to 0.85 beside
-    # d tau_depth's 36, and the twin's own float32 sum is 3e-3 off its
-    # float64 value there.)
+    # time, which the one-light scenes above never launch.
     for n_lights, shading, shadows in ((2, "phong", True), (3, "lambert", True)):
-        f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
-        lights = T.Lights(
-            position=f32([[200.0, 100.0, 200.0], [250.0, 10.0, 180.0],
-                          [130.0, -40.0, 120.0]][:n_lights]),
-            colour=f32([[1.0, 1.0, 1.0], [1.0, 0.6, 0.3],
-                        [0.3, 0.5, 1.0]][:n_lights]),
-            intensity=f32([1.0, 0.5, 0.5][:n_lights]), ambient=f32(0.1),
-            spec_strength=f32(0.5), shininess=f32(32.0))
-        scene = T.random_scene(5, 3, seed=4, bounds=(250.0, 120.0), lights=lights,
-                               device=dev)
+        scene = _multi_light_scene(T, dev, n_lights)
         cfg_l = _soft_cfg(T, SOFT_W, SOFT_H, shading, shadows)
         label = (f"[brute-soft-parity] test, {n_lights} lights, ortho {shading} "
                  f"shadows={shadows}")
@@ -1289,12 +1523,38 @@ def brute_phase_soft_vs_twin(T, dev):
           f"{worst_g:.2e}; {launched[0]} B6 and {launched[1]} B7 launches")
 
 
+def _b3_bound(fwd, args, kw):
+    """B3's bound for one frame, from its data: (bound_ms, bound_by,
+    operations, lit pixels, occluded pixels). Every pixel tests every real
+    primitive (the affine tests, or the general ones through a pinhole
+    camera); a lit pixel is shaded; an unoccluded lit pixel walks every
+    primitive per light (general tests), an occluded one (it differs from
+    the frame rendered without shadows) needs one test."""
+    frame = fwd.brute_kernel(*args, **kw)
+    n_pix = kw["height"] * kw["width"]
+    n_t, n_s = kw["n_tris"], kw["n_spheres"]
+    n_l = (args[0].numel() - 21) // 7
+    kind = "general" if kw["normalize_dir"] else "affine"
+    ops = n_pix * (n_t * _OPS[f"tri_{kind}"] + n_s * _OPS[f"sph_{kind}"])
+    lit_mask = (frame[..., :3] != 0).any(-1)
+    n_lit, n_occ = int(lit_mask.sum()), 0
+    if kw["shading"] != "legacy":
+        ops += n_lit * (_OPS["shade_fixed"] + n_l * _OPS["shade_light"])
+        if kw["shadows"]:
+            unshadowed = fwd.brute_kernel(*args, **{**kw, "shadows": False})
+            n_occ = int((lit_mask & (frame != unshadowed).any(-1)).sum())
+            ops += n_l * ((n_lit - n_occ) * (n_t * _OPS["tri_general"]
+                                             + n_s * _OPS["sph_general"])
+                          + n_occ * _OPS["sph_general"])
+    return _bound(ops, _nbytes(*args) + n_pix * 16) + (ops, n_lit, n_occ)
+
+
 def brute_phase_full_size(T, dev, smi):
     """Phase 12: the brute path at 1080p on the headline scene through its
     entry points, its kernels' times and bounds, and the port's bench."""
     import torch
 
-    from opencl_ray_tracer_tpu_torch.bench_util import back_to_back_ms
+    from opencl_ray_tracer_tpu_torch.bench_util import back_to_back_ms, device_ms
     from opencl_ray_tracer_tpu_torch.kernels import fwd, fwd_tiled
     from opencl_ray_tracer_tpu_torch.kernels import render_pallas_packed
     from opencl_ray_tracer_tpu_torch.kernels import soft as B
@@ -1476,20 +1736,8 @@ def brute_phase_full_size(T, dev, smi):
               f"[{lo:.4f}, {hi:.4f}], back to back {t100 / 100:.4f} ms; {smi}")
 
     # ---- bounds, from this run's data ----------------------------------------
-    n_t, n_s, n_l = packed.n_tris, packed.n_spheres, skw["cfg"]["n_lights"]
-    unshadowed = fwd.brute_kernel(*args_p, **{**kw_p, "shadows": False})
-    lit_mask = (frame_phong[..., :3] > 0).any(-1)
-    n_lit = int(lit_mask.sum())
-    n_occ = int((lit_mask & (frame_phong != unshadowed).any(-1)).sum())
-    # B3 phong + shadows: every pixel tests every primitive (affine); a lit
-    # pixel is shaded; unoccluded lit pixels walk every primitive per light
-    # (general tests), occluded ones need one test
-    ops_b3 = (n_pix * (n_t * _OPS["tri_affine"] + n_s * _OPS["sph_affine"])
-              + n_lit * (_OPS["shade_fixed"] + n_l * _OPS["shade_light"])
-              + n_l * ((n_lit - n_occ) * (n_t * _OPS["tri_general"]
-                                          + n_s * _OPS["sph_general"])
-                       + n_occ * _OPS["sph_general"]))
-    b3_bound = _bound(ops_b3, _nbytes(*args_p) + n_pix * 16)
+    b3_bound = _b3_bound(fwd, args_p, kw_p)
+    ops_b3, n_lit, n_occ = b3_bound[2:]
     b6_bound, b7_bound, n_cov, n_cot = _brute_soft_bounds(scene, cam, cfg_soft,
                                                           inputs, g)
     print(f"[bound] brute 1080p: B3 phong+shadows {ops_b3:.4e} operations "
@@ -1503,7 +1751,8 @@ def brute_phase_full_size(T, dev, smi):
     # strips, every pixel's backward whatever its cotangent, accumulators in
     # shared memory). The earlier times are RECORDED, not measured in this
     # run: the `ms` column (back to back per launch, as `b2b` here; not its
-    # `device_ms`) of scripts/torch_soft_brute_times.py on the earlier tree,
+    # `device_ms`) of scripts/torch_kernel_times.py --kernel B6 (then its own
+    # script, torch_soft_brute_times.py) on the earlier tree,
     # on an NVIDIA H100 80GB HBM3 at 700.00 W, old and new trees in turns on
     # one card. They stay out of the `kernels` line.
     before = {"B6": 0.9326, "B7": 8.8283, "B7, dense cotangent": 8.8046,
@@ -1535,6 +1784,44 @@ def brute_phase_full_size(T, dev, smi):
               f"{before[what]:.4f} ms (recorded / measured = "
               f"{before[what] / b2b[what]:.1f}); bound {bound_ms:.5f} ms by {by} "
               f"({ops:.4e} operations), {b2b[what] / bound_ms:.1f}x over it; {smi}")
+
+    # B3 the same way: the headline frame (legacy, the bench's brute row, and
+    # phong + shadows), the same through a pinhole camera, and scene 3 (1,300
+    # primitives) at 640x480, where the shadow walk is most of the work; each
+    # held against the twin on every pixel first. Device time behind a spin;
+    # recorded: the `device_ms` column of scripts/torch_kernel_times.py on
+    # the earlier tree (one pixel a thread, operands staged row-major,
+    # barriers in the shadow walk).
+    pin = T.pinhole_camera((960.0, 540.0, 1100.0), (960.0, 540.0, -60.0),
+                           fov_degrees=50.0, width=w, height=h, device=dev)
+    packed3 = scene3.pack()
+    cfg3_hard = T.RenderConfig(width=640, height=480, shading="phong",
+                               shadows=True, framebuffer_dtype="float")
+    for what, inp, before_ms, n in (
+        ("B3 legacy", (args_i, kw_i), 0.0941, 50),
+        ("B3 phong+shadows", (args_p, kw_p), 0.1269, 50),
+        ("B3 legacy, pinhole camera",
+         fwd.brute_kernel_inputs(packed, pin, cfg_int), 0.1319, 50),
+        ("B3 phong+shadows, pinhole camera",
+         fwd.brute_kernel_inputs(packed, pin, cfg_phong), 0.1557, 50),
+        ("B3 phong+shadows, scene 3 640x480",
+         fwd.brute_kernel_inputs(packed3, cam, cfg3_hard), 1.5638, 10),
+    ):
+        args_, kw_ = inp
+        got = fwd.brute_kernel(*args_, **kw_)
+        want = fwd._brute_kernel_plain(*args_, **kw_)
+        _check_twin(f"[redesign] {what}: B3 vs twin", got, want, "float")
+        same = (got == want).all(-1).float().mean().item()
+        run = lambda: fwd.brute_kernel(*args_, **kw_)  # noqa: E731
+        ms, b2b_ms = device_ms(run, n), back_to_back_ms(run, n)
+        bound_ms, by, n_ops, lit_, occ_ = _b3_bound(fwd, args_, kw_)
+        print(f"[redesign] {what}: {ms:.4f} ms of device time per launch, "
+              f"{b2b_ms:.4f} back to back with the wrapper (measured in this run; "
+              f"{same:.6f} of pixels bit-identical to the twin); recorded before "
+              f"the redesign {before_ms:.4f} ms of device time (recorded / "
+              f"measured = {before_ms / ms:.1f}); bound {bound_ms:.5f} ms by {by} "
+              f"({n_ops:.4e} operations, {lit_} lit, {occ_} occluded), "
+              f"{ms / bound_ms:.1f}x over it; {smi}")
 
     # ---- the port's bench, as a user runs it ------------------------------------
     root = os.path.dirname(os.path.abspath(__file__))

@@ -102,7 +102,7 @@ def load_library() -> ctypes.CDLL:
         lib.octrt_soft_tiled_fwd.restype = i
         lib.octrt_soft_tiled_fwd.argtypes = [ptr] * 10 + [i] * 12 + [ptr]
         lib.octrt_soft_tiled_bwd.restype = i
-        lib.octrt_soft_tiled_bwd.argtypes = [ptr] * 18 + [i] * 12 + [ptr]
+        lib.octrt_soft_tiled_bwd.argtypes = [ptr] * 19 + [i] * 12 + [ptr]
         lib.octrt_fwd_brute.restype = i
         lib.octrt_fwd_brute.argtypes = [ptr] * 8 + [i] * 10 + [ptr]
         lib.octrt_soft_brute_fwd.restype = i

@@ -53,7 +53,7 @@
 //   - a primitive's row gradient is summed over the warp only if some lane
 //     holds a non-zero value (a primitive whose coverage underflowed over
 //     the whole patch gives exact zeros), with a transposing butterfly
-//     (16 values in 16 shuffles, not 80), then one atomicAdd per value from
+//     (soft_tiled.cuh: 16 values in 16 shuffles, not 80), then one atomicAdd per value from
 //     the lane that holds it, straight onto the scratch gradient rows in
 //     device memory. With the vote these atomics are few enough that
 //     accumulators in shared memory buy nothing (timed: no gain on a sparse
@@ -234,10 +234,6 @@ __global__ void __launch_bounds__(THREADS, FWD_BLOCKS) soft_brute_fwd_kernel(
   if (inside) out[(size_t)yi * a.width + xi] = make_float4(rgb[0], rgb[1], rgb[2], 255.0f);
 }
 
-__device__ __forceinline__ bool has_cotangent(const float4 g) {
-  return g.x != 0.0f || g.y != 0.0f || g.z != 0.0f;  // alpha is a constant
-}
-
 // live[0]: the number of patches that hold a non-zero cotangent; live[2...]:
 // those patches, in no order. live[0] must be zero at the start (live[1] is
 // the pixel kernel's counter).
@@ -265,63 +261,26 @@ __global__ void __launch_bounds__(THREADS) live_patches_kernel(
   }
 }
 
-// The sums of a patch's row gradients over its warp, added to the gradient
-// rows in device memory. Every lane of the warp must call.
+// The sums of a patch's row gradients over its warp (warp_sum_add, shared
+// with the tiled backward), added to the gradient rows in device memory.
+// Every lane of the warp must call.
 struct PatchRed {
   float* d_rows;  // the scratch layout for n primitives
   int n, lane;
 
   template <int N>
   __device__ __forceinline__ bool none(const float* v) const {
-    bool nz = false;
-#pragma unroll
-    for (int q = 0; q < N; ++q) nz |= v[q] != 0.0f;
-    return !__any_sync(FULL, nz);
-  }
-
-  // dst[q] += sum over the warp of v[q], q < N <= NP (a power of two). The
-  // butterfly halves the values a lane holds at each of log2(NP) steps
-  // while it doubles the lanes summed into each, then finishes the rest of
-  // the five steps on its one value: value q ends in the lanes whose upper
-  // log2(NP) bits are q.
-  template <int N, int NP>
-  __device__ __forceinline__ void sum(float* dst, const float* v) const {
-    float w[NP];
-#pragma unroll
-    for (int q = 0; q < NP; ++q) w[q] = q < N ? v[q] : 0.0f;
-    int spare = 5;  // the lane's low bits that do not select a value
-#pragma unroll
-    for (int s = 0; s < 5; ++s) {
-      const int off = 16 >> s, cnt = NP >> (s + 1);
-      if (cnt >= 1) {
-        const bool hi = (lane & off) != 0;
-#pragma unroll
-        for (int q = 0; q < NP / 2; ++q) {
-          if (q < cnt) {
-            const float send = hi ? w[q] : w[q + cnt];
-            const float keep = hi ? w[q + cnt] : w[q];
-            w[q] = keep + __shfl_xor_sync(FULL, send, off);
-          }
-        }
-        spare = 4 - s;
-      } else {
-        w[0] += __shfl_xor_sync(FULL, w[0], off);
-      }
-    }
-    const int q = lane >> spare;
-    if ((lane & ((1 << spare) - 1)) == 0 && q < N && w[0] != 0.0f) {
-      atomicAdd(dst + q, w[0]);
-    }
+    return !__any_sync(FULL, nonzero<N>(v));
   }
 
   __device__ __forceinline__ void prim(int i, const float* g) const {
     if (none<ROW + 3>(g)) return;
-    sum<ROW, 16>(d_rows + (size_t)i * ROW, g);
-    sum<3, 4>(d_rows + (size_t)n * ROW + (size_t)i * ALB, g + ROW);
+    warp_sum_add<ROW, 16>(d_rows + (size_t)i * ROW, g, lane);
+    warp_sum_add<3, 4>(d_rows + (size_t)n * ROW + (size_t)i * ALB, g + ROW, lane);
   }
   __device__ __forceinline__ void occ(int i, const float* gr) const {
     if (none<12>(gr)) return;
-    sum<12, 16>(d_rows + (size_t)i * ROW, gr);
+    warp_sum_add<12, 16>(d_rows + (size_t)i * ROW, gr, lane);
   }
 };
 

@@ -904,6 +904,32 @@ OCTRT_FN void shade_agg_bwd(const Geom& G, const Ctx& c, const float* logvis,
   }
 }
 
+// N floats of a table row (N a multiple of 4, the row 16-byte aligned), as
+// 128-bit loads on the card: every lane of a warp asks for the same row, so
+// each load is one broadcast.
+template <int N>
+OCTRT_FN void ld_row(const float* p, float* r) {
+#ifdef __CUDACC__
+#pragma unroll
+  for (int k = 0; k < N / 4; ++k) {
+    const float4 v = *reinterpret_cast<const float4*>(p + 4 * k);
+    r[4 * k] = v.x;
+    r[4 * k + 1] = v.y;
+    r[4 * k + 2] = v.z;
+    r[4 * k + 3] = v.w;
+  }
+#else
+  for (int q = 0; q < N; ++q) r[q] = p[q];
+#endif
+}
+
+template <int N>
+OCTRT_FN bool nonzero(const float* v) {
+  bool nz = false;
+  for (int q = 0; q < N; ++q) nz |= v[q] != 0.0f;
+  return nz;
+}
+
 // ---- one tile's tables, as a pixel sees them ------------------------------
 struct Tabs {
   const float *tri, *tri_alb, *sph, *sph_alb;
@@ -961,8 +987,8 @@ OCTRT_FN void stream_finals(const Ctx& c, const Tabs& T, bool aggregate,
     const float* albs = kind ? T.sph_alb : T.tri_alb;
     for (int j = 0; j < nrow; ++j) {
       float r[ROW], alb[ALB];
-      for (int q = 0; q < ROW; ++q) r[q] = OCTRT_LDG(rows + j * ROW + q);
-      for (int q = 0; q < ALB; ++q) alb[q] = OCTRT_LDG(albs + j * ALB + q);
+      ld_row<ROW>(rows + j * ROW, r);
+      ld_row<ALB>(albs + j * ALB, alb);
       stream_row<PROJ>(c, r, alb, kind, aggregate, shading, f);
     }
   }
@@ -974,13 +1000,13 @@ OCTRT_FN float occ_logvis(const Ctx& c, const Tabs& T, int l,
   const float* tr = T.tsh + (size_t)l * T.sh_tri_stride * ROW;
   for (int j = 0; j < T.n_tsh[l]; ++j) {
     float r[ROW];
-    for (int q = 0; q < ROW; ++q) r[q] = OCTRT_LDG(tr + j * ROW + q);
+    ld_row<ROW>(tr + j * ROW, r);
     lv += occ_fwd<false>(r, so, sd, dist, c);
   }
   const float* sr = T.ssh + (size_t)l * T.sh_sph_stride * ROW;
   for (int j = 0; j < T.n_ssh[l]; ++j) {
     float r[ROW];
-    for (int q = 0; q < ROW; ++q) r[q] = OCTRT_LDG(sr + j * ROW + q);
+    ld_row<ROW>(sr + j * ROW, r);
     lv += occ_fwd<true>(r, so, sd, dist, c);
   }
   return lv;
@@ -1075,12 +1101,20 @@ OCTRT_FN void pixel_finish(const Ctx& c, const Tabs& T, const Fin& f,
   shade_agg_fwd(G, c, logvis, shading, shadows, out);
 }
 
-// The backward of one pixel. Every thread of a block calls it with the
-// same tables (one tile), so the row loops are uniform and each row's
-// gradient goes through red.add (a block reduction on the card); threads
-// with active == false (outside the frame) contribute zeros. Row gradients
-// are added into the d_* tables (laid out like the tables), the context
-// gradients into gc.
+// The backward of one pixel. The threads that call it together (on the
+// card: the 32 lanes of a warp, one 8 x 4 patch of one tile) share the
+// tables, so the row loops are uniform and each row's gradient goes through
+// `red`:
+//   bool any(bool p): true if p holds for any of those threads;
+//   template <int N> void add(float* dst, const float* v): dst[q] += the sum
+//     of v[q] over those threads, q < N; all of them call it together.
+// Threads with active == false (outside the frame, or with a zero
+// cotangent: every gradient is linear in gout) only walk the loops and hand
+// zeros to `red`. A row whose gradient is zero in every thread is not
+// summed at all, and a light's occluder reverse is skipped where no
+// thread's d logvis is non-zero (every occluder gradient is linear in it).
+// Row gradients are added into the d_* tables (laid out like the tables),
+// the context gradients into gc.
 struct DTabs {
   float *tri, *tri_alb, *sph, *sph_alb, *tsh, *ssh;
 };
@@ -1121,6 +1155,9 @@ OCTRT_FN void pixel_bwd(const Ctx& c, const Tabs& T, int shading,
   // ---- occluders, per light ----------------------------------------------
   if (agg && shadows) {
     for (int l = 0; l < c.nl; ++l) {
+      const float glv = g_logvis[l];
+      const bool act = active && glv != 0.0f;
+      if (!red.any(act)) continue;
       for (int kind = 0; kind < 2; ++kind) {
         const int nrow = kind ? T.n_ssh[l] : T.n_tsh[l];
         const int stride = kind ? T.sh_sph_stride : T.sh_tri_stride;
@@ -1129,18 +1166,20 @@ OCTRT_FN void pixel_bwd(const Ctx& c, const Tabs& T, int shading,
         for (int j = 0; j < nrow; ++j) {
           float gr[ROW];
           for (int q = 0; q < ROW; ++q) gr[q] = 0.0f;
-          if (active) {
+          if (act) {
             float r[ROW];
-            for (int q = 0; q < ROW; ++q) r[q] = OCTRT_LDG(rows + j * ROW + q);
+            ld_row<ROW>(rows + j * ROW, r);
             if (kind) {
-              occ_bwd<true>(r, G.so[l], G.sd[l], G.dist[l], c, g_logvis[l], gr,
+              occ_bwd<true>(r, G.so[l], G.sd[l], G.dist[l], c, glv, gr,
                             g_so[l], g_sd[l], g_dist[l], gc);
             } else {
-              occ_bwd<false>(r, G.so[l], G.sd[l], G.dist[l], c, g_logvis[l],
-                             gr, g_so[l], g_sd[l], g_dist[l], gc);
+              occ_bwd<false>(r, G.so[l], G.sd[l], G.dist[l], c, glv, gr,
+                             g_so[l], g_sd[l], g_dist[l], gc);
             }
           }
-          red.template add<ROW>(drows + j * ROW, gr);
+          if (red.any(nonzero<ROW>(gr))) {
+            red.template add<ROW>(drows + j * ROW, gr);
+          }
         }
       }
     }
@@ -1161,8 +1200,8 @@ OCTRT_FN void pixel_bwd(const Ctx& c, const Tabs& T, int shading,
       for (int q = 0; q < ROW + ALB; ++q) g[q] = 0.0f;
       if (active) {
         float r[ROW], alb[ALB];
-        for (int q = 0; q < ROW; ++q) r[q] = OCTRT_LDG(rows + j * ROW + q);
-        for (int q = 0; q < ALB; ++q) alb[q] = OCTRT_LDG(albs + j * ALB + q);
+        ld_row<ROW>(rows + j * ROW, r);
+        ld_row<ALB>(albs + j * ALB, alb);
         float t, cov, n[3];
         if (kind) sph_fwd<PROJ>(r, c, t, cov, n);
         else tri_fwd<PROJ>(r, c, t, cov, n);
@@ -1172,8 +1211,10 @@ OCTRT_FN void pixel_bwd(const Ctx& c, const Tabs& T, int shading,
         if (kind) sph_bwd<PROJ>(r, c, g_t, g_cov, gn, g, gc);
         else tri_bwd<PROJ>(r, c, g_t, g_cov, gn, g, gc);
       }
-      red.template add<ROW>(drows + j * ROW, g);
-      red.template add<ALB>(dalbs + j * ALB, g + ROW);
+      if (red.any(nonzero<ROW + ALB>(g))) {
+        red.template add<ROW>(drows + j * ROW, g);
+        red.template add<ALB>(dalbs + j * ALB, g + ROW);
+      }
     }
   }
 }
@@ -1525,6 +1566,49 @@ OCTRT_FN void brute_pixel_bwd(const Ctx& c, Rows& B, int shading, bool shadows,
 }
 
 #ifdef __CUDACC__
+// Does a pixel's cotangent reach anything? (Alpha is a constant.)
+__device__ __forceinline__ bool has_cotangent(const float4 g) {
+  return g.x != 0.0f || g.y != 0.0f || g.z != 0.0f;
+}
+
+// dst[q] += the sum over the warp of v[q], q < N <= NP (a power of two), one
+// atomicAdd per non-zero sum, from the lane that ends up holding it. Every
+// lane of the warp must call. The butterfly halves the values a lane holds
+// at each of log2(NP) steps while it doubles the lanes summed into each,
+// then finishes the rest of the five steps on its one value: value q ends
+// in the lanes whose upper log2(NP) bits are q (NP shuffles, not 5 N).
+template <int N, int NP>
+__device__ __forceinline__ void warp_sum_add(float* dst, const float* v,
+                                             int lane) {
+  constexpr unsigned FULL_WARP = 0xffffffffu;
+  float w[NP];
+#pragma unroll
+  for (int q = 0; q < NP; ++q) w[q] = q < N ? v[q] : 0.0f;
+  int spare = 5;  // the lane's low bits that do not select a value
+#pragma unroll
+  for (int s = 0; s < 5; ++s) {
+    const int off = 16 >> s, cnt = NP >> (s + 1);
+    if (cnt >= 1) {
+      const bool hi = (lane & off) != 0;
+#pragma unroll
+      for (int q = 0; q < NP / 2; ++q) {
+        if (q < cnt) {
+          const float send = hi ? w[q] : w[q + cnt];
+          const float keep = hi ? w[q + cnt] : w[q];
+          w[q] = keep + __shfl_xor_sync(FULL_WARP, send, off);
+        }
+      }
+      spare = 4 - s;
+    } else {
+      w[0] += __shfl_xor_sync(FULL_WARP, w[0], off);
+    }
+  }
+  const int q = lane >> spare;
+  if ((lane & ((1 << spare) - 1)) == 0 && q < N && w[0] != 0.0f) {
+    atomicAdd(dst + q, w[0]);
+  }
+}
+
 // Sum n <= N per-thread values over a block of THREADS_ threads, then one
 // atomicAdd each. Every thread of the block must call it (it holds
 // barriers). smem: [THREADS_ / 32][RED_W_] floats, RED_W_ >= N.

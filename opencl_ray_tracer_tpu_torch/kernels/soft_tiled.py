@@ -13,7 +13,8 @@ then hand-written CUDA kernels for the forward (B4) and backward (B5).
    per-tile gradient tables back onto the scene, camera and lights.
 3. KERNELS, behind one torch.autograd.Function (`SoftTiledFunction`): on
    CUDA tensors the forward launches kernels/csrc/soft_tiled.cu's forward
-   and the backward its backward (which recomputes the forward per pixel);
+   and the backward its backward (which recomputes the forward per pixel,
+   and only where the cotangent is non-zero: `_live_patches`);
    on CPU tensors both run `_soft_tiled_plain`, the same function in
    vectorised torch, whose autograd is the backward's plain version.
 """
@@ -68,6 +69,8 @@ from opencl_ray_tracer_tpu_torch.kernels.fwd_tiled import (
 from opencl_ray_tracer_tpu_torch.kernels.soft import (
     MAX_LIGHTS,
     NEG_BIG,
+    PATCH_H,
+    PATCH_W,
     _raise_on,
     _safe_norm_rows,
     _safe_unit_rows,
@@ -83,6 +86,9 @@ CH = 8
 # Coverage sigmoids are exp-small this many tau_edge units outside a
 # primitive (16 sigma => sigmoid ~ 1.1e-7): culling is invisible.
 SOFT_CULL_SIGMAS = 16.0
+
+# Patches (8 x 4 pixels, one warp of the backward each) in a tile.
+TILE_PATCHES = (TILE_H // PATCH_H) * (TILE_W // PATCH_W)
 
 # Launches of the CUDA kernels in this process; `soft_tiled_fwd` /
 # `soft_tiled_bwd` add one per launch and nowhere else.
@@ -820,12 +826,46 @@ def soft_tiled_fwd(params, taus, tables, counts, *, cfg) -> torch.Tensor:
     return out
 
 
+def _live_patches(g, counts, *, cfg):
+    """The backward's work list in its plain version: the 8 x 4 patches of
+    the non-empty tiles (counts[:, 0] + counts[:, 1] > 0) that hold a pixel
+    whose cotangent g (H, W, 4) is non-zero in a colour channel (alpha is a
+    constant: its cotangent reaches nothing), as sorted codes tile * 256 +
+    patch, the patch row-major over the tile's 16 x 16 patches. The CUDA
+    backward builds this list on the card (in no order) and walks nothing
+    else."""
+    h, w = cfg["height"], cfg["width"]
+    nty, ntx = cfg["nty"], cfg["ntx"]
+    nz = torch.zeros((nty * TILE_H, ntx * TILE_W), dtype=torch.bool,
+                     device=g.device)
+    nz[:h, :w] = (g[..., :3] != 0).any(-1)
+    live = nz.reshape(nty, TILE_H // PATCH_H, PATCH_H, ntx, TILE_W // PATCH_W,
+                      PATCH_W).any(5).any(2)            # (nty, 16, ntx, 16)
+    live = live.permute(0, 2, 1, 3).reshape(nty * ntx, TILE_PATCHES)
+    live = live & ((counts[:, 0] + counts[:, 1]) > 0)[:, None]
+    return torch.nonzero(live.reshape(-1))[:, 0]
+
+
+def _zero_grads(inputs):
+    """One zeroed gradient per (contiguous) input, each a view of one
+    allocation (one fill, not eight): same shapes, no two overlapping, every
+    view starting on a 16-byte boundary of the buffer."""
+    starts, total = [], 0
+    for t in inputs:
+        starts.append(total)
+        total += -(-t.numel() // 4) * 4
+    buf = torch.zeros(total, dtype=torch.float32, device=inputs[0].device)
+    return [buf.as_strided(t.shape, t.stride(), start)
+            for t, start in zip(inputs, starts)]
+
+
 def soft_tiled_bwd(params, taus, tables, counts, g, *, cfg):
     """B5, the tiled soft backward: pixel cotangents g (H, W, 4) -> gradients
-    of (params, taus, *tables). CUDA tensors launch the CUDA backward, which
-    writes per-tile table gradients plus per-tile params/taus rows that are
-    summed here; CPU tensors take autograd of `_soft_tiled_plain`."""
-    global BWD_LAUNCHES
+    of (params, taus, *tables). CUDA tensors launch the CUDA backward (it
+    works only on the patches of non-empty tiles where g is non-zero,
+    recomputes the forward per pixel there and sums over pixels with
+    atomics, so sums vary in their last bits from run to run); CPU tensors
+    take autograd of `_soft_tiled_plain`."""
     dev = params.device
     inputs = (params, taus) + tuple(tables)
     if dev.type == "cpu":
@@ -838,26 +878,35 @@ def soft_tiled_bwd(params, taus, tables, counts, g, *, cfg):
                      for t, gr in zip(inputs, grads))
     if dev.type != "cuda":
         raise ValueError(f"soft_tiled_bwd runs on cuda or cpu tensors, got {dev}")
+    return _soft_tiled_bwd_cuda(params, taus, tables, counts, g, cfg)[0]
+
+
+def _soft_tiled_bwd_cuda(params, taus, tables, counts, g, cfg):
+    """Launch B5 on CUDA tensors -> (the eight gradients, live). `live` is
+    the kernel's int32 work list as it leaves it: live[0] the number of
+    entries, live[2 : 2 + live[0]] the entries in no order
+    (`_live_patches` is its plain version)."""
+    global BWD_LAUNCHES
+    dev = params.device
     _check_inputs(params, taus, tables, counts, cfg)
     g = g.to(torch.float32).contiguous()
     _check("g", g, torch.float32, (cfg["height"], cfg["width"], 4), dev)
     from opencl_ray_tracer_tpu_torch.kernels._build import load_library
 
     lib = load_library()
-    n_tiles = cfg["nty"] * cfg["ntx"]
-    d_tables = [torch.zeros_like(t) for t in tables]
-    d_par = torch.zeros((n_tiles, params.shape[0]), dtype=torch.float32, device=dev)
-    d_tau = torch.zeros((n_tiles, 2), dtype=torch.float32, device=dev)
+    d_par, d_tau, *d_tables = _zero_grads((params, taus) + tuple(tables))
+    live = torch.empty(2 + TILE_PATCHES * cfg["nty"] * cfg["ntx"],
+                       dtype=torch.int32, device=dev)
     ptrs, ints = _launch_args(params, taus, tables, counts, cfg)
     p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.octrt_soft_tiled_bwd(*ptrs, p(g), *(p(t) for t in d_tables),
-                                      p(d_par), p(d_tau), *ints,
+                                      p(d_par), p(d_tau), p(live), *ints,
                                       ctypes.c_void_p(stream))
     _raise_on(rc, "soft_tiled backward")
     BWD_LAUNCHES += 1
-    return (d_par.sum(0), d_tau.sum(0)) + tuple(d_tables)
+    return (d_par, d_tau) + tuple(d_tables), live
 
 
 class SoftTiledFunction(torch.autograd.Function):

@@ -59,6 +59,8 @@ def test_timing_needs_a_card():
         bench_util.call_times_ms(lambda: None, 1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bench_util.back_to_back_ms(lambda: None, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_util.device_ms(lambda: None, 1)
 
 
 def test_bench_and_cli_raise_without_card():

@@ -104,6 +104,19 @@ def test_non_tile_aligned_resolution(scenes):
     assert frac >= 0.998, f"only {frac:.4%} identical"
 
 
+@pytest.mark.parametrize("cam_kind", ["ortho", "pinhole"])
+def test_ragged_width_shaded_matches_jax(scenes, cam_kind):
+    """250x123, phong + shadows: a width that is no multiple of the 128
+    pixels a warp of the CUDA kernel covers nor of the 4 a thread holds, and
+    rows that end inside a warp's span."""
+    got, want = _both(scenes, "scene1", cam_kind, w=250, h=123, shading="phong",
+                      shadows=True, framebuffer_dtype="float")
+    assert got.shape == want.shape == (123, 250, 4) and np.isfinite(got).all()
+    assert (want[..., :3] > 1.0).any(), "the camera sees nothing"
+    close = (np.abs(got - want).max(-1) < 0.5).mean()
+    assert close >= 0.999, f"only {close:.4%} within 0.5/255"
+
+
 @pytest.mark.parametrize("name,cam_kind,bar", [("scene1", "ortho", 0.999),
                                                ("scene2", "ortho", 0.999),
                                                ("spheres", "ortho", 0.999),

@@ -221,6 +221,59 @@ def test_soft_pixel_gradient_probes(cuda_device, yy, xx, c):
         assert err <= 1e-4, err
 
 
+# B5 and its cotangent (250x123: ragged right and bottom tiles): it walks
+# only the patches of non-empty tiles that hold a non-zero cotangent, whose
+# list the card builds; exact zeros for an all-zero cotangent; two and three
+# lights run the build that reads the light count at run time.
+@pytest.mark.parametrize(
+    "scene_name,shading,shadows,cotangent",
+    [("test", "phong", True, kind)
+     for kind in ("zero", "scattered", "patch", "dense")]
+    + [("two_lights", "phong", True, "dense"),
+       ("three_lights", "lambert", True, "scattered"),
+       ("scene3", "phong", True, "dense")])
+def test_soft_tiled_bwd_cotangents(cuda_device, scene_name, shading, shadows,
+                                   cotangent):
+    S, scene, cam, cfg = _soft_case(cuda_device, scene_name, "ortho", shading,
+                                    shadows)
+    w, h = 250, 123
+    cfg = cfg.replace(width=w, height=h)
+    with torch.no_grad():
+        params, taus, tables, counts, kc = S.soft_kernel_inputs(scene.pack(), cam, cfg)
+    g = torch.zeros((h, w, 4), device=cuda_device)
+    g[..., 3] = 2.0  # alpha's cotangent reaches nothing
+    if cotangent == "scattered":
+        g[3, 5, 1], g[77, 200, 0], g[h - 1, w - 1, 2] = 1.0, -2.0, 0.5
+    elif cotangent == "patch":
+        g[40:44, 96:104, :3] = 0.5
+    elif cotangent == "dense":
+        g[..., :3] = 1e-3
+    before = S.BWD_LAUNCHES
+    inputs = (params, taus) + tuple(tables)
+    got, live = S._soft_tiled_bwd_cuda(params, taus, tables, counts, g, kc)
+    torch.cuda.synchronize()
+    assert S.BWD_LAUNCHES == before + 1
+    want_live = S._live_patches(g, counts, cfg=kc)
+    assert live[0].item() == want_live.numel()
+    assert torch.equal(live[2:2 + want_live.numel()].sort().values.long(), want_live)
+    for t, gr in zip(inputs, got):  # views of one buffer: shapes kept, no overlap
+        assert gr.shape == t.shape and gr.is_contiguous()
+    spans = sorted((gr.data_ptr(), gr.data_ptr() + 4 * gr.numel()) for gr in got)
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    if cotangent == "zero":
+        assert all(bool((a == 0).all()) for a in got)
+        return
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    out = S._soft_tiled_plain(leaves[0], leaves[1], leaves[2:], counts, cfg=kc)
+    want = torch.autograd.grad(out, leaves, g, allow_unused=True)
+    for name, a, b in zip(("params", "taus", "tri_t", "tri_alb", "sph_t",
+                           "sph_alb", "tsh_t", "ssh_t"), got, want):
+        b = torch.zeros_like(a) if b is None else b
+        assert torch.isfinite(a).all(), name
+        scale = b.abs().max().item()
+        assert (a - b).abs().max().item() <= 1e-3 * scale + 1e-12, name
+
+
 # ---- the brute kernels B3 (hard), B6 and B7 (soft) -------------------------
 # Bars (chip_smoke.py phases 10, 11): B3 float frames within 0.5/255 of the
 # twin on every pixel, truncated int frames within 1 and identical on
@@ -264,6 +317,57 @@ def test_brute_kernel_matches_twin(cuda_device, scene_num, cam_kind, shading,
         fwd.brute_kernel(*args, **{**kw, "n_tris": args[1].shape[1] + 1})
     with pytest.raises(TypeError):
         fwd.brute_kernel(args[0].double(), *args[1:], **kw)
+
+
+# A 1080p frame runs B3 with four pixels a thread (the 640x480 frames above
+# run one a thread); 1918 is no multiple of the 128 pixels a warp then covers.
+@pytest.mark.parametrize("cam_kind,shading,shadows,width",
+                         [("ortho", "legacy", False, 1920),
+                          ("ortho", "phong", True, 1918),
+                          ("pinhole", "phong", True, 1920)])
+def test_brute_kernel_full_frame_identical_to_twin(cuda_device, cam_kind,
+                                                   shading, shadows, width):
+    from opencl_ray_tracer_tpu_torch.kernels import fwd
+
+    height = 1080
+    scene = T.random_scene(10, 1, seed=0, bounds=(1910.0, 1070.0),
+                           device=cuda_device)
+    cam = (T.legacy_ortho_camera(device=cuda_device) if cam_kind == "ortho" else
+           T.pinhole_camera((960.0, 540.0, 1100.0), (960.0, 540.0, -60.0),
+                            fov_degrees=50.0, width=width, height=height,
+                            device=cuda_device))
+    cfg = T.RenderConfig(width=width, height=height, shading=shading,
+                         shadows=shadows, framebuffer_dtype="float")
+    args, kw = fwd.brute_kernel_inputs(scene.pack(), cam, cfg)
+    got = fwd.brute_kernel(*args, **kw)
+    want = fwd._brute_kernel_plain(*args, **kw)
+    assert (got[..., :3] != 0).any(), "the camera sees nothing"
+    assert (got - want).abs().max().item() < 0.5
+    assert (got == want).all(-1).float().mean().item() >= 0.9999
+
+
+@pytest.mark.parametrize("cam_kind", ["ortho", "pinhole"])
+def test_brute_kernel_staged_shadow_walk(cuda_device, cam_kind):
+    """4,800 triangles: more geometry than a block's shared memory holds,
+    so B3's shadow walk stages it 128 primitives at a time."""
+    from opencl_ray_tracer_tpu_torch.kernels import fwd
+
+    w, h = 160, 120
+    scene = T.random_scene(20, 400, seed=2, bounds=(150.0, 110.0),
+                           device=cuda_device)
+    cam = (T.legacy_ortho_camera(device=cuda_device) if cam_kind == "ortho" else
+           T.pinhole_camera((w / 2.0, h / 2.0, 60.0), (w / 2.0, h / 2.0, -85.0),
+                            fov_degrees=80.0, width=w, height=h,
+                            device=cuda_device))
+    cfg = T.RenderConfig(width=w, height=h, shading="phong", shadows=True,
+                         framebuffer_dtype="float")
+    args, kw = fwd.brute_kernel_inputs(scene.pack(), cam, cfg)
+    assert kw["n_tris"] * 48 + kw["n_spheres"] * 16 > 200 * 1024
+    got = fwd.brute_kernel(*args, **kw)
+    assert (got != fwd.brute_kernel(*args, **{**kw, "shadows": False})).any()
+    want = fwd._brute_kernel_plain(*args, **kw)
+    assert (got - want).abs().max().item() < 0.5
+    assert (got == want).all(-1).float().mean().item() >= 0.995
 
 
 def _cotangent(kind, want):

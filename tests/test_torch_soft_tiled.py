@@ -196,3 +196,130 @@ def test_saturation_tie_rule():
     # at c == 1: d log(clip(c, 1e-12, 1))/dc is 1/2, not 1 (the tie), and
     # the background's clip(c, 0, 1 - 1e-6) passes nothing
     assert gt[0][0, 0, 0].item() == 0.5
+
+
+# ---- the backward's work list and gradient buffers -------------------------
+
+RW, RH = 250, 123  # ragged right and bottom tiles
+
+
+def _ragged_operands(ts):
+    cfg = T.RenderConfig(width=RW, height=RH, shading="phong", shadows=True,
+                         soft=True, framebuffer_dtype="float", tau_depth=1.0,
+                         tau_edge=0.5)
+    with torch.no_grad():
+        return S.soft_kernel_inputs(ts.pack(), T.legacy_ortho_camera(device=CPU), cfg)
+
+
+def _cotangent(kind):
+    g = torch.zeros((RH, RW, 4))
+    g[..., 3] = 3.0  # alpha's cotangent reaches nothing
+    if kind == "scattered":
+        g[3, 5, 1], g[77, 200, 0], g[RH - 1, RW - 1, 2] = 1.0, -2.0, 0.5
+    elif kind == "patch":
+        g[40:44, 96:104, :3] = 0.5
+    elif kind == "dense":
+        g[..., :3] = 1e-3
+    return g
+
+
+@pytest.mark.parametrize("kind", ["zero", "scattered", "patch", "dense"])
+@pytest.mark.parametrize("empty_tile", [None, 3])
+def test_live_patches_match_direct_mask(scenes, kind, empty_tile):
+    """`_live_patches` against a walk over every patch of every tile: empty
+    tiles excluded, patches cut by the frame's right and bottom edges kept
+    where a pixel inside the frame has a cotangent, none for all zeros."""
+    _, _, _, counts, kc = _ragged_operands(scenes[1])
+    counts = counts.clone()
+    if empty_tile is not None:
+        counts[empty_tile, :2] = 0
+    g = _cotangent(kind)
+    nz = (g[..., :3] != 0).any(-1).numpy()
+    want = []
+    for tile in range(kc["nty"] * kc["ntx"]):
+        if int(counts[tile, 0] + counts[tile, 1]) == 0:
+            continue
+        ty, tx = divmod(tile, kc["ntx"])
+        for patch in range(256):
+            y0 = ty * 64 + (patch // 16) * 4
+            x0 = tx * 128 + (patch % 16) * 8
+            if nz[y0:min(y0 + 4, RH), x0:min(x0 + 8, RW)].any():
+                want.append(tile * 256 + patch)
+    got = S._live_patches(g, counts, cfg=kc)
+    assert got.dtype == torch.int64 and got.tolist() == want
+    if kind == "zero":
+        assert got.numel() == 0
+    if kind == "scattered":
+        # (3, 5): tile 0, patch 0; (77, 200) and (122, 249): tile 3, patches
+        # (3, 9) and (14, 15) of its 16 x 16
+        assert want == ([0, 3 * 256 + 57, 3 * 256 + 239] if empty_tile is None
+                        else [0])
+    if kind == "dense" and empty_tile is None:
+        # 250 x 123: the right tiles' 122 columns of pixels reach into all 16
+        # patch columns, the bottom tiles' 59 rows into 15 patch rows
+        assert len(want) == 16 * 16 + 16 * 16 + 16 * 15 + 16 * 15
+
+
+def test_soft_tiled_bwd_zero_cotangent_is_exactly_zero(scenes):
+    params, taus, tables, counts, kc = _ragged_operands(scenes[1])
+    grads = S.soft_tiled_bwd(params, taus, tables, counts, _cotangent("zero"),
+                             cfg=kc)
+    assert len(grads) == 8
+    for t, gr in zip((params, taus) + tuple(tables), grads):
+        assert gr.shape == t.shape and bool((gr == 0).all())
+
+
+def test_soft_tiled_one_patch_cotangent_matches_jax(scenes):
+    """The gradient of sum(img * g) for a cotangent g that is non-zero on
+    one 8 x 4 patch only, every scene leaf, against JAX's tiled kernels in
+    interpret mode."""
+    js, _ = scenes
+    jc, tc = _cameras("ortho")
+    jcfg, tcfg = _cfgs("phong", True)
+    g = np.zeros((H, W, 4), np.float32)
+    g[40:44, 96:104, :3] = 0.5
+    gj = jax.grad(lambda s: jnp.sum(
+        jst.render_soft_tiled(s, jc, jcfg, interpret=True) * g))(js)
+    want = ([np.asarray(getattr(gj, k)) for k in LEAVES]
+            + [np.asarray(getattr(gj.lights, k)) for k in LIGHT_LEAVES])
+    ts = scene_from_arrays(scene_to_arrays(js), CPU)
+    leaves = [getattr(ts, k) for k in LEAVES] + [
+        getattr(ts.lights, k) for k in LIGHT_LEAVES]
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    loss = torch.sum(S.render_soft_tiled(ts, tc, tcfg) * torch.from_numpy(g))
+    got = [a.numpy() for a in torch.autograd.grad(loss, leaves)]
+    assert any(np.any(b != 0) for b in want)
+    for name, a, b in zip(LEAVES + LIGHT_LEAVES, got, want):
+        scale = np.abs(b).max() + 1e-12
+        np.testing.assert_allclose(a / scale, b / scale, atol=1e-3, err_msg=name)
+
+
+def test_gradient_buffers_keep_shapes_and_do_not_alias(scenes):
+    """The CUDA backward's outputs are views of one zeroed allocation:
+    each has its input's shape, starts on a 16-byte boundary and overlaps no
+    other; the Function's backward hands back one gradient per input."""
+    params, taus, tables, counts, kc = _ragged_operands(scenes[1])
+    inputs = (params, taus) + tuple(tables)
+    grads = S._zero_grads(inputs)
+    spans = []
+    for t, gr in zip(inputs, grads):
+        assert gr.shape == t.shape and gr.dtype == torch.float32
+        assert gr.is_contiguous() and bool((gr == 0).all())
+        assert gr.untyped_storage().data_ptr() == grads[0].untyped_storage().data_ptr()
+        assert gr.storage_offset() % 4 == 0
+        spans.append((gr.storage_offset(), gr.storage_offset() + gr.numel()))
+    spans.sort()
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    for i, gr in enumerate(grads):  # a write to one shows in no other
+        gr.fill_(float(i + 1))
+    assert all(bool((gr == float(i + 1)).all()) for i, gr in enumerate(grads))
+
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    out = S.SoftTiledFunction.apply(*leaves, counts, kc)
+    got = torch.autograd.grad(out, leaves, _cotangent("patch"))
+    for t, gr in zip(inputs, got):
+        assert gr.shape == t.shape
+    ptrs = [(gr.data_ptr(), gr.data_ptr() + 4 * gr.numel()) for gr in got]
+    ptrs.sort()
+    assert all(a[1] <= b[0] for a, b in zip(ptrs, ptrs[1:]))
