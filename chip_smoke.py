@@ -22,7 +22,13 @@ differentiable) — through the entry points a user calls, and fails
    kernel, its twin and the whole frame;
 6. where the time goes: the frame's stages timed back to back in one loop
    (they add up to the frame), and a device trace of 20 frames for kernels
-   per frame and the device's busy share;
+   per frame and the device's busy share; then B1/B2 on the inputs of
+   `scripts/torch_kernel_times.py --kernel B1` (the headline frame packed
+   and float, legacy and through a pinhole camera; scene 3 and the entry
+   frame at 640x480), each against the twin at the hard bars and its list
+   of non-empty tiles, built on the card, against the plain version, then
+   its device time per launch beside its bound and its time before the
+   redesign;
 7. the soft kernels B4 (forward) and B5 (backward) against their plain
    twin at 256x128: two scenes, ortho and pinhole, legacy / lambert /
    lambert + shadows / phong + shadows; images within 0.05/255 on every
@@ -41,7 +47,10 @@ differentiable) — through the entry points a user calls, and fails
    step's CUDA-event times and a device trace of the step; B5 on the
    step's own cotangent, on zeros and on a dense one, through a pinhole
    camera and on scene 3 (1,300 primitives) at 640x480, each beside its
-   bound and the time of the kernel before its redesign; (b) the CLI's
+   bound and the time of the kernel before its redesign; B4 the same way,
+   on the train step's tables in the four modes of phase 7, through a
+   pinhole camera and on scene 3 at 640x480, each against the twin and
+   with its list of non-empty tiles against the plain version; (b) the CLI's
    `fit --scene 1 --steps 60` at 640x480, which must lower the loss and the
    sphere-origin error;
 10. the brute hard kernel B3 against its plain twin: scenes 1 and 2 at
@@ -86,11 +95,12 @@ packed and int frames within one step of 1/255 (and identical on >= 99.5%
 of pixels).
 
 The second-to-last stdout line is {"kernels": [...]}: per kernel its
-launches on its main path, its error against the twin, its time (ms), the
-twin's (plain_ms), and bound_ms, the least time the card could take for the
-same work: the larger of the bytes it must move (each input read once, each
-output written once) over the card's memory rate and the operations these
-inputs need over its peak float32 rate (see `_OPS`, `_OPS_BWD`: a soft
+launches on its main path, its error against the twin, its time (ms: per
+call with the wrapper, or, where `ms_is` says so, device time per launch
+behind a spin), the twin's (plain_ms), and bound_ms, the least time the
+card could take for the same work: the larger of the bytes it must move
+(each input read once, each output written once) over the card's memory
+rate and the operations these inputs need over its peak float32 rate (see `_OPS`, `_OPS_BWD`: a soft
 pixel that no primitive covers needs no shading, a pixel whose cotangent is
 zero needs no backward, and the tiled soft kernels need neither the rows nor
 the cotangent of an empty tile). A launch of soft_brute_fwd / soft_brute_bwd is one
@@ -211,6 +221,53 @@ def _soft_covered(packed, cam, tau_e, h, w):
                 bacc = bacc + torch.log1p(-cov.clamp(0.0, 1.0 - 1e-6)).sum(1, keepdim=True)
             out.append(1.0 - torch.exp(bacc) != 0.0)
         return torch.cat(out).reshape(h, w)
+
+
+def _b1_bound(fwd_tiled, args, kw):
+    """B1's bound (B2's for a float frame) from one frame's data: (bound_ms,
+    bound_by, operations, lit pixels, occluded pixels). Every pixel of a
+    non-empty tile tests the tile's primary candidates; a lit pixel is
+    shaded once per light; an unoccluded lit pixel tests all of its tile's
+    shadow candidates, an occluded one (it differs from the frame rendered
+    without shadows) needs one test. (A pinhole frame is counted with the
+    affine tests' operations: a floor.) Bytes, each read or written once:
+    params, the counts, the real rows of the non-empty tiles (16 + 8 floats
+    a candidate, 16 an occluder; a pinhole frame's occluder rows are one
+    table for all tiles, read once), and the frame: 4 B a pixel packed, 16
+    B float."""
+    import torch
+
+    h, w = kw["height"], kw["width"]
+    counts = args[1]
+    cnt = counts.long()
+    nty, ntx = cnt.shape[0] // kw["ntx"], kw["ntx"]
+    fkw = {**kw, "out_format": "float"}
+    frame = fwd_tiled.tiled_kernel(*args, **fkw)
+    nonempty = (cnt[:, 0] + cnt[:, 1]) > 0
+    inside = _per_tile(torch.ones((h, w), dtype=torch.bool, device=frame.device),
+                       nty, ntx)
+    ops = (inside * nonempty * (cnt[:, 0] * _OPS["tri_affine"]
+                                + cnt[:, 1] * _OPS["sph_affine"])).sum()
+    lit_mask = (frame[..., :3] > 0).any(-1)
+    lit_t = _per_tile(lit_mask, nty, ntx)
+    n_occ = 0
+    n_l = (cnt.shape[1] - 2) // 2
+    if kw["shading"] != "legacy":
+        ops = ops + lit_t.sum() * (_OPS["shade_fixed"] + n_l * _OPS["shade_light"])
+        if kw["shadows"]:
+            unshadowed = fwd_tiled.tiled_kernel(*args, **{**fkw, "shadows": False})
+            occluded = lit_mask & (frame != unshadowed).any(-1)
+            occ_t = _per_tile(occluded, nty, ntx)
+            n_occ = int(occluded.sum())
+            for li in range(n_l):
+                ops = ops + ((lit_t - occ_t) * (cnt[:, 2 + 2 * li] * _OPS["sh_tri_planes"]
+                                                + cnt[:, 3 + 2 * li] * _OPS["sh_sph"])).sum()
+                ops = ops + occ_t.sum() * _OPS["sh_sph"]
+    sh = cnt[:, 2:].sum(1)
+    sh = sh[:1] * nonempty.any() if kw["projective"] else sh * nonempty
+    nbytes = (_nbytes(args[0], counts) + int(((cnt[:, 0] + cnt[:, 1]) * nonempty).sum()) * 96
+              + int(sh.sum()) * 64 + h * w * (4 if kw["out_format"] == "packed" else 16))
+    return _bound(float(ops), nbytes) + (float(ops), int(lit_mask.sum()), n_occ)
 
 
 def _errors(got, want, fmt):
@@ -458,34 +515,12 @@ def main() -> int:
                                     ("whole render_tiled", f_ms)):
             print(f"[time] {label}: {what} median {med:.4f} ms "
                   f"[{lo:.4f}, {hi:.4f}] over >= 50 frames; {smi}")
-        # B1's bound from this frame's data: every pixel of a non-empty tile
-        # tests the tile's primary candidates; a lit pixel is shaded once per
-        # light; an unoccluded lit pixel tests all of its tile's shadow
-        # candidates, an occluded one (it differs from the frame rendered
-        # without shadows) needs one test
-        cnt = bins.counts.long()
-        inside = _per_tile(torch.ones((cfg.height, cfg.width), dtype=torch.bool,
-                                      device=dev), bins.nty, bins.ntx)
-        nargs, nkw = fwd_tiled.kernel_inputs(
-            packed, ortho, bins, height=cfg.height, width=cfg.width,
-            shading=cfg.shading, shadows=False, out_format="float")
-        unshadowed = fwd_tiled.tiled_kernel(*nargs, **nkw)
-        lit_mask = (fk[..., :3] > 0).any(-1)
-        occluded = lit_mask & (fk != unshadowed).any(-1)
-        lit_t = _per_tile(lit_mask, bins.nty, bins.ntx)
-        occ_t = _per_tile(occluded, bins.nty, bins.ntx)
-        n_l = (cnt.shape[1] - 2) // 2
-        nonempty = (cnt[:, 0] + cnt[:, 1]) > 0
-        ops = (inside * nonempty * (cnt[:, 0] * _OPS["tri_affine"]
-                                    + cnt[:, 1] * _OPS["sph_affine"])).sum()
-        ops = ops + lit_t.sum() * (_OPS["shade_fixed"] + n_l * _OPS["shade_light"])
-        for li in range(n_l):
-            ops = ops + ((lit_t - occ_t) * (cnt[:, 2 + 2 * li] * _OPS["sh_tri_planes"]
-                                            + cnt[:, 3 + 2 * li] * _OPS["sh_sph"])).sum()
-            ops = ops + occ_t.sum() * _OPS["sh_sph"]
-        bound = _bound(float(ops), _nbytes(*args) + cfg.height * cfg.width * 4)
-        print(f"[bound] {label}: {float(ops):.4e} operations, bound "
-              f"{bound[0]:.5f} ms by {bound[1]}")
+        # B1's bound (packed) and B2's (float) from this frame's data
+        bound = _b1_bound(fwd_tiled, args, kw)
+        fbound = _b1_bound(fwd_tiled, fargs, fkw)
+        print(f"[bound] {label}: B1 (packed) {bound[2]:.4e} operations, bound "
+              f"{bound[0]:.5f} ms by {bound[1]}; B2 (float) bound {fbound[0]:.5f} "
+              f"ms by {fbound[1]} ({bound[3]} lit, {bound[4]} occluded pixels)")
         kernel_rows.append((label, k_ms, p_ms, ferr, bound))
 
     # ---- 6. where the frame's time goes ------------------------------------
@@ -526,6 +561,7 @@ def main() -> int:
               f"device busy {busy:.4f} of the wall time ({dev_ms:.4f} ms of "
               f"device work per frame), 20 traced frames; {smi}")
 
+    b1_ms = hard_tiled_redesign(T, dev, smi)    # 6, B1/B2 redesigned
     soft_phase_kernel_vs_twin(T, dev)           # 7
     soft_phase_cotangents(T, dev)               # 7, B5 and its cotangent
     soft_phase_golden(T, dev, gdir)             # 8
@@ -547,7 +583,9 @@ def main() -> int:
         "tolerance": "every pixel: float within 0.5/255 of the twin, "
                      "packed bytes within 1; packed identical on >= 99.5%",
         "shape": label,
-        "ms": k_ms[0],
+        "ms": b1_ms["headline 1080p phong+shadows packed"],
+        "ms_is": "device time per launch, behind a spin (per call with the "
+                 f"wrapper: median {k_ms[0]:.4f} ms, the [time] line)",
         "plain_ms": p_ms[0],
         "bound_ms": bound[0],
         "bound_by": bound[1],
@@ -557,6 +595,94 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": 1}}))
     return 0
+
+
+# B1/B2 before their redesign, device ms per launch behind a spin: RECORDED,
+# not measured in this run: the `device_ms` column of
+# scripts/torch_kernel_times.py --kernel B1 on the earlier tree (one thread a
+# pixel, 32 two-row blocks for every tile, rows staged through shared memory
+# behind block barriers), on an NVIDIA H100 80GB HBM3 at 700.00 W. They stay
+# out of the `kernels` line.
+B1_BEFORE = {
+    "headline 1080p phong+shadows packed": 0.0166,
+    "headline 1080p phong+shadows float": 0.0211,
+    "headline 1080p legacy packed": 0.0142,
+    "headline 1080p pinhole phong+shadows packed": 0.0189,
+    "scene3 640x480 phong+shadows packed": 0.1035,
+    "entry 640x480 scene1 phong+shadows packed": 0.0126,
+}
+
+
+def hard_tiled_redesign(T, dev, smi):
+    """B1/B2 on the inputs of scripts/torch_kernel_times.py --kernel B1,
+    each held against the twin at the hard bars and its list of non-empty
+    tiles against the plain version, then its device time per launch behind
+    a spin beside its bound and its recorded time before the redesign.
+    Returns {input: device ms}."""
+    import torch
+
+    from opencl_ray_tracer_tpu_torch.bench_util import back_to_back_ms, device_ms
+    from opencl_ray_tracer_tpu_torch.kernels import fwd_tiled
+
+    ortho = T.legacy_ortho_camera(device=dev)
+    pin = T.pinhole_camera((960.0, 540.0, 1100.0), (960.0, 540.0, -60.0),
+                           fov_degrees=50.0, width=1920, height=1080, device=dev)
+    head = T.random_scene(10, 1, seed=0, bounds=(1910.0, 1070.0), device=dev)
+    scene3 = T.create_scene(3, seed=0, device=dev)
+    entry = T.create_scene1(device=dev)
+    frames = {
+        "headline 1080p phong+shadows packed": (head, ortho, 1920, 1080, "phong", True, "packed"),
+        "headline 1080p phong+shadows float": (head, ortho, 1920, 1080, "phong", True, "float"),
+        "headline 1080p legacy packed": (head, ortho, 1920, 1080, "legacy", False, "packed"),
+        "headline 1080p pinhole phong+shadows packed": (head, pin, 1920, 1080, "phong", True,
+                                                        "packed"),
+        "scene3 640x480 phong+shadows packed": (scene3, ortho, 640, 480, "phong", True, "packed"),
+        "entry 640x480 scene1 phong+shadows packed": (entry, ortho, 640, 480, "phong", True,
+                                                      "packed"),
+    }
+    ms = {}
+    for what, (scene, cam, w, h, shading, shadows, fmt) in frames.items():
+        cfg = T.RenderConfig(width=w, height=h, shading=shading, shadows=shadows,
+                             framebuffer_dtype=fmt)
+        packed = scene.pack()
+        bins = fwd_tiled.bin_for_config(packed, cam, cfg)
+        args, kw = fwd_tiled.kernel_inputs(packed, cam, bins, height=h, width=w,
+                                           shading=shading, shadows=shadows,
+                                           out_format=fmt)
+        got, tiles = fwd_tiled._tiled_kernel_cuda(*args, **kw)
+        want = fwd_tiled._tiled_kernel_plain(*args, **kw)
+        _check_twin(f"[redesign] B1/B2 {what}: vs twin", got, want, fmt)
+        n_live = _tile_list_vs_plain(f"[redesign] B1/B2 {what}", tiles, args[1])
+        run = lambda: fwd_tiled.tiled_kernel(*args, **kw)  # noqa: E731
+        n = 50 if w == 1920 else 20
+        ms[what], b2b_ms = device_ms(run, n), back_to_back_ms(run, n)
+        bound_ms, by, n_ops, lit, occ = _b1_bound(fwd_tiled, args, kw)
+        before = B1_BEFORE[what]
+        print(f"[redesign] B1/B2 {what}: {ms[what]:.4f} ms of device time per "
+              f"launch, {b2b_ms:.4f} back to back with the wrapper (measured in this "
+              f"run; {n_live} of {args[1].shape[0]} tiles non-empty, the card's list "
+              f"equals its plain version); recorded before the redesign {before:.4f} "
+              f"ms of device time (recorded / measured = {before / ms[what]:.1f}); "
+              f"bound {bound_ms:.5f} ms by {by} "
+              f"({n_ops:.4e} operations, {lit} lit, {occ} occluded), "
+              f"{ms[what] / bound_ms:.1f}x over it; {smi}")
+    return ms
+
+
+def _tile_list_vs_plain(label, tiles, counts):
+    """The list of non-empty tiles that B1/B2 or B4 built on the card, held
+    against its plain version (fwd_tiled._live_tiles): the same tiles, in
+    any order. Returns their number, read from the kernel's count."""
+    import torch
+
+    from opencl_ray_tracer_tpu_torch.kernels import fwd_tiled
+
+    want = fwd_tiled._live_tiles(counts)
+    n = int(tiles[0].item())
+    _require(n == want.numel() and torch.equal(tiles[2:2 + n].sort().values.long(), want),
+             f"{label}: the card lists {n} non-empty tiles, the plain version "
+             f"{want.numel()}, or other ones")
+    return n
 
 
 # ---------------------------------------------------------------------------
@@ -896,6 +1022,22 @@ def _tiled_soft_bounds(scene, cam, cfg, operands, g):
             int(live.sum()), int(covered.sum()), int(cot.sum()))
 
 
+# B4 before its redesign, device ms per launch behind a spin: RECORDED, not
+# measured in this run: the `device_ms` column of
+# scripts/torch_kernel_times.py --kernel B4 on the earlier tree (one thread a
+# pixel, 32 two-row blocks for every tile, rows staged through shared memory
+# behind block barriers, every pixel shaded), on an NVIDIA H100 80GB HBM3 at
+# 700.00 W. They stay out of the `kernels` line.
+B4_BEFORE = {
+    "train1080 ortho legacy": 0.0526,
+    "train1080 ortho lambert": 0.0632,
+    "train1080 ortho lambert+shadows": 0.1001,
+    "train1080 ortho phong+shadows": 0.1002,
+    "train1080 pinhole phong+shadows": 0.1550,
+    "scene3 640x480 phong+shadows": 0.6986,
+}
+
+
 def soft_phase_train(T, dev, smi):
     """Phase 9 (a): the bench's train step (bench.py:149-171, 619-629):
     headline scene, 1920x1080, phong + soft shadows, Adam lr 1e-3, a zero
@@ -1080,6 +1222,8 @@ def soft_phase_train(T, dev, smi):
               f"{bound_ms:.5f} ms by {by} ({n_ops:.4e} operations), "
               f"{ms / bound_ms:.1f}x over it; {smi}")
 
+    b4_ms = soft_tiled_fwd_redesign(scene, cam, pin, cfg, scene3, cfg3, smi)
+
     src = "opencl_ray_tracer_tpu_torch/kernels/csrc/soft_tiled.cu"
     shape = "train step 1920x1080 10sph+1cube phong+soft shadows"
     return [
@@ -1087,7 +1231,9 @@ def soft_phase_train(T, dev, smi):
          "replaces": "opencl_ray_tracer_tpu/kernels/soft_tiled.py:1397",
          "launches": launches[0], "max_abs_err": ferr,
          "tolerance": f"every pixel within {FWD_BAR}/255 of the twin",
-         "shape": shape, "ms": times["B4 alone"][0],
+         "shape": shape, "ms": b4_ms["train1080 ortho phong+shadows"],
+         "ms_is": "device time per launch, behind a spin (per call with the "
+                  f"wrapper: median {times['B4 alone'][0]:.4f} ms, the [time] line)",
          "plain_ms": times["twin forward"][0], "bound_ms": b4_bound[0],
          "bound_by": b4_bound[1], "library_ms": None},
         {"name": "soft_tiled_bwd", "route": "cuda", "source": src,
@@ -1103,6 +1249,48 @@ def soft_phase_train(T, dev, smi):
          "plain_ms": times["twin backward"][0], "bound_ms": b5_bound[0],
          "bound_by": b5_bound[1], "library_ms": None},
     ]
+
+
+def soft_tiled_fwd_redesign(scene, cam, pin, cfg, scene3, cfg3, smi):
+    """B4 on the inputs of scripts/torch_kernel_times.py --kernel B4: the
+    headline scene's tables at 1080p in the four modes of phase 7 (phong +
+    soft shadows is the train step's), through a pinhole camera, and scene 3
+    at 640x480; each held against the twin on every pixel and its list of
+    non-empty tiles against the plain version, then its device time per
+    launch behind a spin beside its bound and its recorded time before the
+    redesign. Returns {input: device ms}."""
+    import torch
+
+    from opencl_ray_tracer_tpu_torch.bench_util import back_to_back_ms, device_ms
+    from opencl_ray_tracer_tpu_torch.kernels import soft_tiled as S
+
+    b4_ms = {}
+    b4_cases = [(f"train1080 ortho {sh}{'+shadows' if sd else ''}", scene, cam,
+                 cfg.replace(shading=sh, shadows=sd)) for sh, sd in SOFT_MODES]
+    b4_cases += [("train1080 pinhole phong+shadows", scene, pin, cfg),
+                 ("scene3 640x480 phong+shadows", scene3, cam, cfg3)]
+    for what, sc_, cam_, cfg_ in b4_cases:
+        ops_ = _soft_operands(sc_, cam_, cfg_)
+        got, tiles = S._soft_tiled_fwd_cuda(*ops_[:4], ops_[4])
+        with torch.no_grad():
+            err = (got - S._soft_tiled_plain(*ops_[:4], cfg=ops_[4])).abs().max().item()
+        _require(err < FWD_BAR, f"[redesign] B4 {what}: vs twin {err} >= {FWD_BAR}")
+        n_live = _tile_list_vs_plain(f"[redesign] B4 {what}", tiles, ops_[3])
+        run = lambda: S.soft_tiled_fwd(*ops_[:4], cfg=ops_[4])  # noqa: E731
+        n = 50 if what.startswith("train") else 20
+        b4_ms[what], b2b_ms = device_ms(run, n), back_to_back_ms(run, n)
+        bound_ms, by, n_ops = _tiled_soft_bounds(sc_, cam_, cfg_, ops_,
+                                                 torch.zeros_like(got))[0]
+        before = B4_BEFORE[what]
+        print(f"[redesign] B4 {what}: {b4_ms[what]:.4f} ms of device time per "
+              f"launch, {b2b_ms:.4f} back to back with the wrapper (measured in this "
+              f"run; vs twin {err:.5f}, bar {FWD_BAR}; {n_live} of "
+              f"{ops_[3].shape[0]} tiles non-empty, the card's list equals its "
+              f"plain version); recorded before the redesign {before:.4f} ms of "
+              f"device time (recorded / measured = {before / b4_ms[what]:.1f}); "
+              f"bound {bound_ms:.5f} ms by {by} "
+              f"({n_ops:.4e} operations), {b4_ms[what] / bound_ms:.1f}x over it; {smi}")
+    return b4_ms
 
 
 def _train_stages(S, state, cam, cfg, loss_fn, smi):

@@ -22,7 +22,7 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "build")
 SOURCES = ("fwd_tiled.cu", "fwd_brute.cu", "soft_tiled.cu", "soft_brute.cu")
-HEADERS = ("soft_tiled.cuh",)
+HEADERS = ("soft_tiled.cuh", "tile_list.cuh")
 
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # No --use_fast_math; -fmad=false keeps every product/sum rounded once, as in
@@ -98,9 +98,9 @@ def load_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(build())
         ptr, i = ctypes.c_void_p, ctypes.c_int
         lib.octrt_fwd_tiled.restype = i
-        lib.octrt_fwd_tiled.argtypes = [ptr] * 9 + [i] * 13 + [ptr]
+        lib.octrt_fwd_tiled.argtypes = [ptr] * 10 + [i] * 13 + [ptr]
         lib.octrt_soft_tiled_fwd.restype = i
-        lib.octrt_soft_tiled_fwd.argtypes = [ptr] * 10 + [i] * 12 + [ptr]
+        lib.octrt_soft_tiled_fwd.argtypes = [ptr] * 11 + [i] * 12 + [ptr]
         lib.octrt_soft_tiled_bwd.restype = i
         lib.octrt_soft_tiled_bwd.argtypes = [ptr] * 19 + [i] * 12 + [ptr]
         lib.octrt_fwd_brute.restype = i

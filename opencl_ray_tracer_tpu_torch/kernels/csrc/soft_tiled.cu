@@ -1,5 +1,5 @@
 // Tiled soft differentiable renderer for Hopper (sm_90a): forward (B4) and
-// backward (B5), one thread per pixel.
+// backward (B5), a lane a pixel, a warp an 8 x 4 patch.
 //
 // Replaces the TPU kernels opencl_ray_tracer_tpu/kernels/soft_tiled.py:
 // _soft_tiled_fwd_pallas (1397) and _soft_tiled_bwd_pallas (1580). The
@@ -14,7 +14,7 @@
 // per-primitive shading) plus the background's log(1 - cov) sum — then
 // shades: aggregate (phong, lambert + soft shadows, with a per-light
 // occluder loop of sigmoid-gated log-visibility) or per-primitive (legacy,
-// lambert). An empty tile writes (0, 0, 0, 255) and returns.
+// lambert). An empty tile holds (0, 0, 0, 255).
 //
 // Backward: recompute, then reverse, per pixel (soft_tiled.cuh pixel_bwd).
 // Pass 1 re-runs the streaming pass and the occluder loops for the finals;
@@ -29,15 +29,39 @@
 // What bounds them on this card: FP32 ALU work and the special functions
 // (expf/logf/sqrtf, about ten per candidate and pixel in the forward and
 // three times that in the backward, none of them fast-math) - the tables
-// are a few KB per tile and the image 16 B per pixel - and, for the
-// backward, only the pixels whose cotangent is not zero (every gradient is
-// linear in it), plus one pass over the cotangents of the non-empty tiles.
+// are a few KB per tile and the image 16 B per pixel - but only for the
+// pixels of the non-empty tiles; the forward's finish (geometry, shading,
+// occluders) only for the pixels that something covers, the backward only
+// for the pixels whose cotangent is not zero (every gradient is linear in
+// it), plus one pass over the cotangents of the non-empty tiles. The
+// forward writes every pixel of the frame once (16 B): on a sparse frame
+// those bytes are its bound.
 //
-// The forward: a block covers two rows of one tile (32 blocks per tile),
-// all its threads walk the same candidate list, staged through shared
-// memory 64 rows (6 KB) at a time, loaded by the whole block with coalesced
-// reads; every thread then reads the same row (a broadcast). It reads the
-// shadow tables through the cache, as 128-bit loads.
+// The forward, what the design does about its bound (the shares: its
+// device time on the 1080p train step's tables, phong + soft shadows, one
+// NVIDIA H100 at 700 W, with the step switched off):
+//   - the kernel's blocks, as many as fit on the card at once, each list
+//     the non-empty tiles from the counts in shared memory (tile_list.cuh:
+//     no list kernel before it) and take their turns of that list's units:
+//     groups of 8 patches of 8 x 4 pixels, a warp a patch, of one non-empty
+//     tile, then the empty tiles, which a block fills with the background.
+//     No block is launched for an empty tile and no pixel is written twice;
+//   - a warp walks its tile's rows on its own, read straight from the
+//     tables as 128-bit loads that all its lanes ask for at once (a
+//     broadcast; the block's 8 warps share its tile's rows in L1), with no
+//     block barrier in any row loop (staging the rows in shared memory
+//     first took 10% more);
+//   - a pixel that nothing covers (1 - w_bg is exactly 0, so its value is
+//     exactly 0) skips the geometry, the shading and the occluder walks,
+//     and a warp none of whose pixels is covered skips the walks
+//     altogether: on the 1080p train step 12% of the pixels of the
+//     non-empty tiles are covered (18% more without it; 34% through a
+//     pinhole camera);
+//   - a build for exactly one light keeps the per-light arrays in
+//     registers; two to four lights run the build that reads the count
+//     (13% more without it);
+//   - 64 registers, four blocks a multiprocessor (80 took 8% more, no cap
+//     16% more).
 //
 // The backward, what the design does about its bound (the shares are of
 // its device time on one NVIDIA H100 at 700 W, each step switched off in
@@ -80,18 +104,20 @@
 #include <cuda_runtime.h>
 
 #include "soft_tiled.cuh"
+#include "tile_list.cuh"
 
 using namespace octrt_soft;
 
 namespace {
 
-constexpr int BLOCK_ROWS = 2;
-constexpr int THREADS = TILE_W * BLOCK_ROWS;  // 256
-constexpr int GROUPS = TILE_H / BLOCK_ROWS;   // blocks per tile
+namespace tl = octrt_tiles;
+
+constexpr int THREADS = 256;
 constexpr int NWARP = THREADS / 32;
 constexpr int RED_W = 64;                     // >= MAX_P
-constexpr int STAGE_ROWS = 64;                // forward: rows per chunk
-constexpr int STAGE_W = ROW + ALB;            // floats per staged row
+// Blocks a multiprocessor that the compiler must leave registers for in
+// the forward (64 registers).
+constexpr int FWD_BLOCKS = 4;
 
 struct Args {
   const float* params;
@@ -103,29 +129,11 @@ struct Args {
   const float* sph_alb;   // (n_tiles, k_sph, 8)
   const float* tsh;       // (n_tiles | 1, L * sh_tri_stride, 16)
   const float* ssh;       // (n_tiles | 1, L * sh_sph_stride, 16)
-  int height, width, ntx, k_tri, k_sph, sh_tri_stride, sh_sph_stride, nl;
-  int shading, shadows, projective;
+  int height, width, ntx, n_tiles, k_tri, k_sph, sh_tri_stride, sh_sph_stride;
+  int nl, shading, shadows, projective;
 };
 
 using BlockRed = BlockRedT<THREADS, RED_W>;
-
-struct Pixel {
-  int tile, xi, yi;
-  bool inside;
-  size_t pix;
-};
-
-__device__ __forceinline__ Pixel pixel_of(const Args& a) {
-  Pixel p;
-  p.tile = blockIdx.x / GROUPS;
-  const int group = blockIdx.x - p.tile * GROUPS;
-  const int ty = p.tile / a.ntx, tx = p.tile - ty * a.ntx;
-  p.xi = tx * TILE_W + (int)(threadIdx.x % TILE_W);
-  p.yi = ty * TILE_H + group * BLOCK_ROWS + (int)(threadIdx.x / TILE_W);
-  p.inside = p.xi < a.width && p.yi < a.height;
-  p.pix = (size_t)p.yi * a.width + p.xi;
-  return p;
-}
 
 __device__ __forceinline__ bool tile_empty(const Args& a, int tile) {
   const int* cnt = a.counts + (size_t)tile * (2 + 2 * a.nl);
@@ -138,63 +146,11 @@ __device__ __forceinline__ Tabs tabs_of(const Args& a, int tile) {
                    a.nl, a.projective != 0);
 }
 
-template <bool PROJ>
-__global__ void __launch_bounds__(THREADS) soft_fwd_kernel(Args a,
-                                                           float4* out) {
-  __shared__ float stage[STAGE_ROWS * STAGE_W];
-  const Pixel p = pixel_of(a);
-  if (tile_empty(a, p.tile)) {  // block-uniform: the background
-    if (p.inside) out[p.pix] = make_float4(0.0f, 0.0f, 0.0f, 255.0f);
-    return;
-  }
-  const Tabs T = tabs_of(a, p.tile);
-  Ctx c;
-  ctx_make<PROJ>(c, a.params, __ldg(a.taus), __ldg(a.taus + 1), (float)p.xi,
-                 (float)p.yi, a.nl);
-  const bool agg = is_aggregate(a.shading, a.shadows != 0);
-  Fin f;
-  fin_init(f);
-  // The tile's candidate rows, STAGE_ROWS at a time, through shared memory:
-  // every thread of the block (those outside the frame too) loads, then
-  // every pixel of the frame streams the chunk. Row counts are the tile's,
-  // so the loop and its barriers are block-uniform.
-  for (int kind = 0; kind < 2; ++kind) {
-    const int nrow = kind ? T.n_sph : T.n_tri;
-    const float* rows = kind ? T.sph : T.tri;
-    const float* albs = kind ? T.sph_alb : T.tri_alb;
-    for (int base = 0; base < nrow; base += STAGE_ROWS) {
-      const int n = min(STAGE_ROWS, nrow - base);
-      __syncthreads();  // the previous chunk is consumed
-      for (int i = threadIdx.x; i < n * STAGE_W; i += THREADS) {
-        const int j = i / STAGE_W, q = i - j * STAGE_W;
-        stage[i] = q < ROW ? __ldg(rows + (size_t)(base + j) * ROW + q)
-                           : __ldg(albs + (size_t)(base + j) * ALB + q - ROW);
-      }
-      __syncthreads();
-      if (p.inside) {
-        for (int j = 0; j < n; ++j) {
-          const float* r = stage + j * STAGE_W;
-          stream_row<PROJ>(c, r, r + ROW, kind, agg, a.shading, f);
-        }
-      }
-    }
-  }
-  if (!p.inside) return;
-  float rgb[3];
-  pixel_finish<PROJ>(c, T, f, a.shading, a.shadows != 0, rgb);
-  out[p.pix] = make_float4(rgb[0], rgb[1], rgb[2], 255.0f);
-}
-
-// ---- backward (B5) ----------------------------------------------------------
-// A tile is cut into 16 x 16 patches of 8 x 4 pixels, one lane each.
-constexpr int PATCH_W = 8, PATCH_H = 4;
-constexpr int PATCHES_X = TILE_W / PATCH_W;
-constexpr int TILE_PATCHES = PATCHES_X * (TILE_H / PATCH_H);  // 256
-constexpr int LIVE_THREADS = 1024;  // the list kernel: one block a tile
-constexpr int LIVE_PER_WARP = TILE_PATCHES / (LIVE_THREADS / 32);
-constexpr unsigned FULL = 0xffffffffu;
-// Blocks a multiprocessor that the compiler must leave registers for.
-constexpr int BWD_BLOCKS = 2;
+// A tile is cut into 16 x 16 patches of 8 x 4 pixels, a lane a pixel.
+using tl::PATCH_H;
+using tl::PATCH_W;
+using tl::PATCHES_X;
+using tl::TILE_PATCHES;
 
 // The pixel of `lane` in patch `patch` of tile `tile`.
 __device__ __forceinline__ void patch_pixel(const Args& a, int tile, int patch,
@@ -203,6 +159,63 @@ __device__ __forceinline__ void patch_pixel(const Args& a, int tile, int patch,
   xi = tx * TILE_W + (patch % PATCHES_X) * PATCH_W + (lane & 7);
   yi = ty * TILE_H + (patch / PATCHES_X) * PATCH_H + (lane >> 3);
 }
+
+// ---- forward (B4) -----------------------------------------------------------
+constexpr int FWD_GROUPS = TILE_PATCHES / NWARP;  // units of a non-empty tile
+
+// NL: the number of lights, or 0 to read it at run time.
+template <bool PROJ, int NL>
+__global__ void __launch_bounds__(THREADS, FWD_BLOCKS) soft_fwd_kernel(
+    Args a, int* tiles, float4* out) {
+  extern __shared__ int s_list[];
+  __shared__ int s_cnt[NWARP];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nl = NL ? NL : a.nl;
+  const float tau_d = __ldg(a.taus), tau_e = __ldg(a.taus + 1);
+  const bool agg = is_aggregate(a.shading, a.shadows != 0);
+  const int n_live = tl::block_list(a.counts, 2 + 2 * a.nl, a.n_tiles, s_list, s_cnt);
+  if (blockIdx.x == 0) tl::write_list(tiles, s_list, n_live, a.n_tiles);
+  const tl::Units U(s_list, n_live, a.n_tiles, FWD_GROUPS);
+  for (int unit = blockIdx.x; unit < U.n_units; unit += gridDim.x) {
+    if (U.is_group(unit)) {
+      const int tile = U.group_tile(unit);
+      const Tabs T = tabs_of(a, tile);
+      int xi, yi;
+      patch_pixel(a, tile, U.group_patch(unit) + warp, lane, xi, yi);
+      if (xi < a.width && yi < a.height) {
+        Ctx c;
+        ctx_make<PROJ>(c, a.params, tau_d, tau_e, (float)xi, (float)yi, nl);
+        Fin f;
+        stream_finals<PROJ>(c, T, agg, a.shading, f);
+        float rgb[3];
+        pixel_finish<PROJ>(c, T, f, a.shading, a.shadows != 0, rgb);
+        out[(size_t)yi * a.width + xi] = make_float4(rgb[0], rgb[1], rgb[2], 255.0f);
+      }
+    } else {
+      tl::fill_tile(out, U.empty_tile(unit), a.ntx, a.height, a.width,
+                    make_float4(0.0f, 0.0f, 0.0f, 255.0f));
+    }
+  }
+}
+
+template <bool PROJ, int NL>
+int launch_fwd(const Args& a, int* tiles, float4* out, cudaStream_t s) {
+  auto kernel = soft_fwd_kernel<PROJ, NL>;
+  const size_t smem = (size_t)tl::list_float4s(a.n_tiles) * sizeof(float4);
+  int grid = 0;
+  const cudaError_t err = tl::resident_grid(kernel, THREADS, smem,
+                                            (long long)a.n_tiles * FWD_GROUPS, grid);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, THREADS, smem, s>>>(a, tiles, out);
+  return (int)cudaGetLastError();
+}
+
+// ---- backward (B5) ----------------------------------------------------------
+constexpr int LIVE_THREADS = 1024;  // the list kernel: one block a tile
+constexpr int LIVE_PER_WARP = TILE_PATCHES / (LIVE_THREADS / 32);
+constexpr unsigned FULL = 0xffffffffu;
+// Blocks a multiprocessor that the compiler must leave registers for.
+constexpr int BWD_BLOCKS = 2;
 
 // The work list of the backward: live[0] the number of entries, live[1] the
 // pixel kernel's counter (both zero at the start), live[2...] the entries,
@@ -364,26 +377,28 @@ bool bad_args(int n_tiles, int nl, int shading) {
 
 }  // namespace
 
+// tiles: 2 + n_tiles ints; it comes back as the list of tile_list.cuh
+// (the number of non-empty tiles, a zero, the tiles).
 extern "C" int octrt_soft_tiled_fwd(
     const float* params, const float* taus, const int* counts,
     const float* tri, const float* tri_alb, const float* sph,
     const float* sph_alb, const float* tsh, const float* ssh, float* out,
-    int height, int width, int ntx, int n_tiles, int k_tri, int k_sph,
-    int sh_tri_stride, int sh_sph_stride, int nl, int shading, int shadows,
-    int projective, void* stream) {
+    int* tiles, int height, int width, int ntx, int n_tiles, int k_tri,
+    int k_sph, int sh_tri_stride, int sh_sph_stride, int nl, int shading,
+    int shadows, int projective, void* stream) {
   if (bad_args(n_tiles, nl, shading)) return (int)cudaErrorInvalidValue;
   const Args a{params, taus, counts, tri, tri_alb, sph, sph_alb, tsh, ssh,
-               height, width, ntx, k_tri, k_sph, sh_tri_stride, sh_sph_stride,
-               nl, shading, shadows, projective};
-  const dim3 grid(n_tiles * GROUPS), block(THREADS);
+               height, width, ntx, n_tiles, k_tri, k_sph, sh_tri_stride,
+               sh_sph_stride, nl, shading, shadows, projective};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   float4* o = reinterpret_cast<float4*>(out);
+  // one light is the common scene: the kernel is also built for exactly one
   if (projective) {
-    soft_fwd_kernel<true><<<grid, block, 0, s>>>(a, o);
-  } else {
-    soft_fwd_kernel<false><<<grid, block, 0, s>>>(a, o);
+    return nl == 1 ? launch_fwd<true, 1>(a, tiles, o, s)
+                   : launch_fwd<true, 0>(a, tiles, o, s);
   }
-  return (int)cudaGetLastError();
+  return nl == 1 ? launch_fwd<false, 1>(a, tiles, o, s)
+                 : launch_fwd<false, 0>(a, tiles, o, s);
 }
 
 // The six table gradients, d_par (21 + 7L) and d_tau (2) must be zero; live
@@ -400,8 +415,8 @@ extern "C" int octrt_soft_tiled_bwd(
     int projective, void* stream) {
   if (bad_args(n_tiles, nl, shading)) return (int)cudaErrorInvalidValue;
   const Args a{params, taus, counts, tri, tri_alb, sph, sph_alb, tsh, ssh,
-               height, width, ntx, k_tri, k_sph, sh_tri_stride, sh_sph_stride,
-               nl, shading, shadows, projective};
+               height, width, ntx, n_tiles, k_tri, k_sph, sh_tri_stride,
+               sh_sph_stride, nl, shading, shadows, projective};
   const DTabs D{d_tri, d_tri_alb, d_sph, d_sph_alb, d_tsh, d_ssh};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const float4* g4 = reinterpret_cast<const float4*>(g);

@@ -1082,6 +1082,9 @@ OCTRT_FN void cand_bwd(const Ctx& c, const Fin& f, const Cot& cot, bool agg,
 
 // The forward of one pixel after its streaming pass: shading (and, for
 // aggregate shading, the occluder loops) from the finals f -> rgb (0..255).
+// A pixel that nothing covers (1 - w_bg is exactly 0) is exactly 0 whatever
+// its shading and shadows are (0 times a finite colour): it takes no
+// geometry, shading or occluder walk.
 template <bool PROJ>
 OCTRT_FN void pixel_finish(const Ctx& c, const Tabs& T, const Fin& f,
                            int shading, bool shadows, float out[3]) {
@@ -1090,6 +1093,8 @@ OCTRT_FN void pixel_finish(const Ctx& c, const Tabs& T, const Fin& f,
     nonagg_finish(f, shading, out);
     return;
   }
+  out[0] = out[1] = out[2] = 0.0f;
+  if (1.0f - expf(f.bacc) == 0.0f) return;
   Geom G;
   geom_fwd(f, c, G);
   float logvis[MAX_L] = {0.f, 0.f, 0.f, 0.f};

@@ -616,9 +616,12 @@ def _tiled_kernel_plain(params, counts, tri_coef_t, tri_attr_t, sph_coef_t,
     Same inputs and outputs as `tiled_kernel`, and the same arithmetic in
     the same order: tiles are processed in batches and candidates in chunks
     of a running nearest-hit (strict <, the first minimal index wins), so
-    memory stays bounded by `_PLAIN_MAX_ELEMS` elements per temporary. Returns
-    (height, width) int32 words for out_format "packed", else (height,
-    width, 4) float32."""
+    memory stays bounded by `_PLAIN_MAX_ELEMS` elements per temporary.
+    Reciprocal square roots are 1 / sqrt, as in the kernel: `torch.rsqrt`
+    differs from it in the last bit (on the CPU for 0.5% of inputs, on a CUDA
+    card by up to two), which flips edge and shadow pixels of a pinhole
+    frame. Returns (height, width) int32 words for out_format "packed", else
+    (height, width, 4) float32."""
     dev = params.device
     n_tiles = counts.shape[0]
     nty = n_tiles // ntx
@@ -649,7 +652,8 @@ def _tiled_kernel_plain(params, counts, tri_coef_t, tri_attr_t, sph_coef_t,
     def cols(rows):
         return [rows[:, :, q : q + 1] for q in range(rows.shape[2])]
 
-    for tb in nonempty.split(nb):
+    # (split gives one empty batch for an empty list: a frame with no candidate)
+    for tb in nonempty.split(nb) if nonempty.numel() else ():
         cnt = counts[tb]
         ty = tb // ntx
         tx = tb - ty * ntx
@@ -661,7 +665,7 @@ def _tiled_kernel_plain(params, counts, tri_coef_t, tri_attr_t, sph_coef_t,
             duy = d0y + x * ddxv[1] + y * ddyv[1]
             duz = d0z + x * ddxv[2] + y * ddyv[2]
             len2 = torch.clamp(dux * dux + duy * duy + duz * duz, min=1e-20)
-            inv_len = torch.rsqrt(len2)
+            inv_len = 1.0 / torch.sqrt(len2)
             len_d = len2 * inv_len
 
             def tri_test(c):
@@ -752,7 +756,7 @@ def _tiled_kernel_plain(params, counts, tri_coef_t, tri_attr_t, sph_coef_t,
                 px = o0x + x + t * d0x
                 py = o0y + y + t * d0y
                 pz = o0z + t * d0z
-                vinv = torch.rsqrt(
+                vinv = 1.0 / torch.sqrt(
                     torch.clamp(d0x * d0x + d0y * d0y + d0z * d0z, min=1e-20))
                 vx, vy, vz = -d0x * vinv, -d0y * vinv, -d0z * vinv
             ax, ay, az = attr[..., 3], attr[..., 4], attr[..., 5]
@@ -765,8 +769,8 @@ def _tiled_kernel_plain(params, counts, tri_coef_t, tri_attr_t, sph_coef_t,
             nx = torch.where(sph_w, nsx, ax * flip)
             ny = torch.where(sph_w, nsy, ay * flip)
             nz = torch.where(sph_w, nsz, az * flip)
-            ninv = torch.rsqrt(torch.clamp(nx * nx + ny * ny + nz * nz,
-                                           min=1e-20))
+            ninv = 1.0 / torch.sqrt(torch.clamp(nx * nx + ny * ny + nz * nz,
+                                                min=1e-20))
             nx, ny, nz = nx * ninv, ny * ninv, nz * ninv
 
             ambient, spec_k, shine = prm[_P_AMBIENT], prm[_P_SPEC], prm[_P_SHINE]
@@ -780,7 +784,7 @@ def _tiled_kernel_plain(params, counts, tri_coef_t, tri_attr_t, sph_coef_t,
                 lint = prm[base + 6]
                 tlx, tly, tlz = lpx - px, lpy - py, lpz - pz
                 tl2 = torch.clamp(tlx * tlx + tly * tly + tlz * tlz, min=1e-20)
-                rinv = torch.rsqrt(tl2)
+                rinv = 1.0 / torch.sqrt(tl2)
                 ldx, ldy, ldz = tlx * rinv, tly * rinv, tlz * rinv
                 if shadows:
                     dist = tl2 * rinv
@@ -903,7 +907,6 @@ def tiled_kernel(params, counts, tri_coef_t, tri_attr_t, sph_coef_t,
     k, 16) f32 and attribute tables (n_tiles, k, 8) f32; shadow tables
     (n_tiles or 1, L*k_sh, 16) f32. out_format "packed" gives (H, W) int32
     RGBA words, "float" gives (H, W, 4) float32."""
-    global KERNEL_LAUNCHES
     args = (params, counts, tri_coef_t, tri_attr_t, sph_coef_t, sph_attr_t,
             tri_sh_t, sph_sh_t)
     kw = dict(height=height, width=width, ntx=ntx, shading=shading,
@@ -938,23 +941,47 @@ def tiled_kernel(params, counts, tri_coef_t, tri_attr_t, sph_coef_t,
                 or tab.shape[1] % n_lights:
             raise ValueError(f"{name}: bad shadow table shape {tuple(tab.shape)}")
 
+    return _tiled_kernel_cuda(*args, **kw)[0]
+
+
+def _live_tiles(counts):
+    """The tiled forward kernels' list in its plain version: the tiles whose
+    counts row holds a primary candidate (counts[:, 0] + counts[:, 1] > 0),
+    ascending. The CUDA kernels (B1/B2, B4) build it on the card
+    (kernels/csrc/tile_list.cuh) and launch blocks for nothing else."""
+    return torch.nonzero((counts[:, 0] + counts[:, 1]) > 0)[:, 0]
+
+
+def _tiled_kernel_cuda(params, counts, tri_coef_t, tri_attr_t, sph_coef_t,
+                       sph_attr_t, tri_sh_t, sph_sh_t, *, height, width, ntx,
+                       shading, shadows, projective, out_format):
+    """Launch B1/B2 on CUDA tensors (checked by `tiled_kernel`) -> (frame,
+    tiles). `tiles` is the int32 list of non-empty tiles that the kernel's
+    blocks build from `counts` (kernels/csrc/tile_list.cuh): tiles[0] their
+    number, tiles[2 : 2 + tiles[0]] the tiles in ascending order
+    (`_live_tiles` is its plain version), then the empty ones."""
+    global KERNEL_LAUNCHES
     from opencl_ray_tracer_tpu_torch.kernels._build import load_library
 
     lib = load_library()
+    dev = params.device
+    n_tiles = counts.shape[0]
+    n_lights = (params.shape[0] - _P_LIGHTS) // _LIGHT_STRIDE
     if out_format == "packed":
         out = torch.empty((height, width), dtype=torch.int32, device=dev)
     else:
         out = torch.empty((height, width, 4), dtype=torch.float32, device=dev)
+    tiles = torch.empty(2 + n_tiles, dtype=torch.int32, device=dev)
     p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.octrt_fwd_tiled(
             p(params), p(counts), p(tri_coef_t), p(tri_attr_t),
             p(sph_coef_t), p(sph_attr_t), p(tri_sh_t), p(sph_sh_t), p(out),
-            height, width, ntx, n_tiles, k_tri, k_sph,
-            tri_sh_t.shape[1] // n_lights, sph_sh_t.shape[1] // n_lights,
-            n_lights, _SHADING_CODES[shading], int(bool(shadows)),
-            int(bool(projective)), _FORMAT_CODES[out_format],
+            p(tiles), height, width, ntx, n_tiles, tri_coef_t.shape[1],
+            sph_coef_t.shape[1], tri_sh_t.shape[1] // n_lights,
+            sph_sh_t.shape[1] // n_lights, n_lights, _SHADING_CODES[shading],
+            int(bool(shadows)), int(bool(projective)), _FORMAT_CODES[out_format],
             ctypes.c_void_p(stream),
         )
     if rc != 0:
@@ -963,7 +990,7 @@ def tiled_kernel(params, counts, tri_coef_t, tri_attr_t, sph_coef_t,
             f" (cudaError {rc})"
         )
     KERNEL_LAUNCHES += 1
-    return out
+    return out, tiles
 
 
 # ---------------------------------------------------------------------------

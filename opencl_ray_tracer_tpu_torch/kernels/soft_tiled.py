@@ -741,7 +741,8 @@ def _soft_tiled_plain(params, taus, tables, counts, *, cfg):
     k_max = max(tri_t.shape[1] + sph_t.shape[1], tsh_t.shape[1], ssh_t.shape[1])
     nb = max(1, _PLAIN_MAX_ELEMS // (TILE_PIX * k_max))
     shared_sh = cfg["projective"]  # one shadow table for every tile
-    for tb in nonempty.split(nb):
+    # (split gives one empty batch for an empty list: a frame with no candidate)
+    for tb in nonempty.split(nb) if nonempty.numel() else ():
         ty = tb // ntx
         tx = tb - ty * ntx
         x = ((tx * TILE_W).to(torch.float32)[:, None] + lx)[:, None, :]
@@ -803,27 +804,39 @@ def soft_tiled_fwd(params, taus, tables, counts, *, cfg) -> torch.Tensor:
     """B4, the tiled soft forward -> (H, W, 4) float32. CUDA tensors launch
     kernels/csrc/soft_tiled.cu (built on first use) or raise; CPU tensors
     run `_soft_tiled_plain` without autograd."""
-    global FWD_LAUNCHES
     dev = params.device
     if dev.type == "cpu":
         with torch.no_grad():
             return _soft_tiled_plain(params, taus, tables, counts, cfg=cfg)
     if dev.type != "cuda":
         raise ValueError(f"soft_tiled_fwd runs on cuda or cpu tensors, got {dev}")
+    return _soft_tiled_fwd_cuda(params, taus, tables, counts, cfg)[0]
+
+
+def _soft_tiled_fwd_cuda(params, taus, tables, counts, cfg):
+    """Launch B4 on CUDA tensors -> (frame, tiles). `tiles` is the int32
+    list of non-empty tiles that the kernel's blocks build from `counts`
+    (kernels/csrc/tile_list.cuh): tiles[0] their number, tiles[2 : 2 +
+    tiles[0]] the tiles in ascending order (`fwd_tiled._live_tiles` is its
+    plain version), then the empty ones."""
+    global FWD_LAUNCHES
+    dev = params.device
     _check_inputs(params, taus, tables, counts, cfg)
     from opencl_ray_tracer_tpu_torch.kernels._build import load_library
 
     lib = load_library()
     out = torch.empty((cfg["height"], cfg["width"], 4), dtype=torch.float32,
                       device=dev)
+    tiles = torch.empty(2 + cfg["nty"] * cfg["ntx"], dtype=torch.int32, device=dev)
     ptrs, ints = _launch_args(params, taus, tables, counts, cfg)
+    p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.octrt_soft_tiled_fwd(*ptrs, ctypes.c_void_p(out.data_ptr()),
-                                      *ints, ctypes.c_void_p(stream))
+        rc = lib.octrt_soft_tiled_fwd(*ptrs, p(out), p(tiles), *ints,
+                                      ctypes.c_void_p(stream))
     _raise_on(rc, "soft_tiled forward")
     FWD_LAUNCHES += 1
-    return out
+    return out, tiles
 
 
 def _live_patches(g, counts, *, cfg):

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Times of the port's hand-written kernels alone on one NVIDIA card: the
-tiled soft backward B5 (`soft_tiled_bwd`), the brute hard kernel B3
-(`brute_kernel`) and the brute soft forward and backward B6 / B7
-(`soft_brute_fwd`, `soft_brute_bwd`), for whichever
+tiled hard kernel B1/B2 (`tiled_kernel`, packed and float output), the
+tiled soft forward B4 (`soft_tiled_fwd`) and backward B5 (`soft_tiled_bwd`),
+the brute hard kernel B3 (`brute_kernel`) and the brute soft forward and
+backward B6 / B7 (`soft_brute_fwd`, `soft_brute_bwd`), for whichever
 `opencl_ray_tracer_tpu_torch` is first on PYTHONPATH:
 
-    PYTHONPATH=. python scripts/torch_kernel_times.py [--check] [--kernel B5|B3|B6|B7]
+    PYTHONPATH=. python scripts/torch_kernel_times.py [--check] [--kernel B1|B4|B5|B3|B6|B7]
 
 (`--kernel B6` and `--kernel B7` both run the brute soft pair: they share
 their inputs.) Each row holds `ms`, back to back per launch (CUDA events
@@ -16,7 +17,15 @@ the other tree into a directory and run the script once per tree, in turns
 on one card (other, this, this, other); the timing helpers are always those
 of the tree this script lies in, so both trees are timed by the same code.
 
-B5 inputs: the 1080p headline scene (10 spheres + 1 cube, phong + soft
+B1 inputs: the 1080p headline frame (10 spheres + 1 cube, phong + hard
+shadows, legacy ortho camera) with packed and with float (B2) output, the
+same frame in legacy shading, the same through a pinhole camera, scene 3
+(1,300 primitives) at 640x480 in phong + shadows, and the 640x480 frame of
+the entry point (scene 1, phong + shadows). B4 inputs: the 1080p headline
+scene's soft tables in the four shading modes of `chip_smoke.py` phase 7
+(legacy, lambert, lambert + soft shadows, phong + soft shadows: the train
+step's), phong + soft shadows through a pinhole camera, and scene 3 at
+640x480. B5 inputs: the 1080p headline scene (10 spheres + 1 cube, phong + soft
 shadows, the train step's tables) with the train step's own cotangent
 (non-zero on the covered pixels only), with zeros and with 1e-6 on every
 pixel; the same scene through a pinhole camera; scene 3 (1,300 primitives)
@@ -27,7 +36,11 @@ at 640x480, phong + shadows. B6 / B7 inputs: the 1080p headline scene with
 the cotangent of mean(img^2), 1e-6 on every pixel and zeros; scene 3 at
 256x128 (B7, all three) and 640x480 (B6).
 
-`--check` also holds each kernel against its plain twin: B5 on the inputs
+`--check` also holds each kernel against its plain twin: B1/B2 on the
+inputs above (packed words within 1 per byte, float within 0.5/255, and the
+share of identical pixels), B4 on the inputs above (the largest error,
+bar 0.05/255), and, where the package builds one, the card's list of
+non-empty tiles against its plain version; B5 on the inputs
 above (every gradient normalised by its largest; exact zeros for the
 all-zero cotangent; the card's live list against `_live_patches`), B3 on
 the inputs above (the largest error and the share of identical pixels), B7
@@ -44,7 +57,7 @@ import sys
 import torch
 
 import opencl_ray_tracer_tpu_torch as T
-from opencl_ray_tracer_tpu_torch.kernels import _build, fwd
+from opencl_ray_tracer_tpu_torch.kernels import _build, fwd, fwd_tiled
 from opencl_ray_tracer_tpu_torch.kernels import soft as B
 from opencl_ray_tracer_tpu_torch.kernels import soft_tiled as S
 
@@ -90,6 +103,90 @@ def scenes(dev):
                              fov_degrees=50.0, width=1920, height=1080, device=dev),
             T.random_scene(10, 1, seed=0, bounds=(1910.0, 1070.0), device=dev),
             T.create_scene(3, seed=0, device=dev))
+
+
+# ---- B1 / B2 ------------------------------------------------------------------
+
+def b1_rows(dev, check):
+    ortho, pin, head, scene3 = scenes(dev)
+    entry = T.create_scene1(device=dev)
+    for name, scene, cam, (w, h), shading, shadows, fmt in (
+        ("headline 1080p phong+shadows packed", head, ortho, (1920, 1080), "phong", True, "packed"),
+        ("headline 1080p phong+shadows float", head, ortho, (1920, 1080), "phong", True, "float"),
+        ("headline 1080p legacy packed", head, ortho, (1920, 1080), "legacy", False, "packed"),
+        ("headline 1080p pinhole phong+shadows packed", head, pin, (1920, 1080), "phong", True,
+         "packed"),
+        ("scene3 640x480 phong+shadows packed", scene3, ortho, (640, 480), "phong", True, "packed"),
+        ("entry 640x480 scene1 phong+shadows packed", entry, ortho, (640, 480), "phong", True,
+         "packed"),
+    ):
+        cfg = T.RenderConfig(width=w, height=h, shading=shading, shadows=shadows,
+                             framebuffer_dtype=fmt)
+        packed = scene.pack()
+        bins = fwd_tiled.bin_for_config(packed, cam, cfg)
+        args, kw = fwd_tiled.kernel_inputs(packed, cam, bins, height=h, width=w, shading=shading,
+                                   shadows=shadows, out_format=fmt)
+        counts = args[1]
+        fn = lambda: fwd_tiled.tiled_kernel(*args, **kw)  # noqa: E731
+        row = dict(kernel="B1" if fmt == "packed" else "B2", case=name,
+                   **timed(fn, 50 if name.startswith("headline") else 20),
+                   tiles=int(counts.shape[0]),
+                   nonempty_tiles=int(((counts[:, 0] + counts[:, 1]) > 0).sum()),
+                   k_tri=args[2].shape[1], k_sph=args[4].shape[1])
+        if check:
+            got, want = fn(), fwd_tiled._tiled_kernel_plain(*args, **kw)
+            if fmt == "packed":
+                a = got.view(torch.uint8).reshape(h, w, 4).int()
+                b = want.view(torch.uint8).reshape(h, w, 4).int()
+                err = (a - b).abs().amax(-1)
+            else:
+                err = (got - want).abs().amax(-1)
+            row["max_err_vs_twin"] = err.max().item()
+            row["identical"] = (err == 0).float().mean().item()
+            if hasattr(fwd_tiled, "_tiled_kernel_cuda"):
+                tiles = fwd_tiled._tiled_kernel_cuda(*args, **kw)[1]
+                row["list_equals_plain"] = _list_equals(tiles, fwd_tiled._live_tiles(counts))
+        say(**row)
+
+
+def _list_equals(live, want):
+    """A card's list (live[0] entries from live[2], in any order) against its
+    plain version (sorted)."""
+    n = int(live[0])
+    return n == want.numel() and bool(torch.equal(live[2:2 + n].sort().values.long(), want))
+
+
+# ---- B4 -----------------------------------------------------------------------
+
+def b4_rows(dev, check):
+    ortho, pin, head, scene3 = scenes(dev)
+    cases = [(f"train1080 ortho {sh}{'+shadows' if sd else ''}", head, ortho, (1920, 1080),
+              sh, sd)
+             for sh, sd in (("legacy", False), ("lambert", False), ("lambert", True),
+                            ("phong", True))]
+    cases += [("train1080 pinhole phong+shadows", head, pin, (1920, 1080), "phong", True),
+              ("scene3 640x480 phong+shadows", scene3, ortho, (640, 480), "phong", True)]
+    for name, scene, cam, (w, h), shading, shadows in cases:
+        cfg = soft_cfg(w, h).replace(shading=shading, shadows=shadows)
+        with torch.no_grad():
+            params, taus, tables, counts, kc = S.soft_kernel_inputs(scene.pack(), cam, cfg)
+        fn = lambda: S.soft_tiled_fwd(params, taus, tables, counts, cfg=kc)  # noqa: E731
+        row = dict(kernel="B4", case=name,
+                   **timed(fn, 50 if name.startswith("train") else 20),
+                   tiles=int(counts.shape[0]),
+                   nonempty_tiles=int(((counts[:, 0] + counts[:, 1]) > 0).sum()),
+                   k_tri=tables[0].shape[1], k_sph=tables[2].shape[1],
+                   sh_rows=(tables[4].shape[1], tables[5].shape[1]))
+        if check:
+            got = fn()
+            with torch.no_grad():
+                want = S._soft_tiled_plain(params, taus, tables, counts, cfg=kc)
+            row["max_err_vs_twin"] = (got - want).abs().max().item()
+            row["covered"] = (got[..., :3] != 0).any(-1).float().mean().item()
+            if hasattr(S, "_soft_tiled_fwd_cuda"):
+                tiles = S._soft_tiled_fwd_cuda(params, taus, tables, counts, kc)[1]
+                row["list_equals_plain"] = _list_equals(tiles, fwd_tiled._live_tiles(counts))
+        say(**row)
 
 
 # ---- B5 ---------------------------------------------------------------------
@@ -247,8 +344,8 @@ def brute_soft_rows(dev, check):
 def main():
     check = "--check" in sys.argv
     only = sys.argv[sys.argv.index("--kernel") + 1] if "--kernel" in sys.argv else None
-    if only not in (None, "B5", "B3", "B6", "B7"):
-        sys.exit(f"--kernel takes B5, B3, B6 or B7, got {only}")
+    if only not in (None, "B1", "B2", "B4", "B5", "B3", "B6", "B7"):
+        sys.exit(f"--kernel takes B1, B4, B5, B3, B6 or B7, got {only}")
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -256,8 +353,11 @@ def main():
     _build.load_library()
     say(card=smi, package=T.__file__, ptxas=[
         ln.strip() for ln in _build.BUILD_LOG.splitlines()
-        if ("Compiling" in ln and any(k in ln for k in ("soft_bwd", "fwd_brute", "soft_brute")))
-        or ("registers" in ln and "Used" in ln) or "spill" in ln])
+        if "Compiling" in ln or ("registers" in ln and "Used" in ln) or "spill" in ln])
+    if only in (None, "B1", "B2"):
+        b1_rows(dev, check)
+    if only in (None, "B4"):
+        b4_rows(dev, check)
     if only in (None, "B5"):
         b5_rows(dev, check)
     if only in (None, "B3"):

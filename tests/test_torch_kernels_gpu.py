@@ -98,6 +98,102 @@ def test_wrapper_rejects_bad_inputs(cuda_device):
         fwd_tiled.tiled_kernel(*args, **{**kw, "width": W + 256})
 
 
+# B1/B2 launch blocks only for the tiles that the card lists as non-empty
+# (the empty ones are filled with the background): a frame with no
+# candidate, a frame whose every tile holds candidates (scene 3), and a
+# 100x70 frame, which is not a whole tile.
+def _tile_list_scene(device, kind):
+    import dataclasses
+
+    if kind == "full":
+        return T.create_scene(3, seed=0, device=device), W, H
+    scene = T.create_scene1(device=device)
+    if kind == "empty":  # every primitive beyond the frame's right edge
+        shift = torch.tensor([5000.0, 0.0, 0.0], device=device)
+        scene = dataclasses.replace(scene, sphere_origin=scene.sphere_origin + shift,
+                                    tri_verts=scene.tri_verts + shift)
+        return scene, W, H
+    return scene, 100, 70
+
+
+def _assert_list(tiles, counts):
+    want = fwd_tiled._live_tiles(counts)
+    assert tiles[0].item() == want.numel()
+    assert torch.equal(tiles[2:2 + want.numel()].sort().values.long(), want)
+
+
+@pytest.mark.parametrize("kind", ["empty", "full", "ragged"])
+@pytest.mark.parametrize("cam_kind,shading,shadows,fmt",
+                         [("ortho", "phong", True, "packed"),
+                          ("ortho", "phong", True, "float"),
+                          ("pinhole", "legacy", False, "packed")])
+def test_kernel_tile_list(cuda_device, kind, cam_kind, shading, shadows, fmt):
+    scene, w, h = _tile_list_scene(cuda_device, kind)
+    cam = (T.legacy_ortho_camera(device=cuda_device) if cam_kind == "ortho" else
+           T.pinhole_camera((w / 2.0, h / 2.0, 60.0), (w / 2.0, h / 2.0, -85.0),
+                            fov_degrees=80.0, width=w, height=h, device=cuda_device))
+    cfg = T.RenderConfig(width=w, height=h, shading=shading, shadows=shadows,
+                         framebuffer_dtype=fmt)
+    packed = scene.pack()
+    bins = fwd_tiled.bin_for_config(packed, cam, cfg)
+    args, kw = fwd_tiled.kernel_inputs(packed, cam, bins, height=h, width=w,
+                                       shading=shading, shadows=shadows,
+                                       out_format=fmt)
+    got, tiles = fwd_tiled._tiled_kernel_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_list(tiles, args[1])
+    n_live = tiles[0].item()
+    if kind == "empty":
+        assert n_live == 0
+    if kind == "full":
+        assert n_live == args[1].shape[0]
+    want = fwd_tiled._tiled_kernel_plain(*args, **kw)
+    if fmt == "packed":
+        err = np.abs(unpack_words(got).astype(np.int32)
+                     - unpack_words(want).astype(np.int32)).max(axis=-1)
+        assert err.max() <= 1 and (err == 0).mean() >= 0.995
+        if kind == "empty":
+            assert bool((got == -16777216).all())  # 0xFF000000
+    else:
+        assert (got - want).abs().max().item() < 0.5
+        if kind == "empty":
+            bg = torch.tensor([0.0, 0.0, 0.0, 255.0], device=cuda_device)
+            assert bool((got == bg).all())
+
+
+# Tables wider than the 48 KB in which B1/B2 stage a tile's rows: scene 3
+# with two lights (128 + 104 candidates and 512 + 208 occluders a tile, 60
+# KB) reads them through L1.
+@pytest.mark.parametrize("fmt", ["packed", "float"])
+def test_kernel_rows_through_l1(cuda_device, fmt):
+    import dataclasses
+
+    scene = T.create_scene(3, seed=0, device=cuda_device)
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=cuda_device)  # noqa: E731
+    scene = dataclasses.replace(scene, lights=dataclasses.replace(
+        scene.lights, position=f32([[200.0, 100.0, 200.0], [250.0, 10.0, 180.0]]),
+        colour=f32([[1.0, 1.0, 1.0], [1.0, 0.6, 0.3]]), intensity=f32([1.0, 0.5])))
+    cam = T.legacy_ortho_camera(device=cuda_device)
+    cfg = T.RenderConfig(width=W, height=H, shading="phong", shadows=True,
+                         framebuffer_dtype=fmt)
+    packed = scene.pack()
+    bins = fwd_tiled.bin_for_config(packed, cam, cfg)
+    args, kw = fwd_tiled.kernel_inputs(packed, cam, bins, height=H, width=W,
+                                       shading="phong", shadows=True, out_format=fmt)
+    rows = sum(args[i].shape[1] for i in (2, 4, 6, 7))
+    assert rows * 64 > 48 * 1024
+    got, tiles = fwd_tiled._tiled_kernel_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_list(tiles, args[1])
+    want = fwd_tiled._tiled_kernel_plain(*args, **kw)
+    if fmt == "packed":
+        err = np.abs(unpack_words(got).astype(np.int32)
+                     - unpack_words(want).astype(np.int32)).max(axis=-1)
+        assert err.max() <= 1 and (err == 0).mean() >= 0.995
+    else:
+        assert (got - want).abs().max().item() < 0.5
+
+
 # ---- the soft kernels B4 (forward) and B5 (backward) ----------------------
 # Bars (chip_smoke.py phase 7): images within 0.05/255 on every pixel; every
 # scene leaf's gradient of mean(img[..., :3]**2) within 1e-3 of the twin's,
@@ -219,6 +315,46 @@ def test_soft_pixel_gradient_probes(cuda_device, yy, xx, c):
     for want in (row(_twin), row(render_soft)):
         err = max((a - b).abs().max().item() for a, b in zip(got, want))
         assert err <= 1e-4, err
+
+
+# B4 launches blocks only for the tiles that the card lists as non-empty:
+# a frame with no candidate, every tile live (scene 3 at 640x480), a 100x70
+# frame, and two and three lights (the build that reads the light count at
+# run time; one light has a build of its own).
+@pytest.mark.parametrize("scene_name,kind,shading,shadows",
+                         [("test", "empty", "phong", True),
+                          ("scene3", "full", "phong", True),
+                          ("test", "ragged", "phong", True),
+                          ("test", "ragged", "legacy", False),
+                          ("two_lights", "ragged", "phong", True),
+                          ("three_lights", "ragged", "lambert", True)])
+def test_soft_tiled_fwd_tile_list(cuda_device, scene_name, kind, shading, shadows):
+    import dataclasses
+
+    S, scene, cam, cfg = _soft_case(cuda_device, scene_name, "ortho", shading,
+                                    shadows)
+    w, h = {"empty": (SOFT_W, SOFT_H), "full": (640, 480), "ragged": (100, 70)}[kind]
+    cfg = cfg.replace(width=w, height=h)
+    if kind == "empty":  # every primitive beyond the frame's right edge
+        shift = torch.tensor([5000.0, 0.0, 0.0], device=cuda_device)
+        scene = dataclasses.replace(scene, sphere_origin=scene.sphere_origin + shift,
+                                    tri_verts=scene.tri_verts + shift)
+    with torch.no_grad():
+        params, taus, tables, counts, kc = S.soft_kernel_inputs(scene.pack(), cam, cfg)
+        before = S.FWD_LAUNCHES
+        got, tiles = S._soft_tiled_fwd_cuda(params, taus, tables, counts, kc)
+        torch.cuda.synchronize()
+        assert S.FWD_LAUNCHES == before + 1
+        _assert_list(tiles, counts)
+        if kind == "empty":
+            bg = torch.tensor([0.0, 0.0, 0.0, 255.0], device=cuda_device)
+            assert tiles[0].item() == 0 and bool((got == bg).all())
+            return
+        if kind == "full":
+            assert tiles[0].item() == counts.shape[0]
+        want = S._soft_tiled_plain(params, taus, tables, counts, cfg=kc)
+    assert (got[..., :3] != 0).any(), "the camera sees nothing"
+    assert (got - want).abs().max().item() < 0.05
 
 
 # B5 and its cotangent (250x123: ragged right and bottom tiles): it walks
