@@ -88,19 +88,35 @@ differentiable) — through the entry points a user calls, and fails
    scene 3 at 640x480, each beside its own bound and the time of the
    kernels before their redesign;
    then `python -m opencl_ray_tracer_tpu_torch.bench` as a subprocess, whose
-   exit code and JSON line are checked.
+   exit code, 13 rows (device_ms > 0, the K caps of every tiled row) and
+   JSON keys are checked;
+13. the configurations new to the card, through their entry points first
+   (launches counted): the bench's dynamic frame (the headline frame
+   through its pinhole camera, re-binned in the call) against the frame
+   with precomputed bins, word for word; B1 on the 1080p stress frame
+   (random_scene(100, 100), cull_k=96; legacy packed and phong + shadows
+   float) and the 4K frame (1,020 tiles) against the twin on every pixel,
+   with the final K caps, the live tiles and the card's tile list; B4 on
+   the stress soft frame (cull_k=96, shadow_cull_k=136) within 0.05/255,
+   and B5's leaf gradients of its step within 1e-3 normalised of the
+   twin's, at 1080p if the twin's autograd fits the card, else the largest
+   size that does; render(backend="xla") on the 1080p headline frame
+   (phong + shadows float, legacy int) against the oracle and B1, and
+   `cli render --backend xla`, whose PNG must be that frame.
 
 Hard kernel vs twin is bounded on every pixel: float frames within 0.5/255,
 packed and int frames within one step of 1/255 (and identical on >= 99.5%
 of pixels).
 
-The second-to-last stdout line is {"kernels": [...]}: per kernel its
-launches on its main path, its error against the twin, its time (ms: per
+The second-to-last stdout line is {"kernels": [...]}: per kernel (B1 and its
+float output B2 as two entries) its launches on its main paths (per path in
+`launches_by_path`), its error against the twin, its time (ms: per
 call with the wrapper, or, where `ms_is` says so, device time per launch
 behind a spin), the twin's (plain_ms), and bound_ms, the least time the
 card could take for the same work: the larger of the bytes it must move
 (each input read once, each output written once) over the card's memory
-rate and the operations these inputs need over its peak float32 rate (see `_OPS`, `_OPS_BWD`: a soft
+rate and the operations these inputs need over its peak float32 rate (the
+counts and bounds of opencl_ray_tracer_tpu_torch/utils/profiling.py: a soft
 pixel that no primitive covers needs no shading, a pixel whose cotangent is
 zero needs no backward, and the tiled soft kernels need neither the rows nor
 the cotangent of an empty tile). A launch of soft_brute_fwd / soft_brute_bwd is one
@@ -131,144 +147,6 @@ def _time_ms(fn, n, warmup=3):
 
 
 BACKGROUND = -16777216  # 0xFF000000 as int32: opaque black, no hit
-
-# Published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside the
-# tensor cores, and device memory.
-PEAK_FP32 = 67e12
-PEAK_HBM = 3.35e12
-
-# Operations per unit of work, counted from the expressions of the kernels'
-# sources: every add, multiply, compare, select, min/max counts 1, and so
-# does every divide, sqrt, exp, log and log1p (a floor: those take several
-# instruction slots). Reductions across threads are not counted: the
-# function does not need them.
-_OPS = {
-    # hard tests (fwd_tiled.cu, fwd_brute.cu), the nearest-hit update included
-    "tri_affine": 19, "sph_affine": 22, "tri_general": 53, "sph_general": 23,
-    "sh_tri_planes": 76, "sh_sph": 24,
-    # hard shading: hit point, normal, view vector; then per light
-    "shade_fixed": 40, "shade_light": 45,
-    # soft candidates (soft_tiled.cuh): test, three or two sigmoids, rank,
-    # the online max and the aggregate sums
-    "soft_tri_affine": 77, "soft_sph_affine": 100,
-    "soft_tri_general": 120, "soft_sph_general": 101,
-    "occ_tri": 87, "occ_sph": 64,
-    # soft per-pixel finish: aggregate geometry, then shading per light
-    "soft_finish": 60, "soft_light": 70,
-}
-# The reverse of each soft unit above, counted the same way from the
-# hand-written reverses of soft_tiled.cuh (tri_bwd / sph_bwd / tri_sh_bwd /
-# sph_sh_bwd with bary_bwd, sph_cov_t_bwd and cross_bwd, cand_bwd, occ_bwd,
-# shade_agg_bwd + geom_bwd + ctx_bwd): only the expressions that produce a
-# cotangent. What a reverse recomputes of its forward (the sigmoids, u, v,
-# the ray geometry) is not counted again: a backward needs one forward, the
-# unit above, plus this.
-_OPS_BWD = {
-    "soft_tri_affine": 120, "soft_sph_affine": 169,
-    "soft_tri_general": 225, "soft_sph_general": 176,
-    "occ_tri": 189, "occ_sph": 119,
-    "soft_finish": 239, "soft_light": 171,
-}
-
-
-def _bound(ops, nbytes):
-    """(bound_ms, bound_by): the larger of operations over the peak float32
-    rate and bytes over the peak memory rate."""
-    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_HBM * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
-
-
-def _nbytes(*tensors):
-    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
-
-
-def _per_tile(mask, nty, ntx):
-    """Per-tile sums of a (H, W) pixel mask, (nty * ntx,) int64."""
-    import torch
-
-    h, w = mask.shape
-    full = torch.zeros((nty * 64, ntx * 128), dtype=torch.int64, device=mask.device)
-    full[:h, :w] = mask
-    return full.reshape(nty, 64, ntx, 128).sum((1, 3)).reshape(-1)
-
-
-def _soft_covered(packed, cam, tau_e, h, w):
-    """(H, W) bool: the pixels whose soft coverage 1 - w_bg is not exactly
-    zero in float32, w_bg = prod(1 - cov) over every primitive. Every other
-    pixel of a soft frame is 0 whatever its shading and shadows are, so only
-    these need the finish, the per-light shading and the occluder walks."""
-    import torch
-
-    from opencl_ray_tracer_tpu_torch.kernels import soft as B
-
-    with torch.no_grad():
-        pv = list(B._camera_params(cam, packed.lights))
-        tri_geo, _, sph_geo, _ = B._prep_soft_arrays(packed)
-        te = torch.tensor(tau_e, dtype=torch.float32, device=packed.device)
-        tests = ([(B._tri_chunk_soft, tri_geo, c)
-                  for c in range(-(-packed.n_tris // B.CK))]
-                 + [(B._sph_chunk_soft, sph_geo, c)
-                    for c in range(-(-packed.n_spheres // B.CK))])
-        out = []
-        for p0 in range(0, h * w, 65536):
-            flat = torch.arange(p0, min(p0 + 65536, h * w), device=packed.device)
-            yi = flat // w
-            x = (flat - yi * w).to(torch.float32)[:, None]
-            o, d = B._ray_bundle(pv, x, yi.to(torch.float32)[:, None], cam.normalize)
-            bacc = torch.zeros_like(x)
-            for test, geo, c in tests:
-                cov = test(geo, c, o, d, te)[1]
-                bacc = bacc + torch.log1p(-cov.clamp(0.0, 1.0 - 1e-6)).sum(1, keepdim=True)
-            out.append(1.0 - torch.exp(bacc) != 0.0)
-        return torch.cat(out).reshape(h, w)
-
-
-def _b1_bound(fwd_tiled, args, kw):
-    """B1's bound (B2's for a float frame) from one frame's data: (bound_ms,
-    bound_by, operations, lit pixels, occluded pixels). Every pixel of a
-    non-empty tile tests the tile's primary candidates; a lit pixel is
-    shaded once per light; an unoccluded lit pixel tests all of its tile's
-    shadow candidates, an occluded one (it differs from the frame rendered
-    without shadows) needs one test. (A pinhole frame is counted with the
-    affine tests' operations: a floor.) Bytes, each read or written once:
-    params, the counts, the real rows of the non-empty tiles (16 + 8 floats
-    a candidate, 16 an occluder; a pinhole frame's occluder rows are one
-    table for all tiles, read once), and the frame: 4 B a pixel packed, 16
-    B float."""
-    import torch
-
-    h, w = kw["height"], kw["width"]
-    counts = args[1]
-    cnt = counts.long()
-    nty, ntx = cnt.shape[0] // kw["ntx"], kw["ntx"]
-    fkw = {**kw, "out_format": "float"}
-    frame = fwd_tiled.tiled_kernel(*args, **fkw)
-    nonempty = (cnt[:, 0] + cnt[:, 1]) > 0
-    inside = _per_tile(torch.ones((h, w), dtype=torch.bool, device=frame.device),
-                       nty, ntx)
-    ops = (inside * nonempty * (cnt[:, 0] * _OPS["tri_affine"]
-                                + cnt[:, 1] * _OPS["sph_affine"])).sum()
-    lit_mask = (frame[..., :3] > 0).any(-1)
-    lit_t = _per_tile(lit_mask, nty, ntx)
-    n_occ = 0
-    n_l = (cnt.shape[1] - 2) // 2
-    if kw["shading"] != "legacy":
-        ops = ops + lit_t.sum() * (_OPS["shade_fixed"] + n_l * _OPS["shade_light"])
-        if kw["shadows"]:
-            unshadowed = fwd_tiled.tiled_kernel(*args, **{**fkw, "shadows": False})
-            occluded = lit_mask & (frame != unshadowed).any(-1)
-            occ_t = _per_tile(occluded, nty, ntx)
-            n_occ = int(occluded.sum())
-            for li in range(n_l):
-                ops = ops + ((lit_t - occ_t) * (cnt[:, 2 + 2 * li] * _OPS["sh_tri_planes"]
-                                                + cnt[:, 3 + 2 * li] * _OPS["sh_sph"])).sum()
-                ops = ops + occ_t.sum() * _OPS["sh_sph"]
-    sh = cnt[:, 2:].sum(1)
-    sh = sh[:1] * nonempty.any() if kw["projective"] else sh * nonempty
-    nbytes = (_nbytes(args[0], counts) + int(((cnt[:, 0] + cnt[:, 1]) * nonempty).sum()) * 96
-              + int(sh.sum()) * 64 + h * w * (4 if kw["out_format"] == "packed" else 16))
-    return _bound(float(ops), nbytes) + (float(ops), int(lit_mask.sum()), n_occ)
-
 
 def _errors(got, want, fmt):
     """Per-pixel error, the largest over the four channels: bytes for
@@ -308,41 +186,6 @@ def _lit_agreement(got, want):
     return ok[lit].float().mean().item(), lit.float().mean().item()
 
 
-def _device_profile(fn, n):
-    """Device kernels per call, the device's busy share of the wall time
-    (the union of kernel intervals), device ms per call, and the six
-    kernel names with the most device time per call (ms), from a
-    torch.profiler trace of n calls."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    _require(spans, "the profiler saw no device work")
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us = e.time_range.end - e.time_range.start
-            by_name[e.name] = by_name.get(e.name, 0.0) + us
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return (len(spans) / n, busy / wall_us, busy / n / 1e3,
-            [(name[:60], us / n / 1e3) for name, us in top])
-
-
 def main() -> int:
     import torch
 
@@ -356,6 +199,7 @@ def main() -> int:
     from opencl_ray_tracer_tpu_torch.ops.shading import pack_framebuffer_words
     from opencl_ray_tracer_tpu_torch.ref import render_reference
     from opencl_ray_tracer_tpu_torch.utils import pack_rgba, read_png
+    from opencl_ray_tracer_tpu_torch.utils import profiling as P
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -483,7 +327,7 @@ def main() -> int:
             packed, ortho, bins, height=cfg.height, width=cfg.width,
             shading=cfg.shading, shadows=cfg.shadows, out_format="packed")
         twin = fwd_tiled._tiled_kernel_plain(*args, **kw)
-        _check_twin(f"[main] {label}: main path vs twin", out, twin, "packed")
+        perr = _check_twin(f"[main] {label}: main path vs twin", out, twin, "packed")
         # the same frame as float RGBA: kernel vs twin (max_abs_err), and
         # kernel vs the brute-force oracle (no culling, no tables), which may
         # break a last-bit tie the other way on a few edge pixels
@@ -508,20 +352,24 @@ def main() -> int:
         k_ms = _time_ms(lambda: fwd_tiled.tiled_kernel(*args, **kw), n)
         kf_ms = _time_ms(lambda: fwd_tiled.tiled_kernel(*fargs, **fkw), n)
         p_ms = _time_ms(lambda: fwd_tiled._tiled_kernel_plain(*args, **kw), 50)
+        pf_ms = _time_ms(lambda: fwd_tiled._tiled_kernel_plain(*fargs, **fkw), 50)
         f_ms = _time_ms(lambda: fwd_tiled.render_tiled(scene, ortho, cfg), n)
         for what, (med, lo, hi) in (("kernel", k_ms),
                                     ("kernel, float output", kf_ms),
                                     ("plain twin", p_ms),
+                                    ("plain twin, float output", pf_ms),
                                     ("whole render_tiled", f_ms)):
             print(f"[time] {label}: {what} median {med:.4f} ms "
                   f"[{lo:.4f}, {hi:.4f}] over >= 50 frames; {smi}")
         # B1's bound (packed) and B2's (float) from this frame's data
-        bound = _b1_bound(fwd_tiled, args, kw)
-        fbound = _b1_bound(fwd_tiled, fargs, fkw)
+        bound = P.b1_bound(args, kw)
+        fbound = P.b1_bound(fargs, fkw)
         print(f"[bound] {label}: B1 (packed) {bound[2]:.4e} operations, bound "
               f"{bound[0]:.5f} ms by {bound[1]}; B2 (float) bound {fbound[0]:.5f} "
               f"ms by {fbound[1]} ({bound[3]} lit, {bound[4]} occluded pixels)")
-        kernel_rows.append((label, k_ms, p_ms, ferr, bound))
+        kernel_rows.append(dict(label=label, k_ms=k_ms, kf_ms=kf_ms, p_ms=p_ms,
+                                pf_ms=pf_ms, perr=perr, ferr=ferr, bound=bound,
+                                fbound=fbound))
 
     # ---- 6. where the frame's time goes ------------------------------------
     # One loop times the stages of render_tiled back to back with CUDA
@@ -555,7 +403,7 @@ def main() -> int:
             f"{name} mean {statistics.fmean(v):.4f} median "
             f"{statistics.median(v):.4f}" for name, v in per.items())
         print(f"[stages] {label}, ms over 50 frames: {parts}; {smi}")
-        launches, busy, dev_ms, _ = _device_profile(
+        launches, busy, dev_ms, _ = P.device_profile(
             lambda: fwd_tiled.render_tiled(scene, ortho, cfg), 20)
         print(f"[stages] {label}: {launches:.1f} device kernels per frame, "
               f"device busy {busy:.4f} of the wall time ({dev_ms:.4f} ms of "
@@ -570,25 +418,47 @@ def main() -> int:
     brute_phase_hard_vs_twin(T, dev)            # 10
     brute_phase_soft_vs_twin(T, dev)            # 11
     brute_rows = brute_phase_full_size(T, dev, smi)  # 12
+    new = new_sizes_phase(T, dev, smi)          # 13
+    for row, key in zip(soft_rows, ("B4", "B5")):
+        row["launches_by_path"] = {"phase 9": row["launches"], "phase 13": new[key]}
+        row["launches"] += new[key]
 
-    label, k_ms, p_ms, ferr, bound = kernel_rows[0]
+    hl = kernel_rows[0]
     print(smi)  # name, power limit exactly as nvidia-smi gives them
+    src = "opencl_ray_tracer_tpu_torch/kernels/csrc/fwd_tiled.cu"
+    spin = "device time per launch, behind a spin (per call with the wrapper: "
     print(json.dumps({"kernels": [{
         "name": "fwd_tiled",
         "route": "cuda",
-        "source": "opencl_ray_tracer_tpu_torch/kernels/csrc/fwd_tiled.cu",
+        "source": src,
         "replaces": "opencl_ray_tracer_tpu/kernels/fwd_tiled.py:514",
-        "launches": main_launches,
-        "max_abs_err": ferr,
-        "tolerance": "every pixel: float within 0.5/255 of the twin, "
-                     "packed bytes within 1; packed identical on >= 99.5%",
-        "shape": label,
+        "launches": main_launches + new["B1"],
+        "launches_by_path": {"phase 5": main_launches, "phase 13": new["B1"]},
+        "max_abs_err": hl["perr"],
+        "tolerance": "every pixel: packed bytes within 1 of the twin's, "
+                     "identical on >= 99.5%",
+        "shape": hl["label"],
         "ms": b1_ms["headline 1080p phong+shadows packed"],
-        "ms_is": "device time per launch, behind a spin (per call with the "
-                 f"wrapper: median {k_ms[0]:.4f} ms, the [time] line)",
-        "plain_ms": p_ms[0],
-        "bound_ms": bound[0],
-        "bound_by": bound[1],
+        "ms_is": spin + f"median {hl['k_ms'][0]:.4f} ms, the [time] line)",
+        "plain_ms": hl["p_ms"][0],
+        "bound_ms": hl["bound"][0],
+        "bound_by": hl["bound"][1],
+        "library_ms": None,
+    }, {
+        "name": "fwd_tiled (float output)",
+        "route": "cuda",
+        "source": src,
+        "replaces": "opencl_ray_tracer_tpu/kernels/fwd_tiled.py:1358",
+        "launches": new["B2"],
+        "launches_by_path": {"phase 13": new["B2"]},
+        "max_abs_err": hl["ferr"],
+        "tolerance": "every pixel within 0.5/255 of the twin",
+        "shape": hl["label"].replace("packed", "float"),
+        "ms": b1_ms["headline 1080p phong+shadows float"],
+        "ms_is": spin + f"median {hl['kf_ms'][0]:.4f} ms, the [time] line)",
+        "plain_ms": hl["pf_ms"][0],
+        "bound_ms": hl["fbound"][0],
+        "bound_by": hl["fbound"][1],
         "library_ms": None,
     }] + soft_rows + brute_rows}))
     # the smoke drives one card (cuda:0), whatever else is visible
@@ -623,6 +493,7 @@ def hard_tiled_redesign(T, dev, smi):
 
     from opencl_ray_tracer_tpu_torch.bench_util import back_to_back_ms, device_ms
     from opencl_ray_tracer_tpu_torch.kernels import fwd_tiled
+    from opencl_ray_tracer_tpu_torch.utils import profiling as P
 
     ortho = T.legacy_ortho_camera(device=dev)
     pin = T.pinhole_camera((960.0, 540.0, 1100.0), (960.0, 540.0, -60.0),
@@ -656,7 +527,7 @@ def hard_tiled_redesign(T, dev, smi):
         run = lambda: fwd_tiled.tiled_kernel(*args, **kw)  # noqa: E731
         n = 50 if w == 1920 else 20
         ms[what], b2b_ms = device_ms(run, n), back_to_back_ms(run, n)
-        bound_ms, by, n_ops, lit, occ = _b1_bound(fwd_tiled, args, kw)
+        bound_ms, by, n_ops, lit, occ = P.b1_bound(args, kw)
         before = B1_BEFORE[what]
         print(f"[redesign] B1/B2 {what}: {ms[what]:.4f} ms of device time per "
               f"launch, {b2b_ms:.4f} back to back with the wrapper (measured in this "
@@ -958,70 +829,6 @@ def soft_phase_golden(T, dev, gdir):
     _require(same >= 0.999, f"soft golden below its bar: {same}")
 
 
-def _tiled_soft_bounds(scene, cam, cfg, operands, g):
-    """(B4's bound, B5's bound for the cotangent g, pixels in non-empty
-    tiles, covered pixels, pixels with a cotangent), each bound with its
-    operations behind it; counted as `_brute_soft_bounds` counts. B4: every
-    pixel of a non-empty tile streams the tile's processed candidate rows;
-    only a covered pixel (1 - w_bg != 0) needs the finish, the shading and
-    the walk over the processed occluder rows of every light. B5: a pixel
-    whose cotangent is zero (or whose tile is empty) needs nothing; every
-    other needs its whole forward once and the reverse of its primary
-    tests; the reverse of the finish, the shading and the occluders only
-    where the pixel is covered. (A pinhole frame is counted with the affine
-    tests' operations: a floor.)
-
-    Bytes, each read or written once. Both read params, taus and the
-    counts. B4 reads the real rows (the counts') of its non-empty tiles and
-    writes the frame. B5 reads the cotangent in the non-empty tiles only
-    (an empty tile's gradient is zero whatever g holds there), the real
-    rows of the tiles that hold a non-zero cotangent, and writes every
-    gradient table, params and taus row once."""
-    import torch
-
-    from opencl_ray_tracer_tpu_torch.kernels import soft_tiled as S
-
-    params, taus, tables, counts, kc = operands
-    h, w = cfg.height, cfg.width
-    cnt = counts.long()
-    proc = (cnt + S.CH - 1) // S.CH * S.CH
-    nonempty = (cnt[:, 0] + cnt[:, 1]) > 0
-    covered_px = _soft_covered(scene.pack(), cam, cfg.tau_edge, h, w)
-    has_cot = (g[..., :3] != 0).any(-1)
-    per_tile = lambda m: _per_tile(m, kc["nty"], kc["ntx"]) * nonempty  # noqa: E731
-    live = per_tile(torch.ones((h, w), dtype=torch.bool, device=g.device))
-    covered, cot, both = per_tile(covered_px), per_tile(has_cot), per_tile(has_cot & covered_px)
-    n_l = kc["n_lights"]
-
-    def per_px(ops):
-        prim = proc[:, 0] * ops["soft_tri_affine"] + proc[:, 1] * ops["soft_sph_affine"]
-        rest = ops["soft_finish"] + n_l * ops["soft_light"]
-        for li in range(n_l):
-            rest = rest + (proc[:, 2 + 2 * li] * ops["occ_tri"]
-                           + proc[:, 3 + 2 * li] * ops["occ_sph"])
-        return prim, rest
-
-    def row_bytes(tiles):
-        """Bytes of the real rows of the tiles in the (n_tiles,) mask: 16 + 8
-        floats a candidate, 16 an occluder; a pinhole frame's occluder rows
-        are one table for all tiles, read once if any tile is in the mask."""
-        sh = cnt[:, 2:].sum(1)
-        sh = sh[:1] * tiles.any() if kc["projective"] else (sh * tiles).sum()
-        return int(((cnt[:, 0] + cnt[:, 1]) * tiles).sum()) * 96 + int(sh) * 64
-
-    prim_f, rest_f = per_px(_OPS)
-    prim_b, rest_b = per_px(_OPS_BWD)
-    ops_b4 = float((live * prim_f + covered * rest_f).sum())
-    ops_b5 = float((cot * (prim_f + rest_f + prim_b) + both * rest_b).sum())
-    small = _nbytes(params, taus, counts)
-    bytes_b4 = small + row_bytes(nonempty) + h * w * 16
-    bytes_b5 = (small + int(live.sum()) * 16 + row_bytes(cot > 0)
-                + _nbytes(params, taus, *tables))
-    return (_bound(ops_b4, bytes_b4) + (ops_b4,),
-            _bound(ops_b5, bytes_b5) + (ops_b5,),
-            int(live.sum()), int(covered.sum()), int(cot.sum()))
-
-
 # B4 before its redesign, device ms per launch behind a spin: RECORDED, not
 # measured in this run: the `device_ms` column of
 # scripts/torch_kernel_times.py --kernel B4 on the earlier tree (one thread a
@@ -1053,6 +860,7 @@ def soft_phase_train(T, dev, smi):
         make_train_step,
     )
     from opencl_ray_tracer_tpu_torch.parallel.train import trainable_scene
+    from opencl_ray_tracer_tpu_torch.utils import profiling as P
 
     w, h = 1920, 1080
     scene = T.random_scene(10, 1, seed=0, bounds=(1910.0, 1070.0), device=dev)
@@ -1153,7 +961,7 @@ def soft_phase_train(T, dev, smi):
         print(f"[time] train 1080p phong+shadows: {what} back to back "
               f"{back_to_back_ms(fn, 100):.4f} ms per launch over 100; {smi}")
     _train_stages(S, state, cam, cfg, loss_fn, smi)
-    kernels, busy, dev_ms, top = _device_profile(lambda: step(state, target), 10)
+    kernels, busy, dev_ms, top = P.device_profile(lambda: step(state, target), 10)
     print(f"[stages] train step 1080p: {kernels:.1f} device kernels per step, "
           f"device busy {busy:.4f} of the wall time ({dev_ms:.4f} ms of device "
           f"work per step), 10 traced steps; {smi}")
@@ -1161,7 +969,7 @@ def soft_phase_train(T, dev, smi):
           + "; ".join(f"{name} {ms:.4f}" for name, ms in top))
 
     # bounds from this step's tables and cotangent (`_tiled_soft_bounds`)
-    b4_bound, b5_bound, n_live, n_cov, n_cot = _tiled_soft_bounds(
+    b4_bound, b5_bound, n_live, n_cov, n_cot = P.tiled_soft_bounds(
         scene, cam, cfg, operands, g)
     print(f"[bound] train 1080p: {n_live} pixels in non-empty tiles, {n_cov} "
           f"covered, {n_cot} with a non-zero cotangent; B4 {b4_bound[2]:.4e} "
@@ -1213,7 +1021,7 @@ def soft_phase_train(T, dev, smi):
                      "[redesign] B5 with an all-zero cotangent is not exactly zero")
         run = lambda: S.soft_tiled_bwd(*ops_[:4], g_, cfg=ops_[4])  # noqa: E731
         ms, b2b_ms = device_ms(run, n), back_to_back_ms(run, n)
-        bound_ms, by, n_ops = _tiled_soft_bounds(sc_, cam_, cfg_, ops_, g_)[1]
+        bound_ms, by, n_ops = P.tiled_soft_bounds(sc_, cam_, cfg_, ops_, g_)[1]
         print(f"[redesign] {what}: {ms:.4f} ms of device time per launch, "
               f"{b2b_ms:.4f} back to back with the wrapper (measured in this run; "
               f"{n_patches} live patches, the card's list equals its plain "
@@ -1263,6 +1071,7 @@ def soft_tiled_fwd_redesign(scene, cam, pin, cfg, scene3, cfg3, smi):
 
     from opencl_ray_tracer_tpu_torch.bench_util import back_to_back_ms, device_ms
     from opencl_ray_tracer_tpu_torch.kernels import soft_tiled as S
+    from opencl_ray_tracer_tpu_torch.utils import profiling as P
 
     b4_ms = {}
     b4_cases = [(f"train1080 ortho {sh}{'+shadows' if sd else ''}", scene, cam,
@@ -1279,7 +1088,7 @@ def soft_tiled_fwd_redesign(scene, cam, pin, cfg, scene3, cfg3, smi):
         run = lambda: S.soft_tiled_fwd(*ops_[:4], cfg=ops_[4])  # noqa: E731
         n = 50 if what.startswith("train") else 20
         b4_ms[what], b2b_ms = device_ms(run, n), back_to_back_ms(run, n)
-        bound_ms, by, n_ops = _tiled_soft_bounds(sc_, cam_, cfg_, ops_,
+        bound_ms, by, n_ops = P.tiled_soft_bounds(sc_, cam_, cfg_, ops_,
                                                  torch.zeros_like(got))[0]
         before = B4_BEFORE[what]
         print(f"[redesign] B4 {what}: {b4_ms[what]:.4f} ms of device time per "
@@ -1525,39 +1334,6 @@ def _b7_vs_twin(label, inputs, g, skw, atol=1e-3):
                           dict(zip(_OPERANDS, want)), atol)
 
 
-def _brute_soft_bounds(scene, cam, cfg, inputs, g):
-    """(B6's bound, B7's bound for the cotangent g, covered pixels, pixels
-    with a cotangent). B6: every pixel streams every primitive; only a
-    covered pixel (1 - w_bg != 0: the others are 0 whatever their shading)
-    needs the finish, the shading and, per light, the walk over every
-    primitive as an occluder. B7: a pixel whose cotangent is zero needs
-    nothing; every other needs its whole forward once (d out / d w_bg is the
-    shaded colour) and the reverse of its primary tests; the reverse of the
-    finish, the shading and the occluders only where the pixel is covered
-    (elsewhere their cotangents are exactly zero)."""
-    packed = scene.pack()
-    n_t, n_s = packed.n_tris, packed.n_spheres
-    n_l = packed.lights.position.shape[0]
-    n_pix = cfg.height * cfg.width
-    covered = _soft_covered(packed, cam, cfg.tau_edge, cfg.height, cfg.width)
-    has_cot = (g[..., :3] != 0).any(-1)
-    n_cov, n_cot = int(covered.sum()), int(has_cot.sum())
-    n_both = int((covered & has_cot).sum())
-
-    def per_px(ops):
-        return (n_t * ops["soft_tri_general"] + n_s * ops["soft_sph_general"],
-                ops["soft_finish"] + n_l * ops["soft_light"]
-                + n_l * (n_t * ops["occ_tri"] + n_s * ops["occ_sph"]))
-
-    prim_f, rest_f = per_px(_OPS)
-    prim_b, rest_b = per_px(_OPS_BWD)
-    ops_b6 = n_pix * prim_f + n_cov * rest_f
-    ops_b7 = n_cot * (prim_f + rest_f + prim_b) + n_both * rest_b
-    in_bytes = _nbytes(*inputs)
-    return (_bound(ops_b6, in_bytes + n_pix * 16) + (ops_b6,),
-            _bound(ops_b7, 2 * in_bytes + n_pix * 16) + (ops_b7,), n_cov, n_cot)
-
-
 _CAMERA_LEAVES = ("o0", "dox", "doy", "d0", "ddx", "ddy")
 
 
@@ -1711,32 +1487,6 @@ def brute_phase_soft_vs_twin(T, dev):
           f"{worst_g:.2e}; {launched[0]} B6 and {launched[1]} B7 launches")
 
 
-def _b3_bound(fwd, args, kw):
-    """B3's bound for one frame, from its data: (bound_ms, bound_by,
-    operations, lit pixels, occluded pixels). Every pixel tests every real
-    primitive (the affine tests, or the general ones through a pinhole
-    camera); a lit pixel is shaded; an unoccluded lit pixel walks every
-    primitive per light (general tests), an occluded one (it differs from
-    the frame rendered without shadows) needs one test."""
-    frame = fwd.brute_kernel(*args, **kw)
-    n_pix = kw["height"] * kw["width"]
-    n_t, n_s = kw["n_tris"], kw["n_spheres"]
-    n_l = (args[0].numel() - 21) // 7
-    kind = "general" if kw["normalize_dir"] else "affine"
-    ops = n_pix * (n_t * _OPS[f"tri_{kind}"] + n_s * _OPS[f"sph_{kind}"])
-    lit_mask = (frame[..., :3] != 0).any(-1)
-    n_lit, n_occ = int(lit_mask.sum()), 0
-    if kw["shading"] != "legacy":
-        ops += n_lit * (_OPS["shade_fixed"] + n_l * _OPS["shade_light"])
-        if kw["shadows"]:
-            unshadowed = fwd.brute_kernel(*args, **{**kw, "shadows": False})
-            n_occ = int((lit_mask & (frame != unshadowed).any(-1)).sum())
-            ops += n_l * ((n_lit - n_occ) * (n_t * _OPS["tri_general"]
-                                             + n_s * _OPS["sph_general"])
-                          + n_occ * _OPS["sph_general"])
-    return _bound(ops, _nbytes(*args) + n_pix * 16) + (ops, n_lit, n_occ)
-
-
 def brute_phase_full_size(T, dev, smi):
     """Phase 12: the brute path at 1080p on the headline scene through its
     entry points, its kernels' times and bounds, and the port's bench."""
@@ -1747,6 +1497,7 @@ def brute_phase_full_size(T, dev, smi):
     from opencl_ray_tracer_tpu_torch.kernels import render_pallas_packed
     from opencl_ray_tracer_tpu_torch.kernels import soft as B
     from opencl_ray_tracer_tpu_torch.kernels import soft_tiled as S
+    from opencl_ray_tracer_tpu_torch.utils import profiling as P
 
     w, h = 1920, 1080
     n_pix = w * h
@@ -1924,9 +1675,9 @@ def brute_phase_full_size(T, dev, smi):
               f"[{lo:.4f}, {hi:.4f}], back to back {t100 / 100:.4f} ms; {smi}")
 
     # ---- bounds, from this run's data ----------------------------------------
-    b3_bound = _b3_bound(fwd, args_p, kw_p)
+    b3_bound = P.b3_bound(args_p, kw_p)
     ops_b3, n_lit, n_occ = b3_bound[2:]
-    b6_bound, b7_bound, n_cov, n_cot = _brute_soft_bounds(scene, cam, cfg_soft,
+    b6_bound, b7_bound, n_cov, n_cot = P.brute_soft_bounds(scene, cam, cfg_soft,
                                                           inputs, g)
     print(f"[bound] brute 1080p: B3 phong+shadows {ops_b3:.4e} operations "
           f"({n_lit} lit, {n_occ} occluded), bound {b3_bound[0]:.5f} ms by "
@@ -1948,13 +1699,13 @@ def brute_phase_full_size(T, dev, smi):
               "B7, scene 3 256x128": 10.5906}
     bounds = {
         "B6": b6_bound, "B7": b7_bound,
-        "B7, dense cotangent": _brute_soft_bounds(scene, cam, cfg_soft, inputs,
+        "B7, dense cotangent": P.brute_soft_bounds(scene, cam, cfg_soft, inputs,
                                                   dense_g)[1],
-        "B7, all-zero cotangent": _brute_soft_bounds(scene, cam, cfg_soft, inputs,
+        "B7, all-zero cotangent": P.brute_soft_bounds(scene, cam, cfg_soft, inputs,
                                                      zero_g)[1],
-        "B6, scene 3 640x480": _brute_soft_bounds(
+        "B6, scene 3 640x480": P.brute_soft_bounds(
             scene3, cam, cfg3_big, in3_big, torch.zeros((480, 640, 4), device=dev))[0],
-        "B7, scene 3 256x128": _brute_soft_bounds(scene3, cam, cfg3, in3, g3)[1],
+        "B7, scene 3 256x128": P.brute_soft_bounds(scene3, cam, cfg3, in3, g3)[1],
     }
     walked = [_live_count(f"[redesign] {what}",
                           B._soft_brute_bwd_cuda(ins, cot, kw_["height"],
@@ -2002,7 +1753,7 @@ def brute_phase_full_size(T, dev, smi):
         same = (got == want).all(-1).float().mean().item()
         run = lambda: fwd.brute_kernel(*args_, **kw_)  # noqa: E731
         ms, b2b_ms = device_ms(run, n), back_to_back_ms(run, n)
-        bound_ms, by, n_ops, lit_, occ_ = _b3_bound(fwd, args_, kw_)
+        bound_ms, by, n_ops, lit_, occ_ = P.b3_bound(args_, kw_)
         print(f"[redesign] {what}: {ms:.4f} ms of device time per launch, "
               f"{b2b_ms:.4f} back to back with the wrapper (measured in this run; "
               f"{same:.6f} of pixels bit-identical to the twin); recorded before "
@@ -2012,6 +1763,8 @@ def brute_phase_full_size(T, dev, smi):
               f"{ms / bound_ms:.1f}x over it; {smi}")
 
     # ---- the port's bench, as a user runs it ------------------------------------
+    from opencl_ray_tracer_tpu_torch import bench
+
     root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
     proc = subprocess.run(
@@ -2019,22 +1772,39 @@ def brute_phase_full_size(T, dev, smi):
         cwd=root, capture_output=True, text=True, timeout=600,
         env={**os.environ, "PYTHONPATH": root},
     )
-    print(proc.stderr.strip())
+    # each re-binning of an overflowing list logs a warning: count them
+    err_lines = proc.stderr.strip().splitlines()
+    rebins = [ln for ln in err_lines if "overflow: re-binning" in ln]
+    print("\n".join(ln for ln in err_lines if "overflow: re-binning" not in ln))
+    print(f"[bench] {len(rebins)} re-binning warnings on stderr"
+          + (f", the last: {rebins[-1]}" if rebins else ""))
     _require(proc.returncode == 0, f"the bench failed:\n{proc.stderr[-4000:]}")
     lines = proc.stdout.strip().splitlines()
     _require(len(lines) == 1, f"the bench printed {len(lines)} stdout lines")
     result = json.loads(lines[0])
     print(f"[bench] {lines[0]}")
     for key in ("metric", "value", "unit", "rows", "parity_pixel_grad_max_err",
-                "train_step_ms", "device"):
+                "train_step_ms", "device", "dynamic_frame_ms",
+                "stress_fwd_bwd_rays_per_s", "sol_fraction", "sol_bound",
+                "sol_fraction_bwd", "sol_bwd_bound"):
         _require(key in result, f"the bench's JSON line lacks {key!r}")
-    _require(len(result["rows"]) == 6 and all(
-        r["ms"] > 0 and r["ms_min"] <= r["ms"] <= r["ms_max"]
-        for r in result["rows"].values()), f"bad bench rows: {result['rows']}")
+    rows = result["rows"]
+    plan = bench.row_plan(bench.parse_args([]))
+    _require(list(rows) == plan and len(rows) == 13,
+             f"the bench's rows {list(rows)} are not its plan {plan}")
+    _require(all(r["ms"] > 0 and r["ms_min"] <= r["ms"] <= r["ms_max"]
+                 and r["device_ms"] > 0 and r["device_busy_ms"] > 0
+                 for r in rows.values()), f"bad bench rows: {rows}")
+    tiled = [lb for lb in plan if lb not in (bench.BRUTE_LEGACY, bench.TRAIN)]
+    _require(all("k" in rows[lb] and "shadow_k" in rows[lb] for lb in tiled),
+             "a tiled bench row lacks its final K caps")
+    _require(0 < result["sol_fraction"] <= 1 and 0 < result["sol_fraction_bwd"] <= 1,
+             "the bench's speed-of-light fractions are out of (0, 1]")
     _require(result["parity_legacy_frac_identical"] > 0.999
+             and result["parity_phong_frac_close"] >= 0.995
              and result["parity_pixel_grad_max_err"] <= 1e-4,
              "the bench's parity scalars are off their bars")
-    print(f"[bench] {len(result['rows'])} rows, headline {result['value']:.4e} "
+    print(f"[bench] {len(rows)} rows, headline {result['value']:.4e} "
           f"rays/s; {time.perf_counter() - t0:.1f} s with start-up")
 
     shape = "1920x1080 10sph+1cube, legacy ortho camera"
@@ -2074,6 +1844,238 @@ def brute_phase_full_size(T, dev, smi):
          "plain_ms": times["B7 twin (forward + autograd backward)"][0],
          "bound_ms": b7_bound[0], "bound_by": b7_bound[1], "library_ms": None},
     ]
+
+
+# ---------------------------------------------------------------------------
+# Configurations new to the card: the stress scenes, 4K, the dynamic frame
+# and the whole-frame xla backend
+# ---------------------------------------------------------------------------
+
+def _b1_case(label, scene, cam, cfg, smi):
+    """B1 (B2 for a float frame) on one frame at full size: the card's frame
+    against the twin on every pixel, its list of non-empty tiles against the
+    plain version, the final K caps, the device time per launch and the
+    bound."""
+    from opencl_ray_tracer_tpu_torch.bench_util import device_ms
+    from opencl_ray_tracer_tpu_torch.kernels import fwd_tiled
+    from opencl_ray_tracer_tpu_torch.utils import profiling as P
+
+    packed = scene.pack()
+    bins = fwd_tiled.bin_for_config(packed, cam, cfg)
+    fmt = cfg.framebuffer_dtype
+    args, kw = fwd_tiled.kernel_inputs(
+        packed, cam, bins, height=cfg.height, width=cfg.width,
+        shading=cfg.shading, shadows=cfg.shadows, out_format=fmt)
+    got, tiles = fwd_tiled._tiled_kernel_cuda(*args, **kw)
+    _check_twin(f"[new] {label}: B1 vs twin", got,
+                fwd_tiled._tiled_kernel_plain(*args, **kw), fmt)
+    n_live = _tile_list_vs_plain(f"[new] {label}", tiles, args[1])
+    ms = device_ms(lambda: fwd_tiled.tiled_kernel(*args, **kw), 20)
+    bound_ms, by, n_ops, lit, occ = P.b1_bound(args, kw)
+    rows = sum(args[i].shape[1] for i in (2, 4, 6, 7))
+    print(f"[new] {label}: final K caps k={max(bins.k_tri, bins.k_sph)} "
+          f"shadow_k={max(bins.k_sh_tri, bins.k_sh_sph)} (asked {cfg.cull_k}, "
+          f"{cfg.shadow_cull_k}); {rows} table rows a tile ({rows * 64} B; "
+          f"staged up to 48 KB, else read through L1); {n_live} of "
+          f"{args[1].shape[0]} tiles non-empty, the card's list equals "
+          f"fwd_tiled._live_tiles; {ms:.4f} ms of device time per launch, bound "
+          f"{bound_ms:.5f} ms by {by} ({n_ops:.4e} operations, {lit} lit, {occ} "
+          f"occluded), {ms / bound_ms:.1f}x over it; {smi}")
+
+
+def new_sizes_phase(T, dev, smi):
+    """Phase 13: the configurations that the bench now runs and that no
+    earlier phase ran at full size. First their main path, through the
+    entry points a user calls, with the launch counts set to 0 just before
+    and read just after: the dynamic frame (the headline frame through the
+    bench's pinhole camera, re-binned inside the call), the 1080p stress
+    and 4K frames through render(backend="pallas"), the headline frame as
+    float RGBA (B2), and the stress soft step forward + backward. Then each
+    against its plain twin or the oracle at the bars of PERF.md section 2:
+    B1 on the stress and 4K frames (every pixel; the K caps, the live tiles
+    and the card's tile list), B4 on the stress soft frame (0.05/255, full
+    size), B5's leaf gradients on the stress soft step (1e-3 normalised, at
+    the largest size whose twin fits the card), the dynamic frame against
+    render_tiled_packed with precomputed bins (identical words), and
+    render(backend="xla") on the 1080p headline frame against the oracle
+    and B1. Returns the launches of its main path per kernel."""
+    import torch
+
+    from opencl_ray_tracer_tpu_torch.bench_util import device_ms
+    from opencl_ray_tracer_tpu_torch.kernels import fwd_tiled
+    from opencl_ray_tracer_tpu_torch.kernels import soft_tiled as S
+    from opencl_ray_tracer_tpu_torch.models.renderer import render
+    from opencl_ray_tracer_tpu_torch.parallel.train import trainable_scene
+    from opencl_ray_tracer_tpu_torch.ref import render_reference
+    from opencl_ray_tracer_tpu_torch.utils import profiling as P
+
+    t_phase = time.perf_counter()
+    w, h = 1920, 1080
+    ortho = T.legacy_ortho_camera(device=dev)
+    pin = T.pinhole_camera((w / 2.0, h / 2.0, 900.0), (w / 2.0, h / 2.0, -85.0),
+                           fov_degrees=60.0, width=w, height=h, device=dev)
+    headline = T.random_scene(10, 1, seed=0, bounds=(1910.0, 1070.0), device=dev)
+    stress = T.random_scene(100, 100, seed=0, bounds=(1910.0, 1070.0), device=dev)
+    four_k = T.random_scene(100, 100, seed=2, bounds=(3830.0, 2150.0), device=dev)
+    hl_cfg = T.RenderConfig(width=w, height=h, shading="phong", shadows=True,
+                            framebuffer_dtype="packed")
+    legacy96 = T.RenderConfig(width=w, height=h, shading="legacy", cull_k=96,
+                              framebuffer_dtype="packed")
+    cfg_4k = legacy96.replace(width=3840, height=2160)
+    soft_cfg = _soft_cfg(T, w, h, "phong", True).replace(cull_k=96,
+                                                         shadow_cull_k=136)
+    hl_packed = headline.pack()
+
+    # ---- the main path, counted -----------------------------------------
+    fwd_tiled.KERNEL_LAUNCHES = 0
+    S.FWD_LAUNCHES = S.BWD_LAUNCHES = 0
+    dyn = fwd_tiled.render_tiled_packed(hl_packed, pin, hl_cfg)
+    stress_frame = render(stress, ortho, legacy96, backend="pallas")
+    frame_4k = render(four_k, ortho, cfg_4k, backend="pallas")
+    torch.cuda.synchronize()
+    b1 = fwd_tiled.KERNEL_LAUNCHES
+    fwd_tiled.KERNEL_LAUNCHES = 0
+    b1_float = render(headline, ortho, hl_cfg.replace(framebuffer_dtype="float"),
+                      backend="pallas")
+    torch.cuda.synchronize()
+    b2 = fwd_tiled.KERNEL_LAUNCHES
+    s = trainable_scene(stress)
+    _mean_sq(S.render_soft_tiled(s, ortho, soft_cfg)).backward()
+    torch.cuda.synchronize()
+    launches = {"B1": b1, "B2": b2, "B4": S.FWD_LAUNCHES, "B5": S.BWD_LAUNCHES}
+    print(f"[new] launches in the main-path run: {launches}")
+    _require(all(v >= 1 for v in launches.values()) and b1 >= 3,
+             f"phase 13's path did not go through its kernels: {launches}")
+    for name, frame, shape in (("dynamic", dyn, (h, w)), ("stress", stress_frame, (h, w)),
+                               ("4K", frame_4k, (2160, 3840)),
+                               ("float headline", b1_float, (h, w, 4))):
+        _require(tuple(frame.shape) == shape, f"[new] {name}: shape {frame.shape}")
+    _require(bool(torch.isfinite(b1_float).all()), "[new] non-finite float frame")
+    _require(bool(torch.isfinite(s.sphere_origin.grad).all()
+                  and (s.sphere_origin.grad != 0).any()),
+             "[new] the stress soft step gave no finite gradient")
+
+    # ---- B1 at the new sizes --------------------------------------------
+    for label, scene, cfg in (
+        ("stress 1080p 100sph+100cubes legacy packed k=96", stress, legacy96),
+        ("stress 1080p 100sph+100cubes phong+shadows float k=96", stress,
+         legacy96.replace(shading="phong", shadows=True, framebuffer_dtype="float")),
+        ("4K 100sph+100cubes legacy packed k=96", four_k, cfg_4k),
+        ("4K 100sph+100cubes phong+shadows float k=96", four_k,
+         cfg_4k.replace(shading="phong", shadows=True, framebuffer_dtype="float")),
+    ):
+        _b1_case(label, scene, ortho, cfg, smi)
+
+    # ---- the dynamic frame: re-binned in the call = precomputed bins -----
+    bins = fwd_tiled.bin_for_config(hl_packed, pin, hl_cfg)
+    static = fwd_tiled.render_tiled_packed(hl_packed, pin, hl_cfg, bins=bins)
+    _require(torch.equal(dyn, static), "[new] the dynamic frame differs from "
+                                       "the frame with precomputed bins")
+    print(f"[new] dynamic frame (headline, pinhole): identical to "
+          f"render_tiled_packed with precomputed bins; K caps "
+          f"k={max(bins.k_tri, bins.k_sph)} shadow_k={max(bins.k_sh_tri, bins.k_sh_sph)} "
+          f"(asked {hl_cfg.cull_k}, {hl_cfg.shadow_cull_k}: escalated "
+          f"{bins.k_tri > hl_cfg.cull_k or bins.k_sph > hl_cfg.cull_k})")
+
+    # ---- B4 and B5 on the stress soft step ---------------------------------
+    ops = _soft_operands(stress, ortho, soft_cfg)
+    kc = ops[4]
+    got, tiles = S._soft_tiled_fwd_cuda(*ops[:4], kc)
+    with torch.no_grad():
+        ferr = (got - S._soft_tiled_plain(*ops[:4], cfg=kc)).abs().max().item()
+    _require(ferr < FWD_BAR, f"[new] stress soft B4 vs twin {ferr} >= {FWD_BAR}")
+    n_live = _tile_list_vs_plain("[new] stress soft B4", tiles, ops[3])
+    sbins = S.soft_bins_for_config(stress.pack(), ortho, soft_cfg)
+    k, sk = max(sbins.k_tri, sbins.k_sph), max(sbins.k_sh_tri, sbins.k_sh_sph)
+    g = torch.zeros_like(got)
+    g[..., :3] = 2.0 * got[..., :3] / (h * w * 3)   # d mean(img^2) / d img
+    b4_ms = device_ms(lambda: S.soft_tiled_fwd(*ops[:4], cfg=kc), 20)
+    b5_ms = device_ms(lambda: S.soft_tiled_bwd(*ops[:4], g, cfg=kc), 20)
+    b4b, b5b = P.tiled_soft_bounds(stress, ortho, soft_cfg, ops, g)[:2]
+    print(f"[new] stress soft 1080p phong+soft shadows: final K caps k={k} "
+          f"shadow_k={sk} (asked 96, 136); B4 vs twin {ferr:.5f} (bar {FWD_BAR}) "
+          f"on every pixel; {n_live} of {ops[3].shape[0]} tiles non-empty, the "
+          f"card's list equals fwd_tiled._live_tiles; device ms per launch: B4 "
+          f"{b4_ms:.4f} (bound {b4b[0]:.5f} by {b4b[1]}, {b4_ms / b4b[0]:.1f}x), "
+          f"B5 on the loss's cotangent {b5_ms:.4f} (bound {b5b[0]:.5f} by "
+          f"{b5b[1]}, {b5_ms / b5b[0]:.1f}x); {smi}")
+    del ops, got, g
+    # The twin's autograd keeps every intermediate of every tile: at full
+    # size it may not fit the card. Then the largest frame that fits, with
+    # the same scene and the same K caps (the full frame's final ones).
+    for gw, gh in ((w, h), (1280, 720), (960, 540), (640, 480)):
+        cfg_g = soft_cfg.replace(width=gw, height=gh, cull_k=k, shadow_cull_k=sk)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            gt = _leaf_grads(_twin_render, stress, ortho, cfg_g, _mean_sq)
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
+            print(f"[new] stress soft step at {gw}x{gh}: the twin's autograd does "
+                  f"not fit the card's memory")
+            continue
+        peak = torch.cuda.max_memory_allocated() / 2**30  # the twin's
+        gk = _leaf_grads(S.render_soft_tiled, stress, ortho, cfg_g, _mean_sq)
+        gerr = _compare_grads(f"[new] stress soft {gw}x{gh}", gk, gt, 1e-3)
+        print(f"[new] stress soft step at {gw}x{gh} (K {k}, {sk}): B5 leaf grads "
+              f"vs the twin's autograd, normalised max err {gerr:.2e} (bar 1e-3); "
+              f"the twin's peak device memory {peak:.1f} GiB")
+        break
+    else:
+        raise RuntimeError("[new] the stress soft twin fits no frame size")
+    del gt, gk
+    torch.cuda.empty_cache()
+
+    # ---- the whole-frame xla backend on the 1080p headline frame ------------
+    for shading, shadows, fmt in (("phong", True, "float"), ("legacy", False, "int")):
+        cfg = T.RenderConfig(width=w, height=h, shading=shading, shadows=shadows,
+                             framebuffer_dtype=fmt)
+        xla = render(headline, ortho, cfg, backend="xla")
+        _require(tuple(xla.shape) == (h, w, 4), f"[new] xla frame {xla.shape}")
+        oracle = render_reference(headline, ortho, cfg)
+        tiled = render(headline, ortho, cfg, backend="pallas")
+        label = f"[new] xla 1080p headline {shading} {fmt}"
+        if fmt == "float":
+            _require(bool(torch.isfinite(xla).all()), f"{label}: non-finite")
+            _check_twin(f"{label} vs the oracle", xla, oracle, "float")
+            close, lit = _lit_agreement(xla, tiled)
+            print(f"{label} vs B2: {close:.6f} of the lit pixels within 0.5/255 "
+                  f"(bar 0.995, B1's against the oracle); {lit:.4f} lit")
+            _require(close >= 0.995 and lit > 0.001, f"{label} vs B2: {close}")
+        else:
+            for what, other in (("the oracle", oracle), ("B1", tiled)):
+                same = (xla == other).all(-1).float().mean().item()
+                print(f"{label} vs {what}: {same:.6f} of pixels identical (bar 0.999)")
+                _require(same >= 0.999, f"{label} vs {what}: {same}")
+        med, lo, hi = _time_ms(lambda: render(headline, ortho, cfg, backend="xla"), 10, 1)
+        print(f"[time] {label}: whole render(backend='xla') median {med:.4f} ms "
+              f"[{lo:.4f}, {hi:.4f}] over 10 frames; {smi}")
+    # `cli render --backend xla` as a user runs it: its PNG is the frame
+    import tempfile
+
+    from opencl_ray_tracer_tpu_torch.utils import pack_rgba, read_png
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "scene1_xla.png")
+        proc = subprocess.run(
+            [sys.executable, "-m", "opencl_ray_tracer_tpu_torch.cli", "render",
+             "--scene", "1", "--backend", "xla", "--out", png],
+            cwd=root, capture_output=True, text=True, timeout=300,
+            env={**os.environ, "PYTHONPATH": root})
+        print(proc.stdout.strip())
+        _require(proc.returncode == 0, f"cli render --backend xla failed:\n"
+                                       f"{proc.stderr[-4000:]}")
+        got = read_png(png)
+    cfg = T.RenderConfig(width=640, height=480, shading="legacy",
+                         framebuffer_dtype="int")
+    want = pack_rgba(render(T.create_scene(1, seed=0, device=dev), ortho, cfg,
+                            backend="xla"))
+    same = float((got == want).all(-1).mean())
+    print(f"[new] cli render --scene 1 --backend xla: its PNG {same:.6f} "
+          f"identical to render(backend='xla') (bar 1)")
+    _require(same == 1.0, f"cli render --backend xla: {same}")
+    print(f"[new] phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 if __name__ == "__main__":

@@ -8,15 +8,31 @@
 Headline: primary rays/s at 1080p, forward, on the 10 spheres + 1 cube
 scene (phong + hard shadows) through the tiled CUDA kernel emitting the
 packed int32 framebuffer, with scene-static bins (the frame is the
-coefficient gather plus the kernel). Further rows: the soft differentiable
-forward + backward with every gradient leaf consumed, the train step, and
-(unless --skip-context) the tiled legacy frame under both cameras and the
-brute kernel's legacy frame; then parity scalars of scene 1 (tiled vs the
-oracle, soft gradients vs the torch-autograd oracle, pixel-gradient rows).
+coefficient gather plus the kernel). Further rows, in the JAX bench's
+order: the dynamic frame (the headline frame through a pinhole camera,
+re-binned inside every call), the soft differentiable forward + backward
+with every gradient leaf consumed, and (unless --skip-context) the tiled
+legacy frame under both cameras, the brute kernel's legacy frame, the
+100 + 100 stress frame at cull_k=96, soft forward + backward on 50 spheres
++ 4 cubes and on the stress scene (cull_k=96, shadow_cull_k=136), 4K
+legacy with 100 + 100 primitives, and the headline scene's phong and soft
+frames through the pinhole camera; then the train step, and parity scalars
+of scene 1 (tiled vs the oracle, soft gradients vs the torch-autograd
+oracle, pixel-gradient rows).
 
 Every row is the median and [min, max] of per-call CUDA-event times
-(bench_util.call_times_ms): the host's work inside a call counts. Rows go
-to stderr, the JSON line to stdout. Runs on the card only.
+(bench_util.call_times_ms): the host's work inside a call counts. Beside
+them: `device_ms` (bench_util.device_ms: the calls queued behind a spin on
+the card; a call that waits for the card inside, as every tiled call does
+on its bins' overflow flag, reads its host's time there too),
+`device_busy_ms` (the union of the call's kernel intervals in a
+torch.profiler trace: the card's own time, whatever the host does), and
+for a tiled row the K caps of its final bins (`k`, `shadow_k`: the port
+re-bins with both caps doubled where a list overflows). The headline, the
+1080p fwd+bwd and the stress rows also carry their speed of light: the H100
+bound of the row's inputs (utils/profiling.py; B1's for a hard frame, B4's
+plus B5's on the loss's own cotangent for a soft step) over `device_ms`.
+Rows go to stderr, the JSON line to stdout. Runs on the card only.
 """
 
 from __future__ import annotations
@@ -26,16 +42,28 @@ import json
 import subprocess
 import sys
 
-from opencl_ray_tracer_tpu_torch.bench_util import call_times_ms, median_spread
+from opencl_ray_tracer_tpu_torch.bench_util import (
+    call_times_ms,
+    device_ms,
+    median_spread,
+)
 
 W, H = 1920, 1080
+W4K, H4K = 3840, 2160
 
 HEADLINE = "headline tiled phong+shadows 1080p 10sph+1cube (packed fb)"
+DYNAMIC = "DYNAMIC frame phong+shadows 1080p pinhole (re-binned every call)"
 FWD_BWD = "fwd+bwd soft phong+shadows 1080p 10sph+1cube"
-TRAIN = "train step (adam) soft phong+shadows 1080p"
 TILED_LEGACY = "tiled legacy 1080p 10sph+1cube (packed fb)"
 TILED_PINHOLE = "tiled legacy 1080p pinhole (projective culling)"
 BRUTE_LEGACY = "brute legacy 1080p 10sph+1cube"
+STRESS = "tiled legacy 1080p 100sph+100cubes (1200 tris, k=96)"
+SOFT_50_4 = "fwd+bwd soft phong+shadows 1080p 50sph+4cubes"
+STRESS_SOFT = "fwd+bwd soft phong+shadows 1080p 100sph+100cubes (k=96)"
+FOUR_K = "tiled legacy 4K 100sph+100cubes (1200 tris, k=96, packed)"
+PINHOLE_PHONG = "tiled phong+shadows 1080p pinhole"
+PINHOLE_SOFT = "fwd+bwd soft phong+shadows 1080p pinhole"
+TRAIN = "train step (adam) soft phong+shadows 1080p"
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -51,7 +79,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--no-shadows", action="store_true")
     ap.add_argument("--cull-k", type=int, default=None)
     ap.add_argument("--skip-context", action="store_true",
-                    help="headline, fwd+bwd, train-step and parity rows only")
+                    help="headline, dynamic, fwd+bwd, train-step and parity "
+                         "rows only")
     return ap.parse_args(argv)
 
 
@@ -59,24 +88,47 @@ def row_plan(args) -> list:
     """Labels of the timed rows this invocation runs, in order."""
     if args.scene is not None:
         return [f"scene{args.scene} {args.shading} {args.width}x{args.height}"]
-    rows = [HEADLINE, FWD_BWD]
+    rows = [HEADLINE, DYNAMIC, FWD_BWD]
     if not args.skip_context:
-        rows += [TILED_LEGACY, TILED_PINHOLE, BRUTE_LEGACY]
+        rows += [TILED_LEGACY, TILED_PINHOLE, BRUTE_LEGACY, STRESS, SOFT_50_4,
+                 STRESS_SOFT, FOUR_K, PINHOLE_PHONG, PINHOLE_SOFT]
     return rows + [TRAIN]
 
 
-def _row(rows, label, samples, n_pix):
-    ms, lo, hi = median_spread(samples)
+def _row(rows, label, fn, n, n_pix, **extra):
+    """Time fn (per call: n calls, CUDA events; device_ms: min(n, 20) calls
+    behind a spin; device_busy_ms: 5 traced calls) into rows[label]."""
+    from opencl_ray_tracer_tpu_torch.utils.profiling import (
+        device_profile,
+        rays_per_second,
+    )
+
+    ms, lo, hi = median_spread(call_times_ms(fn, n))
+    kernels, _, busy_ms, _ = device_profile(fn, 5)
     rows[label] = {"ms": ms, "ms_min": lo, "ms_max": hi,
-                   "rays_per_s": n_pix / (ms / 1e3)}
+                   "rays_per_s": rays_per_second(n_pix, ms),
+                   "device_ms": device_ms(fn, min(n, 20)),
+                   "device_busy_ms": busy_ms, "device_kernels": kernels, **extra}
+    r = rows[label]
+    caps = f", k={r['k']} shadow_k={r['shadow_k']}" if "k" in r else ""
     print(f"# {label}: {ms:.4f} ms [{lo:.4f}, {hi:.4f}] -> "
-          f"{rows[label]['rays_per_s']:.3e} rays/s over {len(samples)} calls",
-          file=sys.stderr)
-    return rows[label]
+          f"{r['rays_per_s']:.3e} rays/s over {n} calls; device {r['device_ms']:.4f} "
+          f"ms behind a spin, busy {busy_ms:.4f} ms ({kernels:.0f} kernels) a "
+          f"call{caps}", file=sys.stderr)
+    return r
 
 
-def bench_tiled(scene, config, cam, n=100):
-    """Per-call times of the tiled frame with scene-static bins."""
+def _caps(bins) -> dict:
+    """The K caps a tiled row's final bins ran at."""
+    return {"k": max(bins.k_tri, bins.k_sph),
+            "shadow_k": max(bins.k_sh_tri, bins.k_sh_sph)}
+
+
+def bench_tiled(scene, config, cam, dynamic=False):
+    """(the tiled frame's call, its final bins). Scene-static bins, made once
+    (as a fixed scene under a fixed camera would keep them), unless
+    `dynamic`: then `bin_for_config` runs inside every call, as for a moving
+    camera or an edited scene, with its check of the lists' overflow."""
     from opencl_ray_tracer_tpu_torch.kernels.fwd_tiled import (
         bin_for_config,
         render_tiled_packed,
@@ -84,23 +136,38 @@ def bench_tiled(scene, config, cam, n=100):
 
     packed = scene.pack()
     bins = bin_for_config(packed, cam, config)
-    return call_times_ms(
-        lambda: render_tiled_packed(packed, cam, config, bins=bins), n)
+    if dynamic:
+        return (lambda: render_tiled_packed(packed, cam, config)), bins
+    return (lambda: render_tiled_packed(packed, cam, config, bins=bins)), bins
 
 
-def bench_brute(scene, config, cam, n=30):
+def tiled_bound(scene, config, cam, bins):
+    """(bound_ms, bound_by) of B1 on the frame's inputs."""
+    from opencl_ray_tracer_tpu_torch.kernels.fwd_tiled import kernel_inputs
+    from opencl_ray_tracer_tpu_torch.utils.profiling import b1_bound
+
+    args, kw = kernel_inputs(
+        scene.pack(), cam, bins, height=config.height, width=config.width,
+        shading=config.shading, shadows=config.shadows,
+        out_format=config.framebuffer_dtype)
+    return b1_bound(args, kw)[:2]
+
+
+def bench_brute(scene, config, cam):
     from opencl_ray_tracer_tpu_torch.kernels import render_pallas_packed
 
     packed = scene.pack()
-    return call_times_ms(lambda: render_pallas_packed(packed, cam, config), n)
+    return lambda: render_pallas_packed(packed, cam, config)
 
 
-def bench_fwd_bwd_soft(scene, config, cam, n=20):
-    """Forward + backward through the tiled soft kernels, gradients for
-    every scene leaf, each of them consumed."""
+def bench_fwd_bwd_soft(scene, config, cam):
+    """(the soft step's call, its final bins): forward + backward through
+    the tiled soft kernels, gradients for every scene leaf, each of them
+    consumed."""
     import torch
 
     from opencl_ray_tracer_tpu_torch.kernels.soft import render_soft_pallas
+    from opencl_ray_tracer_tpu_torch.kernels.soft_tiled import soft_bins_for_config
     from opencl_ray_tracer_tpu_torch.parallel.train import (
         scene_leaves,
         trainable_scene,
@@ -115,10 +182,47 @@ def bench_fwd_bwd_soft(scene, config, cam, n=20):
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         return loss + sum(g.sum() for g in grads if g is not None)
 
-    return call_times_ms(step, n)
+    return step, soft_bins_for_config(scene.pack(), cam, config)
 
 
-def bench_train_step(scene, config, cam, n=20):
+def fwd_bwd_bound(scene, config, cam):
+    """(bound_ms, bound_by) of the soft step: B4's bound plus B5's on the
+    cotangent of the step's loss, mean(img[..., :3] ** 2)."""
+    import torch
+
+    from opencl_ray_tracer_tpu_torch.kernels.soft_tiled import (
+        soft_kernel_inputs,
+        soft_tiled_fwd,
+    )
+    from opencl_ray_tracer_tpu_torch.utils.profiling import tiled_soft_bounds
+
+    with torch.no_grad():
+        operands = soft_kernel_inputs(scene.pack(), cam, config)
+        img = soft_tiled_fwd(*operands[:4], cfg=operands[4])
+    g = torch.zeros_like(img)
+    g[..., :3] = 2.0 * img[..., :3] / (config.height * config.width * 3)
+    b4, b5 = tiled_soft_bounds(scene, cam, config, operands, g)[:2]
+    return b4[0] + b5[0], f"{b4[1]}+{b5[1]}"
+
+
+def _sol(row, bound_ms, bound_by, bwd=False):
+    """Speed of light of a row over its device_ms: sol_fraction, sol_bound
+    (what bounds it) and sol_bound_ms, or for a soft step sol_fraction_bwd,
+    sol_bwd_bound and sol_bwd_bound_ms."""
+    from opencl_ray_tracer_tpu_torch.utils.profiling import sol_fraction
+
+    sol = sol_fraction(row["device_ms"], bound_ms, bound_by)
+    frac, key = ("sol_fraction_bwd", "sol_bwd_bound") if bwd else (
+        "sol_fraction", "sol_bound")
+    row.update({frac: sol["achieved_fraction"], key: sol["bound"],
+                f"{key}_ms": bound_ms})
+    print(f"#   speed of light: bound {bound_ms:.5f} ms by {bound_by}, "
+          f"achieved {sol['achieved_fraction']:.4e} of it over device_ms "
+          f"({bound_ms / row['device_busy_ms']:.4e} over device_busy_ms)",
+          file=sys.stderr)
+
+
+def bench_train_step(scene, config, cam):
     import torch
 
     from opencl_ray_tracer_tpu_torch.parallel import (
@@ -131,7 +235,7 @@ def bench_train_step(scene, config, cam, n=20):
     state = init_train_state(scene, adam(1e-3))
     target = torch.zeros((config.height, config.width, 4), dtype=torch.float32,
                          device=scene.sphere_origin.device)
-    return call_times_ms(lambda: step(state, target), n)
+    return lambda: step(state, target)
 
 
 def bench_parity(device) -> dict:
@@ -221,9 +325,12 @@ def main(argv=None) -> int:
         pinhole_camera,
         random_scene,
     )
+    from opencl_ray_tracer_tpu_torch.utils.profiling import (
+        device_kind,
+        rays_per_second,
+    )
 
     device = torch.device("cuda")
-    kind = torch.cuda.get_device_name(device)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -242,7 +349,8 @@ def main(argv=None) -> int:
             framebuffer_dtype="int" if args.shading == "legacy" else "float",
             **({"cull_k": args.cull_k} if args.cull_k else {}),
         )
-        r = _row(rows, plan[0], bench_tiled(scene, cfg, cam), n_pix)
+        fn, bins = bench_tiled(scene, cfg, cam)
+        r = _row(rows, plan[0], fn, 100, n_pix, **_caps(bins))
         print(json.dumps({
             "metric": f"rays_per_s_scene{args.scene}_{args.shading}_{wid}x{hgt}",
             "value": r["rays_per_s"], "unit": "rays/s", "rows": rows,
@@ -250,33 +358,66 @@ def main(argv=None) -> int:
         }))
         return 0
 
-    scene_hl = random_scene(10, 1, seed=0,
-                            bounds=(float(wid) - 10, float(hgt) - 10),
-                            device=device)
+    bounds = (float(wid) - 10, float(hgt) - 10)
+    scene_hl = random_scene(10, 1, seed=0, bounds=bounds, device=device)
     cfg_hl = RenderConfig(width=wid, height=hgt, shading="phong", shadows=True,
                           framebuffer_dtype="packed")
-    head = _row(rows, HEADLINE, bench_tiled(scene_hl, cfg_hl, cam), n_pix)
+    fn, bins = bench_tiled(scene_hl, cfg_hl, cam)
+    head = _row(rows, HEADLINE, fn, 100, n_pix, **_caps(bins))
+    _sol(head, *tiled_bound(scene_hl, cfg_hl, cam, bins))
+
+    cam_ph = pinhole_camera(
+        position=(wid / 2.0, hgt / 2.0, 900.0),
+        look_at=(wid / 2.0, hgt / 2.0, -85.0),
+        fov_degrees=60.0, width=wid, height=hgt, device=device)
+    fn, bins = bench_tiled(scene_hl, cfg_hl, cam_ph, dynamic=True)
+    dyn = _row(rows, DYNAMIC, fn, 50, n_pix, **_caps(bins))
 
     cfg_soft = RenderConfig(width=wid, height=hgt, shading="phong", shadows=True,
                             soft=True, framebuffer_dtype="float", tau_depth=1.0,
                             tau_edge=0.5)
-    fb = _row(rows, FWD_BWD, bench_fwd_bwd_soft(scene_hl, cfg_soft, cam), n_pix)
+    fn, bins = bench_fwd_bwd_soft(scene_hl, cfg_soft, cam)
+    fb = _row(rows, FWD_BWD, fn, 20, n_pix, **_caps(bins))
+    _sol(fb, *fwd_bwd_bound(scene_hl, cfg_soft, cam), bwd=True)
 
+    stress = None
     if not args.skip_context:
         cfg_legacy = RenderConfig(width=wid, height=hgt, shading="legacy",
                                   framebuffer_dtype="packed")
-        _row(rows, TILED_LEGACY, bench_tiled(scene_hl, cfg_legacy, cam), n_pix)
-        cam_ph = pinhole_camera(
-            position=(wid / 2.0, hgt / 2.0, 900.0),
-            look_at=(wid / 2.0, hgt / 2.0, -85.0),
-            fov_degrees=60.0, width=wid, height=hgt, device=device)
-        _row(rows, TILED_PINHOLE, bench_tiled(scene_hl, cfg_legacy, cam_ph), n_pix)
+        fn, bins = bench_tiled(scene_hl, cfg_legacy, cam)
+        _row(rows, TILED_LEGACY, fn, 100, n_pix, **_caps(bins))
+        fn, bins = bench_tiled(scene_hl, cfg_legacy, cam_ph)
+        _row(rows, TILED_PINHOLE, fn, 100, n_pix, **_caps(bins))
         # the brute kernel has no packed-word output: its own int framebuffer
         _row(rows, BRUTE_LEGACY,
              bench_brute(scene_hl, cfg_legacy.replace(framebuffer_dtype="int"),
-                         cam), n_pix)
+                         cam), 30, n_pix)
+        scene_stress = random_scene(100, 100, seed=0, bounds=bounds, device=device)
+        cfg_stress = cfg_legacy.replace(cull_k=96)
+        fn, bins = bench_tiled(scene_stress, cfg_stress, cam)
+        r = _row(rows, STRESS, fn, 30, n_pix, **_caps(bins))
+        _sol(r, *tiled_bound(scene_stress, cfg_stress, cam, bins))
+        scene_100 = random_scene(50, 4, seed=1, bounds=bounds, device=device)
+        fn, bins = bench_fwd_bwd_soft(scene_100, cfg_soft, cam)
+        _row(rows, SOFT_50_4, fn, 10, n_pix, **_caps(bins))
+        cfg_stress_soft = cfg_soft.replace(cull_k=96, shadow_cull_k=136)
+        fn, bins = bench_fwd_bwd_soft(scene_stress, cfg_stress_soft, cam)
+        stress = _row(rows, STRESS_SOFT, fn, 10, n_pix, **_caps(bins))
+        _sol(stress, *fwd_bwd_bound(scene_stress, cfg_stress_soft, cam),
+             bwd=True)
+        scene_4k = random_scene(100, 100, seed=2,
+                                bounds=(float(W4K) - 10, float(H4K) - 10),
+                                device=device)
+        cfg_4k = RenderConfig(width=W4K, height=H4K, shading="legacy", cull_k=96,
+                              framebuffer_dtype="packed")
+        fn, bins = bench_tiled(scene_4k, cfg_4k, cam)
+        _row(rows, FOUR_K, fn, 20, W4K * H4K, **_caps(bins))
+        fn, bins = bench_tiled(scene_hl, cfg_hl, cam_ph)
+        _row(rows, PINHOLE_PHONG, fn, 100, n_pix, **_caps(bins))
+        fn, bins = bench_fwd_bwd_soft(scene_hl, cfg_soft, cam_ph)
+        _row(rows, PINHOLE_SOFT, fn, 20, n_pix, **_caps(bins))
 
-    ts = _row(rows, TRAIN, bench_train_step(scene_hl, cfg_soft, cam), n_pix)
+    ts = _row(rows, TRAIN, bench_train_step(scene_hl, cfg_soft, cam), 20, n_pix)
 
     parity = bench_parity(device)
     print("# parity (scene 1, on the card): legacy identical "
@@ -289,14 +430,21 @@ def main(argv=None) -> int:
         "metric": "primary_rays_per_s_1080p_fwd_phong_shadows",
         "value": head["rays_per_s"],
         "unit": "rays/s",
-        "value_min": n_pix / (head["ms_max"] / 1e3),
-        "value_max": n_pix / (head["ms_min"] / 1e3),
+        "value_min": rays_per_second(n_pix, head["ms_max"]),
+        "value_max": rays_per_second(n_pix, head["ms_min"]),
+        "sol_fraction": head["sol_fraction"],
+        "sol_bound": head["sol_bound"],
+        "dynamic_frame_ms": dyn["ms"],
         "fwd_bwd_rays_per_s": fb["rays_per_s"],
+        "sol_fraction_bwd": fb["sol_fraction_bwd"],
+        "sol_bwd_bound": fb["sol_bwd_bound"],
+        **({"stress_fwd_bwd_rays_per_s": stress["rays_per_s"]}
+           if stress is not None else {}),
         "train_step_ms": ts["ms"],
         "rows": rows,
         **parity,
         "device": smi,
-        "device_kind": kind,
+        "device_kind": device_kind(),
     }))
     return 0
 

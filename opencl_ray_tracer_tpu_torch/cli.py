@@ -32,7 +32,7 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     )
     p.add_argument("--shadows", action="store_true")
     p.add_argument(
-        "--backend", choices=["reference", "pallas"], default=None,
+        "--backend", choices=["reference", "xla", "pallas"], default=None,
         help="default: the config's backend (pallas, the CUDA kernel)"
     )
     p.add_argument("--settings", help="XML or JSON settings/config file")

@@ -6,12 +6,12 @@ facade dispatches to:
   reference -> ref/tracer.py           (brute-force oracle)
   pallas    -> kernels/fwd_tiled.py    (the tiled hard kernel: CUDA on the
                                         card, its plain twin on the CPU)
+  xla       -> models/xla_backend.py  (the whole frame in plain torch ops)
   soft + pallas -> kernels/soft.py render_soft_pallas (the tiled soft
                    kernels, forward and backward)
   soft + other  -> diff/soft.py render_soft (the torch-autograd oracle)
 
-The frame runs on the device the scene's tensors lie on. The whole-frame
-"xla" path (ROADMAP A5) is not ported yet and raises NotImplementedError.
+The frame runs on the device the scene's tensors lie on.
 """
 
 from __future__ import annotations
@@ -91,9 +91,9 @@ def render(
 
         return render_soft(scene, camera, config)
     if b == Backend.XLA:
-        raise NotImplementedError(
-            "the xla whole-frame backend is not ported yet (ROADMAP A5)"
-        )
+        from opencl_ray_tracer_tpu_torch.models.xla_backend import render_xla
+
+        return render_xla(scene, camera, config)
     if b == Backend.REFERENCE:
         from opencl_ray_tracer_tpu_torch.ref import render_reference
 

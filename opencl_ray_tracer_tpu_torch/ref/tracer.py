@@ -14,25 +14,8 @@ import torch
 
 from opencl_ray_tracer_tpu_torch.camera import Camera
 from opencl_ray_tracer_tpu_torch.config import RenderConfig
-from opencl_ray_tracer_tpu_torch.ops import (
-    nearest_hit,
-    shade_lambert,
-    shade_legacy,
-    shade_phong,
-    to_int_framebuffer,
-)
-
-
-def _trace_rows(scene, o, d, *, shading: str, shadows: bool):
-    """Trace a block of rays: o, d (..., 3) -> RGBA float (..., 4)."""
-    hit = nearest_hit(o, d, scene)
-    if shading == "legacy":
-        return shade_legacy(hit)
-    if shading == "lambert":
-        return shade_lambert(hit, d, scene, shadows=shadows)
-    if shading == "phong":
-        return shade_phong(hit, d, scene, shadows=shadows)
-    raise ValueError(f"unknown shading mode {shading!r}")
+from opencl_ray_tracer_tpu_torch.models.xla_backend import trace_pixels
+from opencl_ray_tracer_tpu_torch.ops import to_int_framebuffer
 
 
 @torch.no_grad()
@@ -43,8 +26,8 @@ def render_reference(scene, camera: Camera, config: RenderConfig,
     o, d = camera.rays(config.height, config.width)   # (H, W, 3) each
     rgba = torch.cat(
         [
-            _trace_rows(scene, o[r : r + row_chunk], d[r : r + row_chunk],
-                        shading=config.shading, shadows=config.shadows)
+            trace_pixels(scene, o[r : r + row_chunk], d[r : r + row_chunk],
+                         shading=config.shading, shadows=config.shadows)
             for r in range(0, config.height, row_chunk)
         ],
         dim=0,

@@ -6,7 +6,8 @@ torch.cuda, and the backend names are the JAX package's, so one config file
 drives both packages:
 
   reference -> ref/tracer.py    (the brute-force oracle, any device)
-  xla       -> not ported yet   (ROADMAP A5: the whole-frame eager path)
+  xla       -> models/xla_backend.py (the whole frame in plain torch ops,
+               on the scene's device)
   pallas    -> the tiled kernel (CUDA kernel on a CUDA scene, its plain
                twin on a CPU scene)
 """
@@ -23,7 +24,7 @@ class Backend(enum.Enum):
     """Renderer backends (the F1 mode toggle, MainState.h:48-52)."""
 
     REFERENCE = "reference"  # brute-force oracle
-    XLA = "xla"              # not ported (ROADMAP A5)
+    XLA = "xla"              # whole frame in plain torch ops
     PALLAS = "pallas"        # tiled kernel: CUDA on the card, twin on CPU
 
 

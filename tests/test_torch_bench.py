@@ -40,17 +40,26 @@ def test_parse_args_defaults_and_flags():
     assert a.no_shadows and a.cull_k == 96 and a.skip_context
     with pytest.raises(SystemExit):
         bench.parse_args(["--scene", "7"])
+    with pytest.raises(SystemExit):
+        bench.parse_args(["--shading", "toon"])
+    assert (bench.W4K, bench.H4K) == (3840, 2160)
 
 
 @pytest.mark.parametrize("argv,want", [
-    ([], [bench.HEADLINE, bench.FWD_BWD, bench.TILED_LEGACY,
-          bench.TILED_PINHOLE, bench.BRUTE_LEGACY, bench.TRAIN]),
-    (["--skip-context"], [bench.HEADLINE, bench.FWD_BWD, bench.TRAIN]),
+    ([], [bench.HEADLINE, bench.DYNAMIC, bench.FWD_BWD, bench.TILED_LEGACY,
+          bench.TILED_PINHOLE, bench.BRUTE_LEGACY, bench.STRESS,
+          bench.SOFT_50_4, bench.STRESS_SOFT, bench.FOUR_K,
+          bench.PINHOLE_PHONG, bench.PINHOLE_SOFT, bench.TRAIN]),
+    (["--skip-context"], [bench.HEADLINE, bench.DYNAMIC, bench.FWD_BWD,
+                          bench.TRAIN]),
+    (["--skip-context", "--width", "640", "--height", "480"],
+     [bench.HEADLINE, bench.DYNAMIC, bench.FWD_BWD, bench.TRAIN]),
     (["--scene", "2", "--width", "320", "--height", "200", "--shading", "lambert"],
      ["scene2 lambert 320x200"]),
 ])
 def test_row_plan(argv, want):
-    assert bench.row_plan(bench.parse_args(argv)) == want
+    plan = bench.row_plan(bench.parse_args(argv))
+    assert plan == want and len(set(plan)) == len(plan)
 
 
 def test_timing_needs_a_card():
@@ -68,6 +77,20 @@ def test_bench_and_cli_raise_without_card():
         bench.main(["--skip-context"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["bench", "--scene", "1"])
+
+
+@pytest.mark.parametrize("backend", ["xla", "reference", "pallas"])
+def test_cli_render_parses_every_backend_and_needs_a_card(backend):
+    """`cli render --backend xla` parses like the other backends; render
+    then refuses to run without a card, as before."""
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["render", "--scene", "1", "--backend", backend,
+                  "--width", "64", "--height", "48"])
+
+
+def test_cli_render_rejects_an_unknown_backend():
+    with pytest.raises(SystemExit):
+        cli.main(["render", "--backend", "opencl"])
 
 
 def test_bench_module_exits_nonzero_without_card():

@@ -156,7 +156,7 @@ def test_hard_golden(name, shading, shadows, cam_kind):
 
 
 def test_renderer_facade_and_msaa():
-    """models.renderer: backend dispatch, packed on both backends, MSAA."""
+    """models.renderer: backend dispatch, packed on every backend, MSAA."""
     scene = T.create_scene1(device=CPU)
     cfg = T.RenderConfig(width=W, height=H, shading="lambert",
                          framebuffer_dtype="packed")
@@ -170,5 +170,6 @@ def test_renderer_facade_and_msaa():
     soft = T.get_renderer("soft", width=W, height=H).render(scene)
     assert soft.shape == (H, W, 4) and soft.dtype == torch.float32
     assert torch.isfinite(soft).all() and (soft[..., :3] > 1.0).any()
-    with pytest.raises(NotImplementedError):
-        T.render(scene, None, cfg, backend="xla")
+    xla = T.render(scene, None, cfg, backend="xla")  # packed through float
+    assert xla.shape == (H, W) and xla.dtype == torch.int32
+    assert torch.equal(xla, oracle)

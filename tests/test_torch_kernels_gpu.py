@@ -194,6 +194,88 @@ def test_kernel_rows_through_l1(cuda_device, fmt):
         assert (got - want).abs().max().item() < 0.5
 
 
+def _assert_twin(got, want, fmt):
+    if fmt == "packed":
+        err = np.abs(unpack_words(got).astype(np.int32)
+                     - unpack_words(want).astype(np.int32)).max(axis=-1)
+        assert err.max() <= 1 and (err == 0).mean() >= 0.995
+    else:
+        assert (got - want).abs().max().item() < 0.5
+
+
+# The bench's 4K frame (random_scene(100, 100, seed=2), cull_k=96): 1,020
+# tiles, where every other card frame has at most 255; the card's list of
+# non-empty tiles against its plain version, every pixel against the twin.
+@pytest.mark.parametrize("shading,shadows,fmt", [("legacy", False, "packed"),
+                                                 ("phong", True, "float")])
+def test_kernel_4k_tile_list(cuda_device, shading, shadows, fmt):
+    w, h = 3840, 2160
+    scene = T.random_scene(100, 100, seed=2, bounds=(w - 10.0, h - 10.0),
+                           device=cuda_device)
+    cam = T.legacy_ortho_camera(device=cuda_device)
+    cfg = T.RenderConfig(width=w, height=h, shading=shading, shadows=shadows,
+                         cull_k=96, framebuffer_dtype=fmt)
+    packed = scene.pack()
+    bins = fwd_tiled.bin_for_config(packed, cam, cfg)
+    args, kw = fwd_tiled.kernel_inputs(packed, cam, bins, height=h, width=w,
+                                       shading=shading, shadows=shadows,
+                                       out_format=fmt)
+    assert args[1].shape[0] == 1020
+    got, tiles = fwd_tiled._tiled_kernel_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_list(tiles, args[1])
+    assert tiles[0].item() > 255
+    _assert_twin(got, fwd_tiled._tiled_kernel_plain(*args, **kw), fmt)
+
+
+# The stress scene (random_scene(100, 100, seed=0) at 1080p) from K caps of
+# 16: the lists overflow and the port re-bins with both caps doubled; B1/B2
+# and B4 then run on the wider tables, held against their twins.
+@pytest.mark.parametrize("shading,shadows,fmt", [("legacy", False, "packed"),
+                                                 ("phong", True, "float")])
+def test_kernel_stress_k_escalation(cuda_device, shading, shadows, fmt):
+    w, h = 1920, 1080
+    scene = T.random_scene(100, 100, seed=0, bounds=(w - 10.0, h - 10.0),
+                           device=cuda_device)
+    cam = T.legacy_ortho_camera(device=cuda_device)
+    cfg = T.RenderConfig(width=w, height=h, shading=shading, shadows=shadows,
+                         cull_k=16, shadow_cull_k=16, framebuffer_dtype=fmt)
+    packed = scene.pack()
+    bins = fwd_tiled.bin_for_config(packed, cam, cfg)
+    assert max(bins.k_tri, bins.k_sph) > 16 and not bool(bins.overflow)
+    args, kw = fwd_tiled.kernel_inputs(packed, cam, bins, height=h, width=w,
+                                       shading=shading, shadows=shadows,
+                                       out_format=fmt)
+    got, tiles = fwd_tiled._tiled_kernel_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_list(tiles, args[1])
+    _assert_twin(got, fwd_tiled._tiled_kernel_plain(*args, **kw), fmt)
+    # the whole path re-bins the same way: its frame is the kernel's
+    assert torch.equal(fwd_tiled.render_tiled_packed(packed, cam, cfg), got)
+
+
+def test_soft_tiled_fwd_stress_k_escalation(cuda_device):
+    from opencl_ray_tracer_tpu_torch.kernels import soft_tiled as S
+
+    scene = T.random_scene(100, 100, seed=0, bounds=(1910.0, 1070.0),
+                           device=cuda_device)
+    cam = T.legacy_ortho_camera(device=cuda_device)
+    cfg = T.RenderConfig(width=640, height=480, shading="phong", shadows=True,
+                         soft=True, framebuffer_dtype="float", tau_depth=1.0,
+                         tau_edge=0.5, cull_k=8, shadow_cull_k=8)
+    bins = S.soft_bins_for_config(scene.pack(), cam, cfg)
+    assert max(bins.k_tri, bins.k_sph) > 8 and not bool(bins.overflow)
+    with torch.no_grad():
+        params, taus, tables, counts, kc = S.soft_kernel_inputs(scene.pack(), cam, cfg)
+        assert tables[0].shape[1] == bins.k_tri
+        got, tiles = S._soft_tiled_fwd_cuda(params, taus, tables, counts, kc)
+        torch.cuda.synchronize()
+        _assert_list(tiles, counts)
+        want = S._soft_tiled_plain(params, taus, tables, counts, cfg=kc)
+    assert (got[..., :3] != 0).any()
+    assert (got - want).abs().max().item() < 0.05
+
+
 # ---- the soft kernels B4 (forward) and B5 (backward) ----------------------
 # Bars (chip_smoke.py phase 7): images within 0.05/255 on every pixel; every
 # scene leaf's gradient of mean(img[..., :3]**2) within 1e-3 of the twin's,
