@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths — the tiled hard forward frame, the soft
-differentiable train step and the brute render path (forward and
-differentiable) — through the entry points a user calls, and fails
+Drives the port's paths — the tiled hard forward frame, the soft
+differentiable train step, the brute render path (forward and
+differentiable) and the row-sharded path — through the entry points a user
+calls, and fails
 (non-zero exit, no result line) unless every phase passes:
 
 1. device: torch, CUDA and nvcc versions, the card's name and power limit;
@@ -87,9 +88,9 @@ differentiable) — through the entry points a user calls, and fails
    also on scene 3 at 640x480, B3 also through a pinhole camera and on
    scene 3 at 640x480, each beside its own bound and the time of the
    kernels before their redesign;
-   then `python -m opencl_ray_tracer_tpu_torch.bench` as a subprocess, whose
-   exit code, 13 rows (device_ms > 0, the K caps of every tiled row) and
-   JSON keys are checked;
+   then `python -m opencl_ray_tracer_tpu_torch.bench --skip-scaling` as a
+   subprocess, whose exit code, 13 rows (device_ms > 0, the K caps of every
+   tiled row) and JSON keys (shard_map_overhead among them) are checked;
 13. the configurations new to the card, through their entry points first
    (launches counted): the bench's dynamic frame (the headline frame
    through its pinhole camera, re-binned in the call) against the frame
@@ -102,7 +103,20 @@ differentiable) — through the entry points a user calls, and fails
    twin's, at 1080p if the twin's autograd fits the card, else the largest
    size that does; render(backend="xla") on the 1080p headline frame
    (phong + shadows float, legacy int) against the oracle and B1, and
-   `cli render --backend xla`, whose PNG must be that frame.
+   `cli render --backend xla`, whose PNG must be that frame;
+14. the row-sharded path (parallel/): a process group of one rank over
+   NCCL; the dryrun_multichip body (parallel/dryrun.py) at world size 1
+   against the unsharded step; phase 9's 1080p train step on make_mesh(1),
+   3 steps, each against the unsharded step from the same state (rtol
+   1e-6), both timed, and the all-reduce alone; the headline 1080p frame as 4 blocks of 270 rows and as
+   2x2 blocks (render_sharded on each rank's view of a (2, 2) mesh) against
+   the unsharded frame (B1 words ortho and pinhole >= 99.5% identical, B2
+   >= 99.5% of pixels within 0.5/255, `xla` identical; B4 >= 99.9% of
+   pixels within 0.05/255, phase 12's bar for two formulations: the tiled
+   soft frame depends on its tile grid), the last block through B2 and
+   every block through B4 against their twins, and the 4 blocks' summed
+   scene-leaf gradients (B5) within 1e-3 normalised of the same blocks
+   through the twin and within 5e-3 of the unsharded ones.
 
 Hard kernel vs twin is bounded on every pixel: float frames within 0.5/255,
 packed and int frames within one step of 1/255 (and identical on >= 99.5%
@@ -125,6 +139,7 @@ computes any of these functions, so library_ms is null. The last line is
 {"ok": true, "device": {...}}. Needs no network and imports no JAX.
 """
 
+import copy
 import json
 import os
 import statistics
@@ -419,9 +434,11 @@ def main() -> int:
     brute_phase_soft_vs_twin(T, dev)            # 11
     brute_rows = brute_phase_full_size(T, dev, smi)  # 12
     new = new_sizes_phase(T, dev, smi)          # 13
+    sharded = sharded_phase(T, dev, smi)        # 14
     for row, key in zip(soft_rows, ("B4", "B5")):
-        row["launches_by_path"] = {"phase 9": row["launches"], "phase 13": new[key]}
-        row["launches"] += new[key]
+        row["launches_by_path"] = {"phase 9": row["launches"], "phase 13": new[key],
+                                   "phase 14": sharded[key]}
+        row["launches"] += new[key] + sharded[key]
 
     hl = kernel_rows[0]
     print(smi)  # name, power limit exactly as nvidia-smi gives them
@@ -432,8 +449,9 @@ def main() -> int:
         "route": "cuda",
         "source": src,
         "replaces": "opencl_ray_tracer_tpu/kernels/fwd_tiled.py:514",
-        "launches": main_launches + new["B1"],
-        "launches_by_path": {"phase 5": main_launches, "phase 13": new["B1"]},
+        "launches": main_launches + new["B1"] + sharded["B1"],
+        "launches_by_path": {"phase 5": main_launches, "phase 13": new["B1"],
+                             "phase 14": sharded["B1"]},
         "max_abs_err": hl["perr"],
         "tolerance": "every pixel: packed bytes within 1 of the twin's, "
                      "identical on >= 99.5%",
@@ -449,8 +467,8 @@ def main() -> int:
         "route": "cuda",
         "source": src,
         "replaces": "opencl_ray_tracer_tpu/kernels/fwd_tiled.py:1358",
-        "launches": new["B2"],
-        "launches_by_path": {"phase 13": new["B2"]},
+        "launches": new["B2"] + sharded["B2"],
+        "launches_by_path": {"phase 13": new["B2"], "phase 14": sharded["B2"]},
         "max_abs_err": hl["ferr"],
         "tolerance": "every pixel within 0.5/255 of the twin",
         "shape": hl["label"].replace("packed", "float"),
@@ -885,8 +903,9 @@ def soft_phase_train(T, dev, smi):
           f"grads normalised max err {gerr:.2e} (bar 1e-3); "
           f"{(fimg[..., :3] > 1.0).any(-1).float().mean().item():.4f} of pixels lit")
 
-    step = make_train_step(cam, cfg)
-    state = init_train_state(scene, adam(1e-3))
+    optimizer = adam(1e-3)
+    step = make_train_step(cam, cfg, optimizer)
+    state = init_train_state(scene, optimizer)
     o0 = state.scene.sphere_origin.detach().clone()
     S.FWD_LAUNCHES = S.BWD_LAUNCHES = 0
     losses = []
@@ -1567,11 +1586,11 @@ def brute_phase_full_size(T, dev, smi):
         tiled_diff = (img - S.render_soft_tiled(scene, cam, cfg_soft)).abs().amax(-1)
     b6_err = (img - twin_img).abs().max().item()
     # The brute frame is held to its twin and to the diff.render_soft oracle
-    # on every pixel. The tiled frame is another function near tile borders:
-    # it drops a primitive farther than 16 tau_edge from a tile, whose 1e-7
-    # coverage still shifts the softmin where that primitive is much nearer
-    # than the tile's own (up to ~2/255 on a few hundred pixels of this
-    # frame), so it is held to 99.9% of the pixels.
+    # on every pixel. The tiled frame is another function: it depends on its
+    # tile grid (up to ~2/255 on a few hundred pixels of this frame, as the
+    # JAX package's tiled frame departs from its own oracle; raising the
+    # 16-tau_edge cull changes no pixel of it: scripts/torch_soft_tiling.py),
+    # so it is held to 99.9% of the pixels.
     tiled_close = (tiled_diff < FWD_BAR).float().mean().item()
     _require(b6_err < FWD_BAR and oracle_err < FWD_BAR and tiled_close >= 0.999,
              f"[brute] 1080p soft frame: vs twin {b6_err}, vs oracle {oracle_err}, "
@@ -1768,7 +1787,7 @@ def brute_phase_full_size(T, dev, smi):
     root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-m", "opencl_ray_tracer_tpu_torch.bench"],
+        [sys.executable, "-m", "opencl_ray_tracer_tpu_torch.bench", "--skip-scaling"],
         cwd=root, capture_output=True, text=True, timeout=600,
         env={**os.environ, "PYTHONPATH": root},
     )
@@ -1786,7 +1805,7 @@ def brute_phase_full_size(T, dev, smi):
     for key in ("metric", "value", "unit", "rows", "parity_pixel_grad_max_err",
                 "train_step_ms", "device", "dynamic_frame_ms",
                 "stress_fwd_bwd_rays_per_s", "sol_fraction", "sol_bound",
-                "sol_fraction_bwd", "sol_bwd_bound"):
+                "sol_fraction_bwd", "sol_bwd_bound", "shard_map_overhead"):
         _require(key in result, f"the bench's JSON line lacks {key!r}")
     rows = result["rows"]
     plan = bench.row_plan(bench.parse_args([]))
@@ -1804,8 +1823,13 @@ def brute_phase_full_size(T, dev, smi):
              and result["parity_phong_frac_close"] >= 0.995
              and result["parity_pixel_grad_max_err"] <= 1e-4,
              "the bench's parity scalars are off their bars")
+    _require(not any(k.startswith("sharding_eff") for k in result),
+             "--skip-scaling left the scaling keys in")
     print(f"[bench] {len(rows)} rows, headline {result['value']:.4e} "
-          f"rays/s; {time.perf_counter() - t0:.1f} s with start-up")
+          f"rays/s; sharded forward on a one-rank mesh "
+          f"{result['sharded_fwd_ms']:.4f} ms vs {result['unsharded_fwd_ms']:.4f} "
+          f"(shard_map_overhead {result['shard_map_overhead']:+.4f}); "
+          f"{time.perf_counter() - t0:.1f} s with start-up")
 
     shape = "1920x1080 10sph+1cube, legacy ortho camera"
     return [
@@ -2075,6 +2099,294 @@ def new_sizes_phase(T, dev, smi):
           f"identical to render(backend='xla') (bar 1)")
     _require(same == 1.0, f"cli render --backend xla: {same}")
     print(f"[new] phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# The row-sharded path: parallel/{distributed,mesh,dryrun}.py and the mesh
+# train step, through B1/B2, B4 and B5
+# ---------------------------------------------------------------------------
+
+def _sharded_frames(T, dev, scene, cam, cfg, counted):
+    """The frame as 4 ranks render it and as a (2, 2) mesh's 4 ranks render
+    it (the same 270-row blocks: rows shard over both axes, host-major), one
+    card, block by block: the 4-way split through _render_rows and
+    shift_camera_rows, the 2x2 split through render_sharded on each rank's
+    view of the mesh. Both counted. Returns (4-way frame, 2x2 frame)."""
+    import torch
+
+    from opencl_ray_tracer_tpu_torch.parallel import HOST_AXIS, IMAGE_AXIS, Mesh
+    from opencl_ray_tracer_tpu_torch.parallel import render_sharded, shift_camera_rows
+    from opencl_ray_tracer_tpu_torch.parallel.mesh import _render_rows
+
+    hl = cfg.height // 4
+    flat = counted(lambda: torch.cat([
+        _render_rows(scene, shift_camera_rows(cam, r * hl), hl, cfg.width, cfg)
+        for r in range(4)]), cfg)
+    grid = counted(lambda: torch.cat([
+        render_sharded(scene, cam, cfg, mesh=Mesh((2, 2), (HOST_AXIS, IMAGE_AXIS),
+                                                  rank=r, device=dev))
+        for r in range(4)]), cfg)
+    return flat, grid
+
+
+def sharded_phase(T, dev, smi):
+    """Phase 14: the row-sharded path on the card. (a) distributed.initialize
+    at world size 1 over NCCL; (b) the dryrun_multichip body (parallel/
+    dryrun.py) at world size 1, its loss against the unsharded step's; (c)
+    phase 9's 1080p train step through make_train_step(..., adam(...),
+    mesh=make_mesh(1)), 3 steps, each against the unsharded step from the
+    same state (losses and scene within rtol 1e-6), both timed, and the
+    all-reduce alone; (d) the
+    headline 1080p frame as 4 blocks of 270 rows and as 2x2 blocks, against
+    the unsharded frame: packed words (B1, ortho and pinhole) >= 99.5%
+    identical, the float frame (B2) >= 99.5% of pixels within 0.5/255,
+    `xla` identical, soft (B4) >= 99.9% of pixels within 0.05/255; the last
+    block through B2 and every block through B4 against their twins; the
+    sum of the 4 blocks' scene-leaf gradients (B5, each block's loss over
+    the whole frame's pixels) within 1e-3 normalised of the same blocks
+    through the twin and within 5e-3 of the unsharded gradients. Every sharded call is counted (the
+    counts set to 0 just before it and read just after); the unsharded
+    references and the twins are not. Returns the launches per kernel."""
+    import torch
+    import torch.distributed as dist
+
+    from opencl_ray_tracer_tpu_torch.kernels import fwd_tiled
+    from opencl_ray_tracer_tpu_torch.kernels import soft_tiled as S
+    from opencl_ray_tracer_tpu_torch.models.renderer import render
+    from opencl_ray_tracer_tpu_torch.parallel import (
+        adam,
+        distributed,
+        init_train_state,
+        make_mesh,
+        make_train_step,
+        replicate,
+        scene_leaves,
+        shard_rows,
+        shift_camera_rows,
+    )
+    from opencl_ray_tracer_tpu_torch.parallel.dryrun import dryrun_body
+    from opencl_ray_tracer_tpu_torch.parallel.mesh import _render_rows
+
+    t_phase = time.perf_counter()
+    launches = {"B1": 0, "B2": 0, "B4": 0, "B5": 0}
+
+    def counted(fn, cfg=None):
+        fwd_tiled.KERNEL_LAUNCHES = 0
+        S.FWD_LAUNCHES = S.BWD_LAUNCHES = 0
+        out = fn()
+        torch.cuda.synchronize()
+        hard = "B1" if cfg is not None and cfg.framebuffer_dtype == "packed" else "B2"
+        launches[hard] += fwd_tiled.KERNEL_LAUNCHES
+        launches["B4"] += S.FWD_LAUNCHES
+        launches["B5"] += S.BWD_LAUNCHES
+        return out
+
+    # ---- (a) the process group: one rank over NCCL ------------------------
+    distributed.initialize(f"127.0.0.1:{distributed.free_port()}", 1, 0)
+    backend = dist.get_backend()
+    print(f"[sharded] process group: world size {dist.get_world_size()}, rank "
+          f"{dist.get_rank()}, backend {backend}, device {distributed.local_device()}")
+    _require(backend == "nccl", f"[sharded] backend {backend}, not nccl")
+
+    try:
+        # ---- (b) the dryrun body at world size 1 --------------------------
+        before = dict(launches)
+        loss_b = counted(lambda: dryrun_body(1))
+        got = {k: launches[k] - before[k] for k in ("B4", "B5")}
+        cam = T.legacy_ortho_camera(device=dev)
+        cfg = T.RenderConfig(width=128, height=8, shading="phong", shadows=True,
+                             soft=True, framebuffer_dtype="float")
+        opt = adam(1e-2)
+        ref = make_train_step(cam, cfg, opt)(
+            init_train_state(T.create_scene1(device=dev), opt),
+            torch.zeros((8, 128, 4), device=dev))[1].item()
+        print(f"[sharded] dryrun body at world size 1: loss {loss_b:.9f}, the "
+              f"unsharded step's {ref:.9f}; launches {got}")
+        _require(loss_b == loss_b and abs(loss_b) != float("inf"),
+                 f"[sharded] dryrun loss {loss_b}")
+        _require(abs(loss_b - ref) <= 1e-6 * abs(ref), "[sharded] dryrun loss "
+                 f"{loss_b} is not the unsharded step's {ref}")
+        _require(got["B4"] >= 1 and got["B5"] >= 1, f"[sharded] dryrun launches {got}")
+
+        # ---- (c) the 1080p train step on a one-rank mesh -------------------
+        w, h = 1920, 1080
+        headline = T.random_scene(10, 1, seed=0, bounds=(1910.0, 1070.0), device=dev)
+        soft = _soft_cfg(T, w, h, "phong", True)
+        target = torch.zeros((h, w, 4), dtype=torch.float32, device=dev)
+        mesh = make_mesh(1)
+        opt_u, opt_m = adam(1e-3), adam(1e-3)
+        step_u = make_train_step(cam, soft, opt_u)
+        step_m = make_train_step(cam, soft, opt_m, mesh=mesh)
+        state_u = init_train_state(headline, opt_u)
+        state_m = init_train_state(replicate(headline, mesh), opt_m)
+        tgt_m = shard_rows(target, mesh)
+        # In lockstep: before each step the unsharded state takes the mesh
+        # state's scene and Adam moments, so each pair of steps starts from
+        # the same state (B5 sums with atomic adds: two runs of the same
+        # steps drift apart in the last bits, printed below).
+        losses_u, losses_m, lerr, serr = [], [], 0.0, 0.0
+        for _ in range(3):
+            with torch.no_grad():
+                for a, b in zip(scene_leaves(state_u.scene).values(),
+                                scene_leaves(state_m.scene).values()):
+                    a.copy_(b)
+            state_u.opt_state.load_state_dict(
+                copy.deepcopy(state_m.opt_state.state_dict()))
+            state_u, lu = step_u(state_u, target)
+            state_m, lm = counted(lambda: step_m(state_m, tgt_m))
+            losses_u.append(lu.item())
+            losses_m.append(lm.item())
+            lerr = max(lerr, abs(lm.item() - lu.item()) / abs(lu.item()))
+            serr = max(serr, max(
+                ((scene_leaves(state_m.scene)[k] - v).abs()
+                 / v.abs().clamp_min(1e-30)).max().item()
+                for k, v in scene_leaves(state_u.scene).items()))
+        print(f"[sharded] 1080p train step, 3 steps on make_mesh(1) vs the "
+              f"unsharded step from the same state: losses {losses_m} vs "
+              f"{losses_u} (largest relative difference {lerr:.2e}), scene after "
+              f"each step: largest relative difference {serr:.2e} (bar 1e-6)")
+        _require(lerr <= 1e-6 and serr <= 1e-6, "[sharded] the mesh step is "
+                 f"not the unsharded step: {lerr}, {serr}")
+        drift = []
+        for _ in range(2):
+            opt = adam(1e-3)
+            st = init_train_state(headline, opt)
+            drift.append([step_u(st, target)[1].item() for _ in range(3)])
+        print(f"[sharded] two runs of 3 unsharded steps from one start: losses "
+              f"{drift[0]} and {drift[1]} (largest relative difference "
+              f"{max(abs(a - b) / abs(a) for a, b in zip(*drift)):.2e})")
+        runs = {"unsharded": (None, state_u, step_u, target),
+                "mesh": (None, state_m, step_m, tgt_m)}
+        times = {label: _time_ms(lambda r=r: r[2](r[1], r[3]), 20, 2)
+                 for label, r in runs.items()}
+        n_grad = sum(v.numel() for v in scene_leaves(state_m.scene).values()) + 1
+        buf = torch.zeros(n_grad, device=dev)
+        ar = _time_ms(lambda: mesh.all_reduce(buf), 100)
+        for label, (med, lo, hi) in times.items():
+            print(f"[time] [sharded] train 1080p phong+soft shadows, {label} step: "
+                  f"median {med:.4f} ms [{lo:.4f}, {hi:.4f}] over 20; {smi}")
+        print(f"[time] [sharded] the all-reduce of the step's {n_grad} floats alone "
+              f"(NCCL, one rank): median {ar[0]:.4f} ms [{ar[1]:.4f}, {ar[2]:.4f}] "
+              f"over 100; step difference {times['mesh'][0] - times['unsharded'][0]:+.4f} "
+              f"ms; {smi}")
+
+        # ---- (d) the frame block by block ---------------------------------
+        pin = T.pinhole_camera((w / 2.0, h / 2.0, 900.0), (w / 2.0, h / 2.0, -85.0),
+                               fov_degrees=60.0, width=w, height=h, device=dev)
+        packed = T.RenderConfig(width=w, height=h, shading="phong", shadows=True,
+                                framebuffer_dtype="packed")
+        cases = (
+            ("B1 packed ortho", cam, packed, "words"),
+            ("B1 packed pinhole", pin, packed, "words"),
+            ("B2 float ortho", cam, packed.replace(framebuffer_dtype="float"), "float"),
+            ("B4 soft ortho", cam, soft, "soft"),
+            ("xla float ortho", cam, packed.replace(framebuffer_dtype="float",
+                                                    backend="xla"), "identical"),
+        )
+        for label, cam_, cfg_, bar in cases:
+            flat, grid = _sharded_frames(T, dev, headline, cam_, cfg_, counted)
+            with torch.no_grad():
+                full = render(headline, cam_, cfg_)
+            _require(torch.equal(flat, grid), f"[sharded] {label}: the 2x2 blocks "
+                                              "differ from the 4-way blocks")
+            _require(tuple(flat.shape) == tuple(full.shape), f"[sharded] {label}: "
+                     f"{tuple(flat.shape)}")
+            if bar == "words":
+                share = (flat == full).float().mean().item()
+                msg = f"{share:.6f} of words identical (bar 0.995)"
+                ok = share >= 0.995
+            elif bar == "float":
+                err = _errors(flat, full, "float")
+                share = (err < 0.5).float().mean().item()
+                msg = (f"{share:.6f} of pixels within 0.5/255 (bar 0.995), max err "
+                       f"{err.max().item():.4f}")
+                ok = share >= 0.995
+            elif bar == "soft":
+                # Two tilings of the reference's tiled soft function, held as
+                # phase 12 holds two formulations: its frame depends on the
+                # tile grid (scripts/torch_soft_tiling.py)
+                err = (flat - full).abs().amax(-1)
+                share = (err < FWD_BAR).float().mean().item()
+                msg = (f"{share:.6f} of pixels within {FWD_BAR}/255 (bar 0.999), "
+                       f"max err {err.max().item():.5f}, "
+                       f"{(err > 1e-2).sum().item()} pixels over 1e-2")
+                ok = share >= 0.999
+            else:
+                ok = torch.equal(flat, full)
+                msg = f"identical: {ok}"
+            print(f"[sharded] 1080p headline {label}, 4 blocks of 270 rows (= 2x2 "
+                  f"blocks, identical) vs the unsharded frame: {msg}")
+            _require(ok, f"[sharded] {label}: {msg}")
+
+        # the blocks through the kernels against their twins: B2 on the last
+        # block (rows 810-1079: tile rows not on the frame's), B4 on each
+        last = shift_camera_rows(cam, 810)
+        fcfg = packed.replace(height=270, framebuffer_dtype="float")
+        pk = headline.pack()
+        bins = fwd_tiled.bin_for_config(pk, last, fcfg)
+        args, kw = fwd_tiled.kernel_inputs(pk, last, bins, height=270, width=w,
+                                           shading="phong", shadows=True,
+                                           out_format="float")
+        _check_twin("[sharded] last block, B2 vs twin", fwd_tiled.tiled_kernel(*args, **kw),
+                    fwd_tiled._tiled_kernel_plain(*args, **kw), "float")
+        block_cfg = soft.replace(height=270)
+        for r in range(4):
+            ops = _soft_operands(headline, shift_camera_rows(cam, r * 270), block_cfg)
+            with torch.no_grad():
+                ferr = (S.soft_tiled_fwd(*ops[:4], cfg=ops[4])
+                        - S._soft_tiled_plain(*ops[:4], cfg=ops[4])).abs().max().item()
+            print(f"[sharded] block {r}, B4 vs twin: max err {ferr:.5f} (bar {FWD_BAR})")
+            _require(ferr < FWD_BAR, f"[sharded] block {r} B4 vs twin {ferr}")
+
+        # the 4 blocks' gradients, summed: against the same blocks through the
+        # twin (B5 on these inputs, phase 7's bar) and against the unsharded
+        # gradients (two tilings: phase 12's bar for two formulations)
+        inv_npix = 1.0 / (h * w * 3.0)
+        loss_fn = lambda img: ((img[..., :3] * (1.0 / 255.0)) ** 2).sum() * inv_npix  # noqa: E731
+
+        def block_grads(render_block):
+            total = None
+            for r in range(4):
+                g = _leaf_grads(lambda s, c, cf, r=r: render_block(
+                    s, shift_camera_rows(c, r * 270), cf.replace(height=270)),
+                    headline, cam, soft, loss_fn)
+                total = g if total is None else {k: total[k] + g[k] for k in g}
+            return total
+
+        got = counted(lambda: block_grads(
+            lambda s, c, cf: _render_rows(s, c, cf.height, cf.width, cf)))
+        terr = _compare_grads("[sharded] B5 4 blocks vs twin", got,
+                              block_grads(_twin_render), 1e-3)
+        want = _leaf_grads(S.render_soft_tiled, headline, cam, soft, loss_fn)
+        gerr = _compare_grads("[sharded] B5 4 blocks vs unsharded", got, want, 5e-3)
+        print(f"[sharded] the sum of the 4 blocks' scene-leaf gradients: vs the "
+              f"same blocks through the twin, normalised max err {terr:.2e} (bar "
+              f"1e-3); vs the unsharded step's {gerr:.2e} (bar 5e-3)")
+
+        # the 4-block frame's time against the unsharded frame's
+        for label, cfg_ in (("B1 packed ortho", packed), ("B4 soft ortho", soft)):
+            def blocks(cfg_=cfg_):
+                with torch.no_grad():
+                    for r in range(4):
+                        _render_rows(headline, shift_camera_rows(cam, r * 270), 270,
+                                     w, cfg_)
+
+            def whole(cfg_=cfg_):
+                with torch.no_grad():
+                    render(headline, cam, cfg_)
+
+            tb, tw = _time_ms(blocks, 20), _time_ms(whole, 20)
+            print(f"[time] [sharded] 1080p headline {label}: 4 blocks one after "
+                  f"another median {tb[0]:.4f} ms [{tb[1]:.4f}, {tb[2]:.4f}], the "
+                  f"unsharded frame {tw[0]:.4f} ms [{tw[1]:.4f}, {tw[2]:.4f}], over "
+                  f"20; {smi}")
+    finally:
+        dist.destroy_process_group()
+    print(f"[sharded] launches of the sharded calls: {launches}")
+    _require(all(v >= 1 for v in launches.values()),
+             f"phase 14's path did not go through its kernels: {launches}")
+    print(f"[sharded] phase 14 took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 

@@ -16,9 +16,16 @@ legacy frame under both cameras, the brute kernel's legacy frame, the
 100 + 100 stress frame at cull_k=96, soft forward + backward on 50 spheres
 + 4 cubes and on the stress scene (cull_k=96, shadow_cull_k=136), 4K
 legacy with 100 + 100 primitives, and the headline scene's phong and soft
-frames through the pinhole camera; then the train step, and parity scalars
-of scene 1 (tiled vs the oracle, soft gradients vs the torch-autograd
-oracle, pixel-gradient rows).
+frames through the pinhole camera; then the train step, the JAX bench's two
+mesh rows and parity scalars of scene 1 (tiled vs the oracle, soft
+gradients vs the torch-autograd oracle, pixel-gradient rows). The mesh
+rows: `shard_map_overhead`, the headline frame through `render_sharded` on
+a one-rank mesh against `render_tiled`, both re-binned in the call; and
+(unless --skip-scaling) the sharded train step at a fixed 256x256 frame
+over n = 1, 2, 4, 8 gloo ranks on the CPU (`sharding_eff_*`: t(1) / t(n)
+at fixed work and fixed cores, a check of the sharding structure, not of a
+card). `--scaling-worker N` runs that step over N ranks and prints one
+JSON line.
 
 Every row is the median and [min, max] of per-call CUDA-event times
 (bench_util.call_times_ms): the host's work inside a call counts. Beside
@@ -39,8 +46,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
+import time
 
 from opencl_ray_tracer_tpu_torch.bench_util import (
     call_times_ms,
@@ -65,6 +74,9 @@ PINHOLE_PHONG = "tiled phong+shadows 1080p pinhole"
 PINHOLE_SOFT = "fwd+bwd soft phong+shadows 1080p pinhole"
 TRAIN = "train step (adam) soft phong+shadows 1080p"
 
+SCALE_SIZE = 256               # the scaling row's fixed frame, SCALE_SIZE^2
+SCALE_RANKS = (1, 2, 4, 8)
+
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
@@ -79,8 +91,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--no-shadows", action="store_true")
     ap.add_argument("--cull-k", type=int, default=None)
     ap.add_argument("--skip-context", action="store_true",
-                    help="headline, dynamic, fwd+bwd, train-step and parity "
-                         "rows only")
+                    help="headline, dynamic, fwd+bwd, train-step, mesh and "
+                         "parity rows only")
+    ap.add_argument("--skip-scaling", action="store_true",
+                    help="no CPU sharding-efficiency row")
+    ap.add_argument("--scaling-worker", type=int, default=None, metavar="N",
+                    help="only the sharded train step over N gloo CPU ranks: "
+                         "one JSON line")
+    ap.add_argument("--scaling-size", type=int, default=SCALE_SIZE,
+                    help="the scaling row's square frame (its height must "
+                         "split over 8 ranks)")
     return ap.parse_args(argv)
 
 
@@ -231,11 +251,133 @@ def bench_train_step(scene, config, cam):
         make_train_step,
     )
 
-    step = make_train_step(cam, config)
-    state = init_train_state(scene, adam(1e-3))
+    optimizer = adam(1e-3)
+    step = make_train_step(cam, config, optimizer)
+    state = init_train_state(scene, optimizer)
     target = torch.zeros((config.height, config.width, 4), dtype=torch.float32,
                          device=scene.sphere_origin.device)
     return lambda: step(state, target)
+
+
+def bench_sharded_overhead(scene, config, cam, n=20):
+    """(sharded ms, unsharded ms): `render_sharded` of the frame on a
+    one-rank mesh against `render_tiled`, both binning inside the call (the
+    sharded path bins its block in the call too); per call the median of n
+    CUDA-event times, best of 3 runs each. The one-card stand-in for the
+    sharded forward: several cards are not measured."""
+    from opencl_ray_tracer_tpu_torch.kernels.fwd_tiled import render_tiled
+    from opencl_ray_tracer_tpu_torch.parallel import make_mesh, render_sharded
+
+    mesh = make_mesh(1)
+    best = lambda fn: min(median_spread(call_times_ms(fn, n))[0]  # noqa: E731
+                          for _ in range(3))
+    return (best(lambda: render_sharded(scene, cam, config, mesh=mesh)),
+            best(lambda: render_tiled(scene, cam, config)))
+
+
+def _scaling_rank(n: int, size: int) -> None:
+    """One gloo rank of the scaling row: the sharded train step (lambert,
+    soft, backend "xla": the torch-autograd oracle) at a fixed size x size
+    frame over n ranks, each with 1/n of torch's threads (OMP_NUM_THREADS
+    where set, else the cores: fixed work, fixed cores, ideal t(n) ==
+    t(1)). Rank 0 prints one JSON line: the median and spread of 5 runs of
+    10 steps, microseconds a step."""
+    import torch
+
+    from opencl_ray_tracer_tpu_torch import RenderConfig, create_scene, legacy_ortho_camera
+    from opencl_ray_tracer_tpu_torch.parallel import (
+        adam,
+        distributed,
+        init_train_state,
+        make_mesh,
+        make_train_step,
+        replicate,
+        shard_rows,
+    )
+
+    torch.set_num_threads(max(1, torch.get_num_threads() // n))
+    distributed.initialize(backend="gloo")
+    try:
+        cpu = torch.device("cpu")
+        config = RenderConfig(width=size, height=size, shading="lambert",
+                              soft=True, framebuffer_dtype="float", backend="xla")
+        mesh = make_mesh(n)
+        optimizer = adam(1e-3)
+        step = make_train_step(legacy_ortho_camera(device=cpu), config, optimizer,
+                               mesh=mesh)
+        target = shard_rows(torch.zeros((size, size, 4)), mesh)
+        state = init_train_state(replicate(create_scene(1, device=cpu), mesh),
+                                 optimizer)
+        state, _ = step(state, target)  # warm
+        n_steps, samples = 10, []
+        for _ in range(5):
+            t0 = time.perf_counter_ns()
+            for _ in range(n_steps):
+                state, loss = step(state, target)
+            samples.append((time.perf_counter_ns() - t0) / 1e3 / n_steps)
+        us, lo, hi = median_spread(samples)
+        if mesh.rank == 0:
+            print(json.dumps({"n": n, "size": size, "us_per_step": us,
+                              "us_min": lo, "us_max": hi, "loss": float(loss)}))
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def scaling_worker(n: int, size: int = SCALE_SIZE) -> dict:
+    """The scaling row at n ranks: n gloo CPU processes of
+    `--scaling-worker n` started here; rank 0's JSON line."""
+    from opencl_ray_tracer_tpu_torch.parallel import distributed
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {"PYTHONPATH": os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p)}
+    procs = distributed.launch_local(
+        n, [sys.executable, "-m", "opencl_ray_tracer_tpu_torch.bench",
+            "--scaling-worker", str(n), "--scaling-size", str(size)], 1200, env)
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            raise RuntimeError(f"scaling rank {r} of {n} failed:\n{p.stderr[-2000:]}")
+    return json.loads(procs[0].stdout.strip().splitlines()[-1])
+
+
+def bench_weak_scaling(size: int = SCALE_SIZE) -> dict:
+    """{n: the scaling row at n ranks} for n = 1, 2, 4, 8."""
+    return {n: scaling_worker(n, size) for n in SCALE_RANKS}
+
+
+def mesh_keys(sharded_ms: float, unsharded_ms: float, scaling=None) -> dict:
+    """The JSON keys of the mesh rows, under the JAX bench's names:
+    shard_map_overhead (sharded / unsharded - 1); with the scaling row,
+    sharding_eff_8dev_fixed_work = t(1) / t(n max), its range from the
+    spreads, and sharding_eff_semantics."""
+    out = {"shard_map_overhead": sharded_ms / unsharded_ms - 1.0,
+           "sharded_fwd_ms": sharded_ms, "unsharded_fwd_ms": unsharded_ms}
+    if scaling:
+        one, top = scaling[1], scaling[max(scaling)]
+        out.update({
+            "sharding_eff_8dev_fixed_work": one["us_per_step"] / top["us_per_step"],
+            "sharding_eff_range": [one["us_min"] / top["us_max"],
+                                   one["us_max"] / top["us_min"]],
+            "sharding_eff_semantics": "cpu-mesh-structure-check",
+        })
+    return out
+
+
+def bench_mesh_rows(args, scene, config, cam) -> dict:
+    """The two mesh rows (the scaling row unless --skip-scaling), printed
+    and as their JSON keys."""
+    sh, un = bench_sharded_overhead(scene, config, cam)
+    print(f"# sharded fwd (one-rank mesh): {sh:.4f} ms a frame against "
+          f"{un:.4f} unsharded, both binning in the call (overhead "
+          f"{100.0 * (sh / un - 1.0):+.1f}%)", file=sys.stderr)
+    scaling = None if args.skip_scaling else bench_weak_scaling(args.scaling_size)
+    for n, r in sorted((scaling or {}).items()):
+        print(f"# sharding efficiency (gloo CPU ranks, fixed {r['size']}x"
+              f"{r['size']}): n={n} {r['us_per_step']:.0f} us/step "
+              f"[{r['us_min']:.0f}, {r['us_max']:.0f}] efficiency "
+              f"{scaling[1]['us_per_step'] / r['us_per_step']:.3f}", file=sys.stderr)
+    return mesh_keys(sh, un, scaling)
 
 
 def bench_parity(device) -> dict:
@@ -314,6 +456,12 @@ def bench_parity(device) -> dict:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    if args.scaling_worker is not None:  # CPU ranks, asked for explicitly
+        if "WORLD_SIZE" in os.environ:
+            _scaling_rank(args.scaling_worker, args.scaling_size)
+        else:
+            print(json.dumps(scaling_worker(args.scaling_worker, args.scaling_size)))
+        return 0
     import torch
 
     if not torch.cuda.is_available():
@@ -418,6 +566,7 @@ def main(argv=None) -> int:
         _row(rows, PINHOLE_SOFT, fn, 20, n_pix, **_caps(bins))
 
     ts = _row(rows, TRAIN, bench_train_step(scene_hl, cfg_soft, cam), 20, n_pix)
+    mesh = bench_mesh_rows(args, scene_hl, cfg_hl, cam)
 
     parity = bench_parity(device)
     print("# parity (scene 1, on the card): legacy identical "
@@ -441,6 +590,7 @@ def main(argv=None) -> int:
         **({"stress_fwd_bwd_rays_per_s": stress["rays_per_s"]}
            if stress is not None else {}),
         "train_step_ms": ts["ms"],
+        **mesh,
         "rows": rows,
         **parity,
         "device": smi,

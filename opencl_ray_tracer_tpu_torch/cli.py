@@ -132,10 +132,13 @@ def cmd_fit(args) -> int:
         fit_scene,
         perturb_scene,
     )
+    from opencl_ray_tracer_tpu_torch.parallel import distributed
     from opencl_ray_tracer_tpu_torch.utils import write_png
 
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is visible: fit runs on the card")
+    # under torchrun, one card a rank: the fit's rows shard over the ranks
+    distributed.initialize()
     device = torch.device("cuda")
     shading = args.shading if args.shading != "legacy" else "lambert"
     cfg = _config_from(args).replace(
@@ -167,7 +170,7 @@ def cmd_fit(args) -> int:
         print("loss: %.6f -> %.6f" % (losses[0], losses[-1]))
     print(f"{args.steps} steps in {secs:.2f} s on {torch.cuda.get_device_name(device)} "
           f"(includes the kernel build on a first run)")
-    if args.out:
+    if args.out and distributed.rank() == 0:
         with torch.no_grad():
             write_png(args.out, render_soft(fitted, cam, cfg))
         print(f"wrote {args.out}")

@@ -15,6 +15,11 @@ import torch
 
 from opencl_ray_tracer_tpu_torch.camera import Camera, legacy_ortho_camera
 from opencl_ray_tracer_tpu_torch.config import RenderConfig
+from opencl_ray_tracer_tpu_torch.parallel.mesh import (
+    mesh_from_config,
+    replicate,
+    shard_rows,
+)
 from opencl_ray_tracer_tpu_torch.parallel.train import (
     adam,
     init_train_state,
@@ -80,31 +85,36 @@ def fit_scene(
     checkpoint_dir: Optional[str] = None,
     checkpoint_every: int = 50,
 ):
-    """Gradient-fit `init_scene` to `target` (H, W, 4 in the 0..255 domain)
-    on the scene's device. Returns (scene, losses). Uses Adam; `trainable`
-    optionally restricts the fit to named scene fields (e.g. SPHERE_PARAMS).
+    """Gradient-fit `init_scene` to `target` (H, W, 4 in the 0..255 domain).
+    Returns (scene, losses). Uses Adam; `trainable` optionally restricts the
+    fit to named scene fields (e.g. SPHERE_PARAMS).
+
+    Rows are sharded over `mesh`, or else over `mesh_from_config(config)`:
+    every rank of the process group for mesh_shape None, one rank (the
+    scene's device, no communication) without a group. Each rank calls
+    this with the same arguments; the target's rows are split here and the
+    scene is broadcast from rank 0.
 
     With `checkpoint_dir`, the TrainState (scene + optimizer + step) is
-    saved every `checkpoint_every` steps and at the end, and a killed run
-    resumes from the latest checkpoint on the next call."""
-    dev = init_scene.device
+    saved every `checkpoint_every` steps and at the end (by rank 0), and a
+    killed run resumes from the latest checkpoint on the next call."""
     config = config or RenderConfig(
         width=int(target.shape[1]), height=int(target.shape[0]),
         shading="lambert", soft=True, framebuffer_dtype="float",
     )
-    if mesh is None and config.mesh_shape not in (None, (1,)):
-        raise NotImplementedError(
-            f"mesh_shape {config.mesh_shape}: the row-sharded train step is "
-            "not ported yet (ROADMAP A9)"
-        )
-    camera = camera or legacy_ortho_camera(device=dev)
+    mesh = mesh or mesh_from_config(config)
+    scene = replicate(init_scene, mesh)
+    camera = camera or legacy_ortho_camera(device=scene.device)
     fltr = param_filter_from_names(trainable) if trainable else None
-    step = make_train_step(camera, config, mesh=mesh, param_filter=fltr)
+    optimizer = adam(learning_rate)
+    step = make_train_step(camera, config, optimizer, mesh=mesh,
+                           param_filter=fltr)
 
     target = torch.as_tensor(np.asarray(
         target.detach().cpu() if isinstance(target, torch.Tensor) else target,
-        np.float32)).to(dev)
-    state = init_train_state(init_scene, adam(learning_rate))
+        np.float32))
+    target = shard_rows(target, mesh).to(scene.device)
+    state = init_train_state(scene, optimizer)
     if checkpoint_dir:
         from opencl_ray_tracer_tpu_torch.parallel.checkpoint import (
             resume_or_init,
@@ -122,5 +132,5 @@ def fit_scene(
             losses.append(lv)
             log_info("fit_scene step %d loss %.6f", i, lv)
         if checkpoint_dir and ((i + 1) % checkpoint_every == 0 or i == steps - 1):
-            save_checkpoint(checkpoint_dir, state)
+            save_checkpoint(checkpoint_dir, state, mesh=mesh)
     return scene_snapshot(state.scene), losses

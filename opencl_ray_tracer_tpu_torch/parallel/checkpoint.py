@@ -1,7 +1,11 @@
 """Checkpoint / resume of a TrainState: the scene leaves, the optimizer's
 state_dict and the step, in one `torch.save` file per checkpoint
 (`<dir>/step_<8 digits>.pt`). Long inverse-rendering fits are real
-training runs; a killed run resumes from the latest checkpoint."""
+training runs; a killed run resumes from the latest checkpoint.
+
+Over a mesh the state is replicated: rank 0 writes, every rank waits at a
+barrier until the file is there, and every rank resumes from the same
+file."""
 
 from __future__ import annotations
 
@@ -10,24 +14,32 @@ from typing import Optional
 
 import torch
 
+from opencl_ray_tracer_tpu_torch.parallel.mesh import Mesh
 from opencl_ray_tracer_tpu_torch.parallel.train import TrainState, scene_leaves
 from opencl_ray_tracer_tpu_torch.utils.log import log_info
 
 
-def save_checkpoint(path: str, state: TrainState, step: Optional[int] = None) -> str:
-    """Save a TrainState. Returns the checkpoint path written."""
+def save_checkpoint(path: str, state: TrainState, step: Optional[int] = None,
+                    mesh: Optional[Mesh] = None) -> str:
+    """Save a TrainState (on a mesh: rank 0 writes, every rank waits for
+    it). Returns the checkpoint path."""
     step = int(state.step) if step is None else step
+    p = os.path.join(path, f"step_{step:08d}.pt")
+    if mesh is not None and mesh.rank != 0:
+        mesh.barrier()
+        return p
     os.makedirs(path, exist_ok=True)
     payload = {
         "scene": {k: v.detach().cpu() for k, v in scene_leaves(state.scene).items()},
         "optimizer": state.opt_state.state_dict(),
         "step": step,
     }
-    p = os.path.join(path, f"step_{step:08d}.pt")
     tmp = f"{p}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, p)
     log_info("checkpoint saved to %s", p)
+    if mesh is not None:
+        mesh.barrier()
     return p
 
 

@@ -84,9 +84,10 @@ def test_adam_steps_match_optax():
     jstate = j_init(replicate(js0, mesh), opt)
     jtarget = shard_rows(jnp.asarray(target.numpy()), mesh)
 
-    tstep = make_train_step(T.legacy_ortho_camera(device=CPU), tcfg,
+    topt = adam(lr)
+    tstep = make_train_step(T.legacy_ortho_camera(device=CPU), tcfg, topt,
                             param_filter=param_filter_from_names(SPHERE_PARAMS))
-    tstate = init_train_state(ts0, adam(lr))
+    tstate = init_train_state(ts0, topt)
     for i in range(3):
         jstate, jloss = jstep(jstate, jtarget)
         tstate, tloss = tstep(tstate, target)
@@ -103,12 +104,16 @@ def test_adam_steps_match_optax():
 
 
 def test_make_train_step_rejects_mesh_and_msaa():
+    """A mesh is taken now (tests/test_torch_parallel.py); one whose ranks do
+    not split the height is rejected, and so is msaa."""
+    from opencl_ray_tracer_tpu_torch.parallel import IMAGE_AXIS, Mesh
+
     cfg = T.RenderConfig(width=W, height=H, soft=True, framebuffer_dtype="float")
     cam = T.legacy_ortho_camera(device=CPU)
-    with pytest.raises(NotImplementedError, match="A9"):
-        make_train_step(cam, cfg, mesh=object())
+    with pytest.raises(ValueError, match="divisible"):
+        make_train_step(cam, cfg, adam(0.1), mesh=Mesh((3,), (IMAGE_AXIS,)))
     with pytest.raises(ValueError, match="msaa"):
-        make_train_step(cam, cfg.replace(msaa=4))
+        make_train_step(cam, cfg.replace(msaa=4), adam(0.1))
 
 
 @pytest.fixture(scope="module")
