@@ -5,8 +5,8 @@
 
 Drives the port's paths — the tiled hard forward frame, the soft
 differentiable train step, the brute render path (forward and
-differentiable) and the row-sharded path — through the entry points a user
-calls, and fails
+differentiable), the row-sharded path and the app shell — through the
+entry points a user calls, and fails
 (non-zero exit, no result line) unless every phase passes:
 
 1. device: torch, CUDA and nvcc versions, the card's name and power limit;
@@ -116,7 +116,18 @@ calls, and fails
    soft frame depends on its tile grid), the last block through B2 and
    every block through B4 against their twins, and the 4 blocks' summed
    scene-leaf gradients (B5) within 1e-3 normalised of the same blocks
-   through the twin and within 5e-3 of the unsharded ones.
+   through the twin and within 5e-3 of the unsharded ones;
+15. the app shell, in this process so that its launches are counted:
+   `cli compare` on scenes 1 and 2 at 640x480 legacy and on scene 1 at
+   1920x1080 phong + shadows (exit 0 and OK; the CPU leg on the CPU, the
+   accelerated leg on the card; both times and the speedup); `cli app
+   --keys` over the three backends and scenes 1-3 at 640x480 with a PNG of
+   every frame (pallas frames identical to the scene's CPU frame on >
+   99.9% of pixels, xla frames on >= 99.9%); the flythrough example at its
+   defaults (1280x720, 60 frames, phong + shadows, pinhole; frame 0
+   through B2 against the twin) and the inverse-rendering example at its
+   defaults (the loss falls; B4 and B5 launched); the memory report shows
+   bytes in use on the card and the platform report names it.
 
 Hard kernel vs twin is bounded on every pixel: float frames within 0.5/255,
 packed and int frames within one step of 1/255 (and identical on >= 99.5%
@@ -212,7 +223,7 @@ def main() -> int:
     from opencl_ray_tracer_tpu_torch.kernels import _build, fwd_tiled
     from opencl_ray_tracer_tpu_torch.models.renderer import render
     from opencl_ray_tracer_tpu_torch.ops.shading import pack_framebuffer_words
-    from opencl_ray_tracer_tpu_torch.ref import render_reference
+    from opencl_ray_tracer_tpu_torch.ref.tracer import _render_oracle
     from opencl_ray_tracer_tpu_torch.utils import pack_rgba, read_png
     from opencl_ray_tracer_tpu_torch.utils import profiling as P
 
@@ -353,7 +364,7 @@ def main() -> int:
         _require(bool(torch.isfinite(fk).all()), f"{label}: non-finite pixels")
         ferr = _check_twin(f"[main] {label}: kernel vs twin", fk,
                            fwd_tiled._tiled_kernel_plain(*fargs, **fkw), "float")
-        fo = render_reference(scene, ortho, cfg.replace(framebuffer_dtype="float"))
+        fo = _render_oracle(scene, ortho, cfg.replace(framebuffer_dtype="float"))
         ofrac, lit = _lit_agreement(fk, fo)
         pfrac = (_errors(out, pack_framebuffer_words(fo), "packed") == 0
                  ).float().mean().item()
@@ -435,10 +446,11 @@ def main() -> int:
     brute_rows = brute_phase_full_size(T, dev, smi)  # 12
     new = new_sizes_phase(T, dev, smi)          # 13
     sharded = sharded_phase(T, dev, smi)        # 14
+    shell = shell_phase(T, dev, smi)            # 15
     for row, key in zip(soft_rows, ("B4", "B5")):
         row["launches_by_path"] = {"phase 9": row["launches"], "phase 13": new[key],
-                                   "phase 14": sharded[key]}
-        row["launches"] += new[key] + sharded[key]
+                                   "phase 14": sharded[key], "phase 15": shell[key]}
+        row["launches"] += new[key] + sharded[key] + shell[key]
 
     hl = kernel_rows[0]
     print(smi)  # name, power limit exactly as nvidia-smi gives them
@@ -467,8 +479,9 @@ def main() -> int:
         "route": "cuda",
         "source": src,
         "replaces": "opencl_ray_tracer_tpu/kernels/fwd_tiled.py:1358",
-        "launches": new["B2"] + sharded["B2"],
-        "launches_by_path": {"phase 13": new["B2"], "phase 14": sharded["B2"]},
+        "launches": new["B2"] + sharded["B2"] + shell["B2"],
+        "launches_by_path": {"phase 13": new["B2"], "phase 14": sharded["B2"],
+                             "phase 15": shell["B2"]},
         "max_abs_err": hl["ferr"],
         "tolerance": "every pixel within 0.5/255 of the twin",
         "shape": hl["label"].replace("packed", "float"),
@@ -1214,7 +1227,7 @@ def brute_phase_hard_vs_twin(T, dev):
     import torch
 
     from opencl_ray_tracer_tpu_torch.kernels import fwd, fwd_tiled
-    from opencl_ray_tracer_tpu_torch.ref import render_reference
+    from opencl_ray_tracer_tpu_torch.ref.tracer import _render_oracle
 
     before = fwd.BRUTE_LAUNCHES
     worst, n_cases = 0.0, 0
@@ -1243,7 +1256,7 @@ def brute_phase_hard_vs_twin(T, dev):
                     f"{label} vs tiled B1", got,
                     fwd_tiled.render_tiled_packed(packed, cam, cfg))
                 _check_other_formulation(f"{label} vs oracle", got,
-                                         render_reference(scene, cam, cfg))
+                                         _render_oracle(scene, cam, cfg))
                 n_cases += 1
     # 400 cubes (4,800 triangles, 230 KB of geometry): more than the shadow
     # walk can hold in shared memory, so it stages 128 primitives at a time
@@ -1930,7 +1943,7 @@ def new_sizes_phase(T, dev, smi):
     from opencl_ray_tracer_tpu_torch.kernels import soft_tiled as S
     from opencl_ray_tracer_tpu_torch.models.renderer import render
     from opencl_ray_tracer_tpu_torch.parallel.train import trainable_scene
-    from opencl_ray_tracer_tpu_torch.ref import render_reference
+    from opencl_ray_tracer_tpu_torch.ref.tracer import _render_oracle
     from opencl_ray_tracer_tpu_torch.utils import profiling as P
 
     t_phase = time.perf_counter()
@@ -2055,7 +2068,7 @@ def new_sizes_phase(T, dev, smi):
                              framebuffer_dtype=fmt)
         xla = render(headline, ortho, cfg, backend="xla")
         _require(tuple(xla.shape) == (h, w, 4), f"[new] xla frame {xla.shape}")
-        oracle = render_reference(headline, ortho, cfg)
+        oracle = _render_oracle(headline, ortho, cfg)
         tiled = render(headline, ortho, cfg, backend="pallas")
         label = f"[new] xla 1080p headline {shading} {fmt}"
         if fmt == "float":
@@ -2387,6 +2400,185 @@ def sharded_phase(T, dev, smi):
     _require(all(v >= 1 for v in launches.values()),
              f"phase 14's path did not go through its kernels: {launches}")
     print(f"[sharded] phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# The app shell: cli compare, cli app, the two examples (through B2, B4, B5)
+# ---------------------------------------------------------------------------
+
+def _example(name):
+    """examples/<name>.py of this checkout, imported as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
+                        f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _cli(argv):
+    """The port's CLI in this process, as a user runs it: (exit code,
+    stdout). It runs in this process so that the launch counts see it."""
+    import contextlib
+    import io
+
+    from opencl_ray_tracer_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    out = buf.getvalue()
+    print("\n".join(f"    | {line}" for line in out.strip().splitlines()[-24:]))
+    return rc, out
+
+
+def shell_phase(T, dev, smi):
+    """Phase 15: the app shell on the card, through the entry points a user
+    calls, each counted (the counts set to 0 just before and read just
+    after). (a) `cli compare` on scenes 1 and 2 at 640x480 legacy and on
+    scene 1 at 1920x1080 phong + shadows: exit 0 and OK, the CPU leg on
+    the CPU, both times and the speedup; (b) `cli app --keys` over the
+    three backends and scenes 1-3 at 640x480 with a PNG of every frame:
+    each pallas frame identical to the same scene's reference frame on >
+    99.9% of pixels (compare's bar), each xla frame on >= 99.9% (phase
+    13's); (c) examples/torch_flythrough_demo.py at its defaults (1280x720,
+    60 frames, phong + shadows, pinhole), frame 0 through B2 against the
+    twin at the hard bars; (d) examples/torch_inverse_rendering_demo.py at
+    its defaults on one card: the loss falls; (e) the memory report shows
+    bytes in use on the card, the platform report names it. Returns the
+    launches of its main path per kernel."""
+    import contextlib
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from opencl_ray_tracer_tpu_torch.kernels import fwd_tiled
+    from opencl_ray_tracer_tpu_torch.kernels import soft_tiled as S
+    from opencl_ray_tracer_tpu_torch.utils import memory, platform_info, read_png
+
+    t_phase = time.perf_counter()
+    launches = {"B1": 0, "B2": 0, "B4": 0, "B5": 0}
+
+    def counted(fn, hard="B2"):
+        fwd_tiled.KERNEL_LAUNCHES = 0
+        S.FWD_LAUNCHES = S.BWD_LAUNCHES = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {hard: fwd_tiled.KERNEL_LAUNCHES, "B4": S.FWD_LAUNCHES,
+               "B5": S.BWD_LAUNCHES}
+        for k, v in got.items():
+            launches[k] += v
+        return out, got
+
+    # ---- (a) cli compare ---------------------------------------------------
+    card = torch.cuda.get_device_name(0)
+    for argv in (["--scene", "1"], ["--scene", "2"],
+                 ["--scene", "1", "--width", "1920", "--height", "1080",
+                  "--shading", "phong", "--shadows"]):
+        t0 = time.perf_counter()
+        (rc, out), got = counted(lambda: _cli(["compare", *argv]))
+        cpu = re.search(r"CPU \(reference\) \[(\S+)\]:\s+(\d+) us", out)
+        acc = re.search(r"pallas \[(\S+) ([^\]]+)\]:\s+(\d+) us", out)
+        speed = re.search(r"speedup: (\S+)x", out)
+        check = re.search(r"cross-check: (.*) -> (OK|MISMATCH)", out)
+        label = f"[shell] cli compare {' '.join(argv)}"
+        _require(rc == 0 and check and check.group(2) == "OK",
+                 f"{label}: exit {rc}, {check and check.group(0)}")
+        _require(cpu and cpu.group(1) == "cpu", f"{label}: the CPU leg ran on "
+                 f"{cpu and cpu.group(1)}")
+        _require(acc and acc.group(1) == "cuda:0" and acc.group(2) == card,
+                 f"{label}: the accelerated leg ran on {acc and acc.group(0)}")
+        _require(got["B2"] >= 43, f"{label}: B2 launched {got['B2']} times")
+        print(f"{label}: exit {rc}, {check.group(1)} -> OK; CPU leg on "
+              f"{cpu.group(1)} {int(cpu.group(2))} us, pallas on {acc.group(1)} "
+              f"{int(acc.group(3))} us (time_fn medians), speedup {speed.group(1)}x; "
+              f"{got['B2']} B2 launches; {time.perf_counter() - t0:.1f} s; {smi}")
+
+    # ---- (b) cli app --keys ------------------------------------------------
+    # r: pallas scene 1; m: reference; m: xla; s: scene 2 (xla); m: pallas;
+    # m: reference; s: scene 3 (reference: 1,300 primitives, the slow CPU
+    # frame, once); m: xla; m: pallas; p after every frame
+    keys = "r,p,m,p,m,p,s,p,m,p,m,p,s,p,m,p,m,p,q"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        (rc, out), got = counted(lambda: _cli(["app", "--keys", keys]))
+        _require(rc == 0, f"[shell] cli app exit {rc}")
+        pngs = {}
+        for num in (1, 2, 3):
+            for backend in ("reference", "xla", "pallas"):
+                name = f"scene{num}_{backend}.png"
+                _require(os.path.exists(name), f"[shell] cli app wrote no {name}")
+                pngs[num, backend] = read_png(name)
+    modes = set(re.findall(r"Mode: (\w+) .*\| Scene (\d)", out))
+    _require(len(modes) == 9, f"[shell] cli app reached {sorted(modes)}")
+    _require(got["B2"] >= 3, f"[shell] cli app: B2 launched {got['B2']} times")
+    for num in (1, 2, 3):
+        ref = pngs[num, "reference"]
+        _require(ref.shape == (480, 640, 4), f"[shell] scene {num}: {ref.shape}")
+        for backend, bar in (("pallas", "> 0.999"), ("xla", ">= 0.999")):
+            same = float((pngs[num, backend] == ref).all(-1).mean())
+            ok = same > 0.999 if backend == "pallas" else same >= 0.999
+            print(f"[shell] cli app scene {num} 640x480 legacy: {backend} frame "
+                  f"vs the reference (CPU) frame, {same:.6f} of pixels identical "
+                  f"(bar {bar})")
+            _require(ok, f"[shell] cli app scene {num} {backend}: {same}")
+    print(f"[shell] cli app --keys {keys}: 9 frames over 3 backends x 3 scenes, "
+          f"9 PNGs; {got['B2']} B2 launches; {time.perf_counter() - t0:.1f} s")
+
+    # ---- (c) the flythrough at its defaults --------------------------------
+    fly = _example("torch_flythrough_demo")
+    res, got = counted(lambda: fly.main([]))
+    _require(got["B2"] >= 61 and res["frames"] == 60,
+             f"[shell] flythrough: {res}, launches {got}")
+    scene, cfg, camera_at = fly.setup(fly.parse_args([]))
+    packed, cam0 = scene.pack(), camera_at(0.0)
+    bins = fwd_tiled.bin_for_config(packed, cam0, cfg)
+    args, kw = fwd_tiled.kernel_inputs(
+        packed, cam0, bins, height=cfg.height, width=cfg.width,
+        shading=cfg.shading, shadows=cfg.shadows, out_format=cfg.framebuffer_dtype)
+    err = _check_twin("[shell] flythrough frame 0 1280x720 phong+shadows pinhole, "
+                      "B2 vs twin", fwd_tiled.tiled_kernel(*args, **kw),
+                      fwd_tiled._tiled_kernel_plain(*args, **kw), "float")
+    print(f"[shell] flythrough (defaults): {res['frames']} frames at 1280x720 in "
+          f"{res['seconds']:.3f} s, {res['fps']:.1f} fps, "
+          f"{res['fps'] * 1280 * 720:.3e} rays/s (host clock, a fence a frame); "
+          f"{got['B2']} B2 launches; frame 0 vs twin max err {err:.4f}; {smi}")
+
+    # ---- (d) the inverse-rendering demo at its defaults ----------------------
+    inv = _example("torch_inverse_rendering_demo")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        res, got = counted(lambda: inv.main(["--out-prefix",
+                                             os.path.join(tmp, "inv")]))
+        _require(all(os.path.exists(os.path.join(tmp, f"inv_{p}.png"))
+                     for p in ("target", "init", "fitted")), "[shell] inverse demo PNGs")
+    losses = res["losses"]
+    _require(got["B4"] >= 150 and got["B5"] >= 150,
+             f"[shell] inverse demo launches {got}")
+    _require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+             f"[shell] inverse demo losses {losses}")
+    print(f"[shell] inverse demo (defaults, 256x128, 150 steps, one card): loss "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}; B4 {got['B4']}, B5 {got['B5']} "
+          f"launches; {time.perf_counter() - t0:.1f} s; {smi}")
+
+    # ---- (e) memory and platform reports ----------------------------------
+    report = memory.format_memory_report()
+    print("[shell] memory report: " + report.replace("\n", "; "))
+    in_use = re.search(r"cuda:0: ([\d.]+) MB in use / ([\d.]+) MB", report)
+    _require(in_use and float(in_use.group(1)) > 0,
+             f"[shell] the memory report shows nothing in use on the card: {report}")
+    info = platform_info.system_info()
+    print(f"[shell] platform: backend {info['backend']}, devices {info['devices']}, "
+          f"torch {info['torch']}, cuda {info['cuda']}")
+    _require(info["backend"] == "gpu" and f"gpu:{card}#0" in info["devices"],
+             f"[shell] the platform report does not name the card: {info}")
+    print(f"[shell] launches of the shell's calls: {launches}")
+    print(f"[shell] phase 15 took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 

@@ -10,12 +10,14 @@ on the CPU). This package imports neither jax nor the JAX package.
   scene/     scene model (spheres SoA, cubes, lights) + built-in scene library
   camera     affine ray-bundle cameras (legacy ortho + pinhole)
   ops/       vectorised intersection + shading math (torch)
-  ref/       brute-force oracle tracer (reference semantics)
+  ref/       brute-force oracle tracer (reference semantics, host CPU)
   kernels/   binning + coefficient prep (torch) and the CUDA kernels
   bench      the benchmark entry (python -m opencl_ray_tracer_tpu_torch.bench)
   models/    renderer facade (render, Renderer, get_renderer, MSAA)
   runtime/   backend discovery & dispatch (torch.cuda)
-  utils/     logging, RNG, image/PNG IO (stdlib zlib)
+  utils/     logging, timers, RNG, image/PNG IO (stdlib zlib), memory and
+             platform info, terminal display, texture compositing
+  app/       app shell: state machine, input, frame loop, benchmark harness
 """
 
 __version__ = "0.1.0"
@@ -39,7 +41,11 @@ from opencl_ray_tracer_tpu_torch.scene import (
     scene_to_arrays,
 )
 from opencl_ray_tracer_tpu_torch.models import Renderer, get_renderer, render
-from opencl_ray_tracer_tpu_torch.runtime import Backend
+from opencl_ray_tracer_tpu_torch.runtime import (
+    Backend,
+    available_backends,
+    default_backend,
+)
 
 __all__ = [
     "RenderConfig",
@@ -61,4 +67,6 @@ __all__ = [
     "get_renderer",
     "render",
     "Backend",
+    "available_backends",
+    "default_backend",
 ]

@@ -400,17 +400,17 @@ def bench_parity(device) -> dict:
         scene_leaves,
         trainable_scene,
     )
-    from opencl_ray_tracer_tpu_torch.ref import render_reference
+    from opencl_ray_tracer_tpu_torch.ref.tracer import _render_oracle
 
     cam = legacy_ortho_camera(device=device)
     scene = create_scene(1, seed=0, device=device)
     out = {}
     cfg_i = RenderConfig(width=640, height=480, shading="legacy")
-    a, b = render_tiled(scene, cam, cfg_i), render_reference(scene, cam, cfg_i)
+    a, b = render_tiled(scene, cam, cfg_i), _render_oracle(scene, cam, cfg_i)
     out["parity_legacy_frac_identical"] = (a == b).all(-1).float().mean().item()
     cfg_f = RenderConfig(width=640, height=480, shading="phong", shadows=True,
                          framebuffer_dtype="float")
-    af, bf = render_tiled(scene, cam, cfg_f), render_reference(scene, cam, cfg_f)
+    af, bf = render_tiled(scene, cam, cfg_f), _render_oracle(scene, cam, cfg_f)
     out["parity_phong_frac_close"] = (
         (af - bf).abs().amax(-1) < 0.5).float().mean().item()
 

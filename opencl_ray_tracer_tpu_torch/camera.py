@@ -54,6 +54,12 @@ class Camera:
             d0=self.d0 + dx * self.ddx + dy * self.ddy,
         )
 
+    def to(self, device) -> "Camera":
+        """The same camera with its tensors on `device`."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self) if f.name != "normalize"})
+
     def rays(self, height: int, width: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Materialise (H, W, 3) origins and directions (oracle path)."""
         dev = self.device

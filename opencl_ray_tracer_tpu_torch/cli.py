@@ -3,14 +3,21 @@
 Subcommands:
 
   render    render a library scene to PNG on the card, on a chosen backend
+  compare   the reference app's whole purpose: run the same scene on the
+            CPU oracle (backend "reference", on the host CPU) and on the
+            card, print both wall times and the cross-check result (the
+            F1 toggle as a one-shot)
+  app       interactive benchmark shell on the card (state machine + input
+            manager; --keys for a scripted run)
   fit       inverse rendering on the card: recover a perturbed library
             scene's spheres through the soft differentiable renderer
   devices   device capability dump (openCLInit's platform/device listing)
   bench     the port's benchmark on the card (one JSON line on stdout);
             arguments after `bench` go to opencl_ray_tracer_tpu_torch.bench
 
-The JAX package's compare and app subcommands are not ported yet (ROADMAP
-A10).
+render, compare, app and fit raise without a card; compare's and app's
+logic (`compare_frames`, app.MainState) takes a device, so it also runs on
+the CPU when asked.
 
 Usage: python -m opencl_ray_tracer_tpu_torch.cli <subcommand> [options]
 """
@@ -20,6 +27,10 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+
+import numpy as np
+
+from opencl_ray_tracer_tpu_torch.runtime import card_or
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -46,6 +57,9 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--cam-look", type=float, nargs=3, default=None,
                    metavar=("X", "Y", "Z"))
     p.add_argument("--fov", type=float, default=60.0)
+    p.add_argument("--show", action="store_true",
+                   help="print the framebuffer to the terminal "
+                        "(24-bit ANSI half-blocks)")
 
 
 def _config_from(args):
@@ -95,11 +109,9 @@ def cmd_render(args) -> int:
     import torch
 
     from opencl_ray_tracer_tpu_torch import create_scene, render
-    from opencl_ray_tracer_tpu_torch.utils import write_png
+    from opencl_ray_tracer_tpu_torch.utils import show, write_png
 
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is visible: render runs on the card")
-    device = torch.device("cuda")
+    device = card_or(None, "render")
     cfg = _config_from(args)
     if args.packed:
         cfg = cfg.replace(framebuffer_dtype="packed")
@@ -114,6 +126,95 @@ def cmd_render(args) -> int:
           f"includes the kernel build)")
     write_png(args.out, fb)
     print(f"wrote {args.out}")
+    if args.show:
+        show(fb)
+    return 0
+
+
+def cross_check(fb_cpu, fb_acc):
+    """The reference's F1 cross-check: int frames must be identical on
+    more than 99.9% of pixels, float frames within 0.5/255 on more than
+    99.9%. Returns (the line to print, ok)."""
+    a = fb_cpu.detach().cpu().numpy()
+    b = fb_acc.detach().cpu().numpy()
+    if a.dtype == np.int32:
+        frac = np.all(a == b, axis=-1).mean()
+        check = f"{frac:.4%} pixels identical"
+    else:
+        frac = (np.abs(a - b).max(axis=-1) < 0.5).mean()
+        check = f"{frac:.4%} pixels within 0.5/255"
+    return check, bool(frac > 0.999)
+
+
+def compare_frames(scene, cam, cfg, accel: str):
+    """The same frame on the CPU oracle and on backend `accel` (on the
+    scene's device): both timed with time_fn (the oracle 3 calls a batch
+    after 1 warm-up, `accel` 10 after 2), then cross-checked. Returns
+    (stats, check, ok): stats holds time_fn's dict of each leg ("cpu",
+    "accel") and the device each frame lay on ("cpu_device",
+    "accel_device")."""
+    from opencl_ray_tracer_tpu_torch import render
+    from opencl_ray_tracer_tpu_torch.utils import time_fn
+    from opencl_ray_tracer_tpu_torch.utils.timer import fence
+
+    fb_cpu = render(scene, cam, cfg, backend="reference")
+    fb_acc = render(scene, cam, cfg, backend=accel)
+    fence((fb_cpu, fb_acc))
+    stats = {
+        "cpu": time_fn(lambda: render(scene, cam, cfg, backend="reference"),
+                       iters=3, warmup=1),
+        "accel": time_fn(lambda: render(scene, cam, cfg, backend=accel),
+                         iters=10, warmup=2),
+        "cpu_device": str(fb_cpu.device),
+        "accel_device": str(fb_acc.device),
+    }
+    check, ok = cross_check(fb_cpu, fb_acc)
+    return stats, check, ok
+
+
+def cmd_compare(args) -> int:
+    """CPU oracle vs the card: times + pixel cross-check; exit 0 on OK."""
+    import torch
+
+    from opencl_ray_tracer_tpu_torch import create_scene
+    from opencl_ray_tracer_tpu_torch.runtime import default_backend
+
+    device = card_or(None, "compare")
+    cfg = _config_from(args)
+    scene = create_scene(args.scene, seed=args.seed, device=device)
+    cam = _camera_from(args, cfg, device)
+    accel = args.backend or default_backend().value
+    stats, check, ok = compare_frames(scene, cam, cfg, accel)
+
+    n_rays = cfg.width * cfg.height
+    cpu_us, acc_us = stats["cpu"]["median_us"], stats["accel"]["median_us"]
+    card = torch.cuda.get_device_name(device)
+    print(f"scene {args.scene}  {cfg.width}x{cfg.height}  shading={cfg.shading}")
+    print(f"  CPU (reference) [{stats['cpu_device']}]: {cpu_us:>12.0f} us   "
+          f"{n_rays / (cpu_us / 1e6):.3e} rays/s")
+    print(f"  {accel} [{stats['accel_device']} {card}]: {acc_us:>12.0f} us   "
+          f"{n_rays / (acc_us / 1e6):.3e} rays/s")
+    print(f"  speedup: {cpu_us / acc_us:.1f}x")
+    print(f"  cross-check: {check} -> {'OK' if ok else 'MISMATCH'}")
+    return 0 if ok else 1
+
+
+def cmd_app(args) -> int:
+    from opencl_ray_tracer_tpu_torch.app import (
+        InputManager, MainState, StateManager, run_interactive, run_scripted,
+    )
+
+    device = card_or(None, "app")
+    cfg = _config_from(args)
+    manager = StateManager()
+    state = MainState(manager, InputManager(), config=cfg,
+                      scene_seed=args.seed, display=args.display, device=device)
+    manager.add_state(state)
+    if args.keys:
+        for line in run_scripted(manager, list(args.keys.split(","))):
+            print(line)
+    else:
+        run_interactive(manager)
     return 0
 
 
@@ -122,7 +223,6 @@ def cmd_fit(args) -> int:
     the target (with the soft oracle), perturb its sphere parameters and
     recover them by gradient descent through the soft renderer (the tiled
     soft kernels for backend pallas), with optional checkpoint/resume."""
-    import numpy as np
     import torch
 
     from opencl_ray_tracer_tpu_torch import create_scene
@@ -135,8 +235,7 @@ def cmd_fit(args) -> int:
     from opencl_ray_tracer_tpu_torch.parallel import distributed
     from opencl_ray_tracer_tpu_torch.utils import write_png
 
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is visible: fit runs on the card")
+    card_or(None, "fit")
     # under torchrun, one card a rank: the fit's rows shard over the ranks
     distributed.initialize()
     device = torch.device("cuda")
@@ -178,10 +277,11 @@ def cmd_fit(args) -> int:
 
 
 def cmd_devices(args) -> int:
-    from opencl_ray_tracer_tpu_torch.runtime import describe_devices
+    from opencl_ray_tracer_tpu_torch.runtime import default_device, describe_devices
 
     for line in describe_devices():
         print(line)
+    print("selected:", default_device())
     return 0
 
 
@@ -196,6 +296,18 @@ def main(argv=None) -> int:
                    help="packed int32 framebuffer (the kernel emits the "
                         "RGBA words directly)")
     p.set_defaults(fn=cmd_render)
+
+    p = sub.add_parser("compare", help="CPU vs card comparison")
+    _add_common(p)
+    p.set_defaults(fn=cmd_compare)
+
+    p = sub.add_parser("app", help="interactive benchmark shell")
+    _add_common(p)
+    p.add_argument("--keys", help="comma-separated scripted key events")
+    p.add_argument("--display", action="store_true",
+                   help="re-blit the terminal framebuffer after every "
+                        "trace (the per-frame window blit, headless)")
+    p.set_defaults(fn=cmd_app)
 
     p = sub.add_parser("fit", help="inverse rendering on the card")
     _add_common(p)

@@ -3,7 +3,8 @@
 A "model" here is a renderer configuration: shading model x backend. The
 facade dispatches to:
 
-  reference -> ref/tracer.py           (brute-force oracle)
+  reference -> ref/tracer.py           (brute-force oracle on the host CPU,
+                                        returning a CPU tensor)
   pallas    -> kernels/fwd_tiled.py    (the tiled hard kernel: CUDA on the
                                         card, its plain twin on the CPU)
   xla       -> models/xla_backend.py  (the whole frame in plain torch ops)
@@ -11,7 +12,7 @@ facade dispatches to:
                    kernels, forward and backward)
   soft + other  -> diff/soft.py render_soft (the torch-autograd oracle)
 
-The frame runs on the device the scene's tensors lie on.
+Every other frame runs on the device the scene's tensors lie on.
 """
 
 from __future__ import annotations
@@ -49,8 +50,9 @@ def render(
     config: Optional[RenderConfig] = None,
     backend: Union[Backend, str, None] = None,
 ) -> torch.Tensor:
-    """Render a frame on the scene's device. Returns (H, W, 4) int32 or
-    float32, or (H, W) int32 words for framebuffer_dtype "packed".
+    """Render a frame on the scene's device (on the host CPU for backend
+    "reference"). Returns (H, W, 4) int32 or float32, or (H, W) int32 words
+    for framebuffer_dtype "packed".
 
     config.msaa > 1 supersamples: `msaa` sub-pixel-jittered renders through
     the affine camera bundle, box-filtered, quantised once at the end
@@ -119,7 +121,8 @@ class Renderer:
         return render(scene, self.camera, self.config, backend=backend)
 
     def render_cpu(self, scene) -> torch.Tensor:
-        """The reference's CPU mode (executeRayTracerCPU): the oracle."""
+        """The reference's CPU mode (executeRayTracerCPU): the oracle on the
+        host CPU."""
         return self.render(scene, backend=Backend.REFERENCE)
 
     def render_accelerated(self, scene) -> torch.Tensor:

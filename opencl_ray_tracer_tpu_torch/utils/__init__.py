@@ -5,13 +5,27 @@ from opencl_ray_tracer_tpu_torch.utils.log import (
     log_warning,
     set_level,
 )
+from opencl_ray_tracer_tpu_torch.utils.timer import (
+    DeltaTime,
+    PerformanceCounter,
+    SimpleTimer,
+    now_ns,
+    time_fn,
+)
+from opencl_ray_tracer_tpu_torch.utils.display import render_ansi, show
 from opencl_ray_tracer_tpu_torch.utils.image import (
     pack_rgba,
     read_png,
     unpack_words,
     write_png,
 )
-from opencl_ray_tracer_tpu_torch.utils import rng
+from opencl_ray_tracer_tpu_torch.utils import (
+    mathutil,
+    memory,
+    platform_info,
+    profiling,
+    rng,
+)
 
 __all__ = [
     "get_logger",
@@ -19,9 +33,20 @@ __all__ = [
     "log_info",
     "log_warning",
     "set_level",
+    "DeltaTime",
+    "PerformanceCounter",
+    "SimpleTimer",
+    "now_ns",
+    "time_fn",
     "pack_rgba",
     "read_png",
+    "render_ansi",
+    "show",
     "unpack_words",
     "write_png",
+    "mathutil",
+    "memory",
+    "platform_info",
+    "profiling",
     "rng",
 ]

@@ -657,3 +657,26 @@ def test_soft_brute_kernels_match_twin(cuda_device, scene_name, cam_kind,
         assert torch.isfinite(a).all(), name
         scale = b.abs().max().item()
         assert (a - b).abs().max().item() <= atol * scale + 1e-12, name
+
+
+@pytest.mark.parametrize("fmt", ["int", "float"])
+def test_reference_backend_runs_on_the_host_cpu(cuda_device, fmt):
+    """render(backend="reference") on a card scene computes on the host CPU
+    and returns a CPU tensor, equal to _render_oracle on the same scene
+    moved to the CPU; _render_oracle follows the scene onto the card."""
+    from opencl_ray_tracer_tpu_torch.ref.tracer import _render_oracle
+    from opencl_ray_tracer_tpu_torch.scene import scene_from_arrays, scene_to_arrays
+
+    scene = T.create_scene(1, seed=0, device=cuda_device)
+    cam = T.legacy_ortho_camera(device=cuda_device)
+    cfg = T.RenderConfig(width=W, height=H, shading="phong", shadows=True,
+                         framebuffer_dtype=fmt)
+    got = T.render(scene, cam, cfg, backend="reference")
+    assert got.device.type == "cpu"
+    cpu = torch.device("cpu")
+    want = _render_oracle(scene_from_arrays(scene_to_arrays(scene), cpu),
+                          cam.to(cpu), cfg)
+    assert torch.equal(got, want)
+    on_card = _render_oracle(scene, cam, cfg)
+    assert on_card.device.type == "cuda"
+    assert T.Renderer(cfg, cam).render_cpu(scene).device.type == "cpu"

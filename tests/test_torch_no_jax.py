@@ -30,9 +30,11 @@ print(len(names))
 """
 
 CUDA_CALLS = """
+import runpy
 import torch
 import opencl_ray_tracer_tpu_torch as T
 import opencl_ray_tracer_tpu_torch.cli
+from opencl_ray_tracer_tpu_torch import app
 assert not torch.cuda.is_available()
 calls = (
     lambda: T.create_scene1(device="cuda"),
@@ -42,6 +44,12 @@ calls = (
         T.create_scene1(device="cuda")),
     lambda: T.cli.main(["fit", "--steps", "2"]),
     lambda: T.cli.main(["bench", "--skip-context"]),
+    lambda: app.MainState(app.StateManager(), app.InputManager()),
+    lambda: T.cli.main(["compare"]),
+    lambda: T.cli.main(["app", "--keys", "r,q"]),
+    lambda: runpy.run_path("examples/torch_flythrough_demo.py", run_name="__main__"),
+    lambda: runpy.run_path("examples/torch_inverse_rendering_demo.py",
+                           run_name="__main__"),
 )
 for call in calls:
     try:
@@ -65,7 +73,7 @@ def _run(code_or_args, cwd=REPO, **env):
 def test_port_imports_no_jax():
     proc = _run(IMPORT_ALL)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 34  # every ported module
+    assert int(proc.stdout.split()[-1]) >= 51  # every ported module
 
 
 def test_cuda_device_without_card_raises():

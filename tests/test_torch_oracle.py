@@ -1,5 +1,6 @@
 """Port parity: the brute-force oracle (ref/tracer.py) against the JAX
-package's oracle, and against the committed oracle goldens."""
+package's oracle, and against the committed oracle goldens; the backend
+"reference" computes on the host CPU."""
 
 import os
 
@@ -11,6 +12,7 @@ import opencl_ray_tracer_tpu as J
 import opencl_ray_tracer_tpu_torch as T
 from opencl_ray_tracer_tpu.ref import render_reference as j_reference
 from opencl_ray_tracer_tpu_torch.ref import render_reference
+from opencl_ray_tracer_tpu_torch.ref.tracer import _render_oracle
 from opencl_ray_tracer_tpu_torch.scene import scene_from_arrays, scene_to_arrays
 from opencl_ray_tracer_tpu_torch.utils import pack_rgba, read_png
 
@@ -77,3 +79,34 @@ def test_oracle_golden(name, num, shading, shadows):
     want = read_png(os.path.join(GOLDEN_DIR, f"{name}.png"))
     same = np.all(got == want, axis=-1).mean()
     assert same > 0.999, f"{name}: only {same:.4%} identical to golden"
+
+
+@pytest.mark.parametrize("fmt", ["int", "float", "packed"])
+def test_reference_backend_returns_the_cpu_oracle_frame(fmt):
+    """render(..., backend="reference") and Renderer.render_cpu return a CPU
+    tensor equal to _render_oracle on the same CPU scene (the card case is
+    in tests/test_torch_kernels_gpu.py)."""
+    scene = T.create_scene(2, seed=3, device=CPU)
+    cam = T.pinhole_camera(**PINHOLE, device=CPU)
+    cfg = T.RenderConfig(width=W, height=H, shading="phong", shadows=True,
+                         framebuffer_dtype=fmt)
+    got = T.render(scene, cam, cfg, backend="reference")
+    assert got.device.type == "cpu"
+    want = _render_oracle(scene, cam, cfg.replace(framebuffer_dtype="float"))
+    if fmt == "packed":
+        from opencl_ray_tracer_tpu_torch.ops.shading import pack_framebuffer_words
+
+        want = pack_framebuffer_words(want)
+    elif fmt == "int":
+        want = _render_oracle(scene, cam, cfg)
+    assert torch.equal(got, want)
+    cpu = T.Renderer(cfg.replace(framebuffer_dtype="int"), cam).render_cpu(scene)
+    assert torch.equal(cpu, _render_oracle(scene, cam, cfg.replace(framebuffer_dtype="int")))
+
+
+def test_camera_to_keeps_the_camera():
+    cam = T.pinhole_camera(**PINHOLE, device=CPU)
+    moved = cam.to(CPU)
+    assert moved.normalize is cam.normalize
+    for name in ("o0", "dox", "doy", "d0", "ddx", "ddy"):
+        assert torch.equal(getattr(moved, name), getattr(cam, name))
