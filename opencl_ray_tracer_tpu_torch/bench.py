@@ -39,7 +39,15 @@ re-bins with both caps doubled where a list overflows). The headline, the
 1080p fwd+bwd and the stress rows also carry their speed of light: the H100
 bound of the row's inputs (utils/profiling.py; B1's for a hard frame, B4's
 plus B5's on the loss's own cotangent for a soft step) over `device_ms`.
-Rows go to stderr, the JSON line to stdout. Runs on the card only.
+The headline, dynamic, fwd+bwd and train-step rows also carry
+`device_graph_us`: the JAX bench's own measurement
+(bench_util.device_frame_time_us / device_step_time_us), N frames or steps
+captured as one CUDA graph at the config's K caps (runtime/graph.py), each
+with its own camera origin, timed at two frame counts and taken as the
+slope: microseconds a frame or step with no Python in it (JSON keys
+`headline_graph_us`, `dynamic_graph_us`, `fwd_bwd_graph_us`,
+`train_graph_us`). Rows go to stderr, the JSON line to stdout. Runs on the
+card only.
 """
 
 from __future__ import annotations
@@ -53,7 +61,9 @@ import time
 
 from opencl_ray_tracer_tpu_torch.bench_util import (
     call_times_ms,
+    device_frame_time_us,
     device_ms,
+    device_step_time_us,
     median_spread,
 )
 
@@ -240,6 +250,82 @@ def _sol(row, bound_ms, bound_by, bwd=False):
           f"achieved {sol['achieved_fraction']:.4e} of it over device_ms "
           f"({bound_ms / row['device_busy_ms']:.4e} over device_busy_ms)",
           file=sys.stderr)
+
+
+def _graph_row(row, label, us, n):
+    """`device_graph_us` of a row, printed."""
+    row["device_graph_us"] = us
+    print(f"#   {label}: {us:.2f} us a frame or step in one CUDA graph "
+          f"(the JAX bench's two-point slope over {n} frames)", file=sys.stderr)
+    return us
+
+
+def graph_frame_us(scene, config, cam, bins=None, n_frames=100):
+    """device_frame_time_us of the tiled frame at fixed K: through the given
+    (scene-static) bins, or re-binned in every frame (the dynamic row)."""
+    from opencl_ray_tracer_tpu_torch.kernels.fwd_tiled import (
+        _render_tiled_jit,
+        render_tiled_fixed,
+    )
+
+    packed = scene.pack()
+    if bins is None:
+        fn = lambda c: render_tiled_fixed(packed, c, config)  # noqa: E731
+    else:
+        fn = lambda c: _render_tiled_jit(  # noqa: E731
+            packed, c, bins, height=config.height, width=config.width,
+            shading=config.shading, shadows=config.shadows,
+            out_format=config.framebuffer_dtype)
+    return device_frame_time_us(fn, cam, n_frames=n_frames)
+
+
+def graph_fwd_bwd_us(scene, config, cam, n_frames=20):
+    """device_step_time_us of the soft step at fixed K (`_soft_tiled_core`),
+    every leaf's gradient consumed into the scalar."""
+    import torch
+
+    from opencl_ray_tracer_tpu_torch.kernels.soft_tiled import _soft_tiled_core
+    from opencl_ray_tracer_tpu_torch.parallel.train import (
+        scene_leaves,
+        step_taus,
+        trainable_scene,
+    )
+
+    s = trainable_scene(scene)
+    leaves = list(scene_leaves(s).values())
+    taus = step_taus(config, cam.o0.device)
+
+    def step(c):
+        img = _soft_tiled_core(s.pack(), c, *taus, config.height, config.width,
+                               config.shading, config.shadows, config.cull_k,
+                               config.shadow_cull_k)
+        loss = torch.mean(img[..., :3] ** 2)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return loss + sum(g.sum() for g in grads if g is not None)
+
+    return device_step_time_us(step, cam, n_frames=n_frames)
+
+
+def graph_train_us(scene, config, cam, n_steps=10):
+    """device_step_time_us of the train step at fixed K
+    (`parallel.train.fixed_k_step`, Adam on the card), its loss the scalar."""
+    import torch
+
+    from opencl_ray_tracer_tpu_torch.parallel.train import (
+        adam,
+        fixed_k_step,
+        init_train_state,
+        step_taus,
+    )
+
+    dev = cam.o0.device
+    state = init_train_state(scene, adam(1e-3))
+    target = torch.zeros((config.height, config.width, 4), dtype=torch.float32,
+                         device=dev)
+    taus = step_taus(config, dev)
+    return device_step_time_us(
+        lambda c: fixed_k_step(state, target, c, config, taus), cam,
+        n_frames=n_steps)
 
 
 def bench_train_step(scene, config, cam):
@@ -513,6 +599,7 @@ def main(argv=None) -> int:
     fn, bins = bench_tiled(scene_hl, cfg_hl, cam)
     head = _row(rows, HEADLINE, fn, 100, n_pix, **_caps(bins))
     _sol(head, *tiled_bound(scene_hl, cfg_hl, cam, bins))
+    _graph_row(head, HEADLINE, graph_frame_us(scene_hl, cfg_hl, cam, bins), 100)
 
     cam_ph = pinhole_camera(
         position=(wid / 2.0, hgt / 2.0, 900.0),
@@ -520,6 +607,8 @@ def main(argv=None) -> int:
         fov_degrees=60.0, width=wid, height=hgt, device=device)
     fn, bins = bench_tiled(scene_hl, cfg_hl, cam_ph, dynamic=True)
     dyn = _row(rows, DYNAMIC, fn, 50, n_pix, **_caps(bins))
+    _graph_row(dyn, DYNAMIC, graph_frame_us(scene_hl, cfg_hl, cam_ph, n_frames=50),
+               50)
 
     cfg_soft = RenderConfig(width=wid, height=hgt, shading="phong", shadows=True,
                             soft=True, framebuffer_dtype="float", tau_depth=1.0,
@@ -527,6 +616,7 @@ def main(argv=None) -> int:
     fn, bins = bench_fwd_bwd_soft(scene_hl, cfg_soft, cam)
     fb = _row(rows, FWD_BWD, fn, 20, n_pix, **_caps(bins))
     _sol(fb, *fwd_bwd_bound(scene_hl, cfg_soft, cam), bwd=True)
+    _graph_row(fb, FWD_BWD, graph_fwd_bwd_us(scene_hl, cfg_soft, cam), 20)
 
     stress = None
     if not args.skip_context:
@@ -566,6 +656,7 @@ def main(argv=None) -> int:
         _row(rows, PINHOLE_SOFT, fn, 20, n_pix, **_caps(bins))
 
     ts = _row(rows, TRAIN, bench_train_step(scene_hl, cfg_soft, cam), 20, n_pix)
+    _graph_row(ts, TRAIN, graph_train_us(scene_hl, cfg_soft, cam), 10)
     mesh = bench_mesh_rows(args, scene_hl, cfg_hl, cam)
 
     parity = bench_parity(device)
@@ -590,6 +681,10 @@ def main(argv=None) -> int:
         **({"stress_fwd_bwd_rays_per_s": stress["rays_per_s"]}
            if stress is not None else {}),
         "train_step_ms": ts["ms"],
+        "headline_graph_us": head["device_graph_us"],
+        "dynamic_graph_us": dyn["device_graph_us"],
+        "fwd_bwd_graph_us": fb["device_graph_us"],
+        "train_graph_us": ts["device_graph_us"],
         **mesh,
         "rows": rows,
         **parity,

@@ -276,6 +276,14 @@ def cmd_fit(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    """`bench`: the port's benchmark (opencl_ray_tracer_tpu_torch.bench) with
+    `args.bench_args` forwarded whole; its exit code."""
+    from opencl_ray_tracer_tpu_torch import bench
+
+    return bench.main(list(args.bench_args))
+
+
 def cmd_devices(args) -> int:
     from opencl_ray_tracer_tpu_torch.runtime import default_device, describe_devices
 
@@ -330,9 +338,7 @@ def main(argv=None) -> int:
 
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv[:1] == ["bench"]:  # forwarded whole: options included
-        from opencl_ray_tracer_tpu_torch import bench
-
-        return bench.main(argv[1:])
+        return cmd_bench(argparse.Namespace(bench_args=argv[1:]))
     args = parser.parse_args(argv)
     return args.fn(args)
 

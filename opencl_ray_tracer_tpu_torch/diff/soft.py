@@ -34,6 +34,7 @@ from opencl_ray_tracer_tpu_torch.camera import Camera
 from opencl_ray_tracer_tpu_torch.config import RenderConfig
 from opencl_ray_tracer_tpu_torch.ops.intersect import EPSILON
 from opencl_ray_tracer_tpu_torch.ops.shading import LEGACY_FOG_MAX
+from opencl_ray_tracer_tpu_torch.runtime.graph import device_const
 
 BG_DEPTH = 1000.0  # background pseudo-depth for the softmin aggregation
 
@@ -46,17 +47,24 @@ SHADOW_OFFSET = 1e-2
 SHADOW_T_MIN = 1e-3
 
 
+def _const_like(c, x):
+    """A number as a tensor of x's dtype on x's device: for float32, the
+    per-device constant of runtime/graph.py (no host copy per call, so a CUDA
+    graph can capture the soft paths)."""
+    if isinstance(c, torch.Tensor):
+        return c
+    if x.dtype == torch.float32:
+        return device_const(c, x.device)
+    return torch.as_tensor(c, dtype=x.dtype, device=x.device)
+
+
 def tmax(x, c):
     """max(x, c) with JAX's tie rule (half the gradient to each side)."""
-    if not isinstance(c, torch.Tensor):
-        c = torch.as_tensor(c, dtype=x.dtype, device=x.device)
-    return torch.maximum(x, c)
+    return torch.maximum(x, _const_like(c, x))
 
 
 def tmin(x, c):
-    if not isinstance(c, torch.Tensor):
-        c = torch.as_tensor(c, dtype=x.dtype, device=x.device)
-    return torch.minimum(x, c)
+    return torch.minimum(x, _const_like(c, x))
 
 
 def tclip(x, lo, hi):

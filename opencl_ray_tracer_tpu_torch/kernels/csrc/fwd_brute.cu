@@ -93,6 +93,8 @@ struct Args {
   const float* sph_coef;  // (10, sp) affine tca, quadratic d2, r2
   float4* out;            // (height, width) float RGBA
   int height, width, tp, sp, n_tris, n_spheres, n_lights, shadows;
+  const int* run_if;  // null: always run; else run only if *run_if == want
+  int want;           // (lax.cond on the card: the untaken branch returns)
 };
 
 // Columns [base, base + n) of a row-major (rows, stride) operand into
@@ -355,6 +357,7 @@ __device__ float4 shade(const Args& a, float x, float y, float t, int code,
 // PX: the pixels a thread holds; a warp covers 32 PX consecutive pixels.
 template <bool AFFINE, int SHADING, bool WHOLE, int PX>
 __global__ void __launch_bounds__(THREADS, BLOCKS) fwd_brute_kernel(Args a) {
+  if (a.run_if != nullptr && __ldg(a.run_if) != a.want) return;  // see Args::run_if
   constexpr int SPAN = 32 * PX;
   __shared__ float4 s_stage[CK * 3];
   extern __shared__ float4 s_geo[];  // WHOLE with shadows: the scene's geometry
@@ -547,12 +550,14 @@ cudaError_t launch(const Args& a, int shading, cudaStream_t stream) {
 
 }  // namespace
 
+// run_if: null, or an int on the card; then the kernel runs only if it equals
+// want, and a skipped launch writes nothing.
 extern "C" int octrt_fwd_brute(
     const float* params, const float* tri_geo, const float* tri_attr,
     const float* sph_geo, const float* sph_attr, const float* tri_coef,
     const float* sph_coef, float* out, int height, int width, int tp, int sp,
     int n_tris, int n_spheres, int n_lights, int shading, int shadows,
-    int affine, void* stream) {
+    int affine, const int* run_if, int want, void* stream) {
   if (shading < SHADE_LEGACY || shading > SHADE_PHONG || n_lights < 1 ||
       height <= 0 || width <= 0 || n_tris < 0 || n_tris > tp ||
       n_spheres < 0 || n_spheres > sp ||
@@ -561,7 +566,7 @@ extern "C" int octrt_fwd_brute(
   }
   const Args a{params, tri_geo, tri_attr, sph_geo, sph_attr, tri_coef, sph_coef,
                reinterpret_cast<float4*>(out), height, width, tp, sp, n_tris,
-               n_spheres, n_lights, shadows};
+               n_spheres, n_lights, shadows, run_if, want};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   return (int)(affine ? launch<true>(a, shading, s) : launch<false>(a, shading, s));
 }

@@ -95,6 +95,8 @@ struct Args {
   int height, width, ntx, n_tiles;
   int k_tri, k_sph, sh_tri_stride, sh_sph_stride, n_lights;
   int shadows, packed_out;
+  const int* run_if;       // null: always run; else run only if *run_if == want
+  int want;                // (lax.cond on the card: the untaken branch returns)
 };
 
 __device__ __forceinline__ float prm(const Args& a, int i) {
@@ -429,6 +431,7 @@ __device__ __forceinline__ void pixel(const Args& a, int tile, const TileRows& R
 template <bool PROJ, int SHADING, bool STAGED>
 __global__ void __launch_bounds__(THREADS, BLOCKS) fwd_tiled_kernel(Args a,
                                                                     int* tiles) {
+  if (a.run_if != nullptr && __ldg(a.run_if) != a.want) return;  // see Args::run_if
   extern __shared__ float4 s_dyn[];  // the list, then the staged rows
   __shared__ int s_cnt[NWARP];
   int* s_list = reinterpret_cast<int*>(s_dyn);
@@ -500,14 +503,17 @@ cudaError_t launch(const Args& a, int shading, int* tiles, cudaStream_t s) {
 }  // namespace
 
 // tiles: 2 + n_tiles ints; it comes back as the list of tile_list.cuh
-// (the number of non-empty tiles, a zero, the tiles).
+// (the number of non-empty tiles, a zero, the tiles). run_if: null, or an int
+// on the card; then the kernel runs only if it equals want, and a skipped
+// launch writes neither out nor tiles.
 extern "C" int octrt_fwd_tiled(
     const float* params, const int* counts, const float* tri_coef,
     const float* tri_attr, const float* sph_coef, const float* sph_attr,
     const float* tri_sh, const float* sph_sh, void* out, int* tiles,
     int height, int width, int ntx, int n_tiles, int k_tri, int k_sph,
     int sh_tri_stride, int sh_sph_stride, int n_lights, int shading,
-    int shadows, int projective, int out_format, void* stream) {
+    int shadows, int projective, int out_format, const int* run_if, int want,
+    void* stream) {
   if (shading < SHADE_LEGACY || shading > SHADE_PHONG || n_tiles <= 0 ||
       n_lights < 1) {
     return (int)cudaErrorInvalidValue;
@@ -516,7 +522,7 @@ extern "C" int octrt_fwd_tiled(
   const Args a{params, counts, f4(tri_coef), f4(tri_attr), f4(sph_coef),
                f4(sph_attr), f4(tri_sh), f4(sph_sh), out, height, width, ntx,
                n_tiles, k_tri, k_sph, sh_tri_stride, sh_sph_stride, n_lights,
-               shadows, out_format == 0};
+               shadows, out_format == 0, run_if, want};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   return (int)(projective ? launch<true>(a, shading, tiles, s)
                           : launch<false>(a, shading, tiles, s));

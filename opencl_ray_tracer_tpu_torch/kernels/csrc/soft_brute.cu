@@ -97,11 +97,14 @@ struct Args {
   const float* sph_geo;   // (4, sp)
   const float* sph_alb;   // (sp, 8)
   int height, width, tp, sp, n_tris, n_spheres, nl, shading, shadows;
+  const int* run_if;  // null: always run; else run only if *run_if == want
+  int want;           // (lax.cond on the card: the untaken branch returns)
 };
 
 // scratch layout: n rows of ROW floats, then n albedo rows of ALB floats,
 // triangles before spheres (the gradient scratch has the same layout)
 __global__ void rows_kernel(Args a, float* rows) {
+  if (a.run_if != nullptr && __ldg(a.run_if) != a.want) return;  // see Args::run_if
   const int n = a.n_tris + a.n_spheres;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -215,6 +218,7 @@ struct StagedRows {
 template <bool NORM, int NL>
 __global__ void __launch_bounds__(THREADS, FWD_BLOCKS) soft_brute_fwd_kernel(
     Args a, const float* rows, float4* out) {
+  if (a.run_if != nullptr && __ldg(a.run_if) != a.want) return;  // see Args::run_if
   __shared__ float4 s_rows[CHUNK * ROW / 4];
   __shared__ float4 s_albs[CHUNK * ALB / 4];
   const Patches P(a.height, a.width);
@@ -418,15 +422,17 @@ int launch_fwd(const Args& a, const float* rows, float4* out, cudaStream_t s) {
 
 }  // namespace
 
-// scratch: (n_tris + n_spheres) * (16 + 8) floats.
+// scratch: (n_tris + n_spheres) * (16 + 8) floats. run_if: null, or an int
+// on the card; then both kernels run only if it equals want, and a skipped
+// launch writes neither out nor scratch.
 extern "C" int octrt_soft_brute_fwd(
     const float* params, const float* taus, const float* tri_geo,
     const float* tri_alb, const float* sph_geo, const float* sph_alb,
     float* out, float* scratch, int height, int width, int tp, int sp,
     int n_tris, int n_spheres, int nl, int shading, int shadows,
-    int normalize_dir, void* stream) {
+    int normalize_dir, const int* run_if, int want, void* stream) {
   const Args a{params, taus, tri_geo, tri_alb, sph_geo, sph_alb, height, width,
-               tp, sp, n_tris, n_spheres, nl, shading, shadows};
+               tp, sp, n_tris, n_spheres, nl, shading, shadows, run_if, want};
   if (bad_args(a)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   int rc = launch_rows(a, scratch, s);

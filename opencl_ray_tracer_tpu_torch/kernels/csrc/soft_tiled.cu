@@ -131,6 +131,8 @@ struct Args {
   const float* ssh;       // (n_tiles | 1, L * sh_sph_stride, 16)
   int height, width, ntx, n_tiles, k_tri, k_sph, sh_tri_stride, sh_sph_stride;
   int nl, shading, shadows, projective;
+  const int* run_if;  // null: always run; else run only if *run_if == want
+  int want;           // (lax.cond on the card: the untaken branch returns)
 };
 
 using BlockRed = BlockRedT<THREADS, RED_W>;
@@ -167,6 +169,7 @@ constexpr int FWD_GROUPS = TILE_PATCHES / NWARP;  // units of a non-empty tile
 template <bool PROJ, int NL>
 __global__ void __launch_bounds__(THREADS, FWD_BLOCKS) soft_fwd_kernel(
     Args a, int* tiles, float4* out) {
+  if (a.run_if != nullptr && __ldg(a.run_if) != a.want) return;  // see Args::run_if
   extern __shared__ int s_list[];
   __shared__ int s_cnt[NWARP];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -378,18 +381,20 @@ bool bad_args(int n_tiles, int nl, int shading) {
 }  // namespace
 
 // tiles: 2 + n_tiles ints; it comes back as the list of tile_list.cuh
-// (the number of non-empty tiles, a zero, the tiles).
+// (the number of non-empty tiles, a zero, the tiles). run_if: null, or an int
+// on the card; then the kernel runs only if it equals want, and a skipped
+// launch writes neither out nor tiles.
 extern "C" int octrt_soft_tiled_fwd(
     const float* params, const float* taus, const int* counts,
     const float* tri, const float* tri_alb, const float* sph,
     const float* sph_alb, const float* tsh, const float* ssh, float* out,
     int* tiles, int height, int width, int ntx, int n_tiles, int k_tri,
     int k_sph, int sh_tri_stride, int sh_sph_stride, int nl, int shading,
-    int shadows, int projective, void* stream) {
+    int shadows, int projective, const int* run_if, int want, void* stream) {
   if (bad_args(n_tiles, nl, shading)) return (int)cudaErrorInvalidValue;
   const Args a{params, taus, counts, tri, tri_alb, sph, sph_alb, tsh, ssh,
                height, width, ntx, n_tiles, k_tri, k_sph, sh_tri_stride,
-               sh_sph_stride, nl, shading, shadows, projective};
+               sh_sph_stride, nl, shading, shadows, projective, run_if, want};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   float4* o = reinterpret_cast<float4*>(out);
   // one light is the common scene: the kernel is also built for exactly one

@@ -11,7 +11,10 @@ forward kernels.
    (`_prep_affine_coefs`), pinhole cameras the general Möller–Trumbore and
    geometric sphere tests; shadow rays always take the general tests.
 3. ENTRY POINTS: `render_pallas` / `render_pallas_packed` (the names of the
-   JAX package's entry points this ports) -> (H, W, 4) int32 or float32.
+   JAX package's entry points this ports) -> (H, W, 4) int32 or float32, and
+   `_render_pallas_jit`, the same frame with no host read, which a CUDA
+   graph can capture (runtime/graph.py) and which takes the kernel's
+   device-side branch (`run_if`, see `brute_kernel`).
 
 Exact-semantics notes: miss-as-0.0 sphere sentinel, tca < 0 miss, negative-t
 wins, strict-< ordering (triangles before spheres), closest init 300000.0,
@@ -380,6 +383,33 @@ def _brute_kernel_plain(params, tri_geo, tri_attr, sph_geo, sph_attr,
     return out.reshape(height, width, 4)
 
 
+def _check_run_if(run_if, device):
+    """The device-side branch flag a kernel wrapper takes: None, or one int32
+    on the kernel's device."""
+    if run_if is None:
+        return
+    if run_if.dtype != torch.int32 or run_if.numel() != 1 or run_if.device != device:
+        raise ValueError(f"run_if: one int32 on {device}, got {run_if.dtype} "
+                         f"{tuple(run_if.shape)} on {run_if.device}")
+
+
+def _select_branch(out, run_if, want):
+    """The plain twins' form of a kernel's device-side branch: `out` where
+    run_if is None or equals want, else zeros (what a skipped CUDA launch
+    leaves in its buffer)."""
+    if run_if is None:
+        return out
+    return torch.where(run_if.reshape(()) == want, out, torch.zeros_like(out))
+
+
+def _out_buffer(shape, dtype, device, run_if):
+    """A kernel's output buffer: zeros where the launch may be skipped (a
+    branch not taken leaves defined values for a torch.where or a backward to
+    read), else uninitialised."""
+    make = torch.empty if run_if is None else torch.zeros
+    return make(shape, dtype=dtype, device=device)
+
+
 def _check(name, t, dtype, shape=None, device=None):
     """What every kernel wrapper asks of a tensor before it passes its
     pointer on."""
@@ -396,11 +426,14 @@ def _check(name, t, dtype, shape=None, device=None):
 def brute_kernel(params, tri_geo, tri_attr, sph_geo, sph_attr, tri_coef,
                  sph_coef, *, height: int, width: int, n_tris: int,
                  n_spheres: int, shading: str, shadows: bool,
-                 normalize_dir: bool):
+                 normalize_dir: bool, run_if=None, want: int = 0):
     """The brute hard forward kernel -> (height, width, 4) float32.
 
     CUDA tensors launch kernels/csrc/fwd_brute.cu (built on first use) or
-    raise; CPU tensors run `_brute_kernel_plain`. Inputs: params (21+7L,);
+    raise; CPU tensors run `_brute_kernel_plain`. `run_if` (one int32 on
+    the device, or None) is the device-side branch of `lax.cond`: the
+    kernel does its work only where *run_if == want, else its frame is
+    zeros (the twin: a torch.where). Inputs: params (21+7L,);
     tri_geo (9, Tp), tri_attr (Tp, 8), sph_geo (4, Sp), sph_attr (Sp, 8);
     for shared-direction cameras (normalize_dir False) also tri_coef
     (9, Tp) and sph_coef (10, Sp), else None. n_tris / n_spheres are the
@@ -413,8 +446,9 @@ def brute_kernel(params, tri_geo, tri_attr, sph_geo, sph_attr, tri_coef,
     if shading not in _SHADING_CODES:
         raise ValueError(f"bad shading {shading!r}")
     dev = params.device
+    _check_run_if(run_if, dev)
     if dev.type == "cpu":
-        return _brute_kernel_plain(*args, **kw)
+        return _select_branch(_brute_kernel_plain(*args, **kw), run_if, want)
     if dev.type != "cuda":
         raise ValueError(f"brute_kernel runs on cuda or cpu tensors, got {dev}")
 
@@ -437,7 +471,7 @@ def brute_kernel(params, tri_geo, tri_attr, sph_geo, sph_attr, tri_coef,
     from opencl_ray_tracer_tpu_torch.kernels._build import load_library
 
     lib = load_library()
-    out = torch.empty((height, width, 4), dtype=torch.float32, device=dev)
+    out = _out_buffer((height, width, 4), torch.float32, dev, run_if)
     p = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else None)  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -446,7 +480,7 @@ def brute_kernel(params, tri_geo, tri_attr, sph_geo, sph_attr, tri_coef,
             p(tri_coef if affine else None), p(sph_coef if affine else None),
             p(out), height, width, tp, sp, n_tris, n_spheres, n_lights,
             _SHADING_CODES[shading], int(bool(shadows)), int(affine),
-            ctypes.c_void_p(stream),
+            p(run_if), int(want), ctypes.c_void_p(stream),
         )
     if rc != 0:
         raise RuntimeError(
@@ -464,6 +498,12 @@ def brute_kernel(params, tri_geo, tri_attr, sph_geo, sph_attr, tri_coef,
 def brute_kernel_inputs(packed, camera: Camera, config: RenderConfig):
     """The (args, kwargs) that `brute_kernel` (and its twin) take for a
     frame."""
+    return _brute_inputs(packed, camera, height=config.height,
+                         width=config.width, shading=config.shading,
+                         shadows=config.shadows)
+
+
+def _brute_inputs(packed, camera: Camera, *, height, width, shading, shadows):
     tri_geo, tri_attr, sph_geo, sph_attr = _prep_scene_arrays(packed)
     tri_coef = sph_coef = None
     if not camera.normalize:  # shared-direction cameras: the affine tests
@@ -472,10 +512,25 @@ def brute_kernel_inputs(packed, camera: Camera, config: RenderConfig):
     args = (_camera_params(camera, packed.lights).contiguous(),
             tri_geo.contiguous(), tri_attr.contiguous(), sph_geo.contiguous(),
             sph_attr.contiguous(), tri_coef, sph_coef)
-    kw = dict(height=config.height, width=config.width, n_tris=packed.n_tris,
-              n_spheres=packed.n_spheres, shading=config.shading,
-              shadows=config.shadows, normalize_dir=camera.normalize)
+    kw = dict(height=height, width=width, n_tris=packed.n_tris,
+              n_spheres=packed.n_spheres, shading=shading, shadows=shadows,
+              normalize_dir=camera.normalize)
     return args, kw
+
+
+@torch.no_grad()
+def _render_pallas_jit(packed, camera: Camera, *, height: int, width: int,
+                       shading: str, shadows: bool, as_int: bool = False,
+                       run_if=None, want: int = 1) -> torch.Tensor:
+    """The brute frame with no host read (the JAX package's
+    `_render_pallas_jit`, fwd.py:513-519): (H, W, 4) float32, or int32
+    truncated for `as_int`. With `run_if` the kernel runs only where
+    *run_if == want and the frame is zeros elsewhere: the fallback branch
+    of `fwd_tiled._render_tiled_jit`."""
+    args, kw = _brute_inputs(packed, camera, height=height, width=width,
+                             shading=shading, shadows=shadows)
+    rgba = brute_kernel(*args, **kw, run_if=run_if, want=want)
+    return torch.trunc(rgba).to(torch.int32) if as_int else rgba
 
 
 def render_pallas(scene, camera: Camera, config: RenderConfig) -> torch.Tensor:
@@ -492,8 +547,7 @@ def render_pallas_packed(packed, camera: Camera, config: RenderConfig) -> torch.
     if config.framebuffer_dtype == "packed":
         raise ValueError("the brute kernel has no packed-word framebuffer; "
                          "use framebuffer_dtype 'int' or 'float'")
-    args, kw = brute_kernel_inputs(packed, camera, config)
-    rgba = brute_kernel(*args, **kw)
-    if config.framebuffer_dtype == "int":
-        return torch.trunc(rgba).to(torch.int32)
-    return rgba
+    return _render_pallas_jit(packed, camera, height=config.height,
+                              width=config.width, shading=config.shading,
+                              shadows=config.shadows,
+                              as_int=config.framebuffer_dtype == "int")

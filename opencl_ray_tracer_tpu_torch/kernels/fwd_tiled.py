@@ -15,10 +15,13 @@ see `_prep_projective_coefs`).
    and runs `_tiled_kernel_plain`, the same function in vectorised torch, on
    CPU tensors. One output-format switch gives the packed int32 RGBA words
    or the float RGBA frame ("int" is the float frame truncated).
-3. OVERFLOW: `render_tiled_packed` re-bins with K doubled until every
-   candidate fits (bounded by the primitive count), so the tiled kernel never
-   sees a truncated list and the brute-force fallback of the JAX package is
-   never needed on this path (kernels/fwd.py holds the brute kernel).
+3. OVERFLOW: eagerly, `render_tiled_packed` re-bins with K doubled until
+   every candidate fits (bounded by the primitive count), so the tiled kernel
+   never sees a truncated list. The compiled frame, `_render_tiled_jit`,
+   bins at fixed K caps with no host read and launches both the tiled and
+   the brute kernel (kernels/fwd.py), each told by the bins' overflow flag on
+   the card whether to do its work (`run_if`): the JAX package's `lax.cond`
+   under `jit`, for a CUDA graph to capture (runtime/graph.py).
 
 Shadows: a point p is occluded by triangle T from point light L iff p lies
 inside T's light frustum — behind T's plane and inside the three side planes
@@ -38,6 +41,7 @@ import torch
 from opencl_ray_tracer_tpu_torch.camera import Camera
 from opencl_ray_tracer_tpu_torch.config import RenderConfig
 from opencl_ray_tracer_tpu_torch.kernels.fwd import (
+    _render_pallas_jit,
     _LIGHT_STRIDE,
     _P_AMBIENT,
     _P_D0,
@@ -50,15 +54,20 @@ from opencl_ray_tracer_tpu_torch.kernels.fwd import (
     _SHADING_CODES,
     _camera_params,
     _check,
+    _check_run_if,
     _cross,
+    _out_buffer,
     _prep_affine_coefs,
     _prep_scene_arrays,
+    _select_branch,
 )
 from opencl_ray_tracer_tpu_torch.ops.intersect import EPSILON, MISS_T
 from opencl_ray_tracer_tpu_torch.ops.shading import (
     ALPHA_BITS,
     LEGACY_FOG_MAX,
+    pack_framebuffer_words,
 )
+from opencl_ray_tracer_tpu_torch.runtime.graph import device_const
 from opencl_ray_tracer_tpu_torch.utils.log import log_warning
 
 TILE_H = 64
@@ -84,10 +93,6 @@ _FORMAT_CODES = {"packed": 0, "float": 1}
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
-
-
-def _f32(x, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -153,10 +158,11 @@ def _pinhole_bboxes(packed, camera: Camera):
     bbox of its projected corner points; any corner at or behind the near
     plane makes the bbox cover the whole screen (uncullable, still right).
     Needs full-precision float32 matmuls (TF32 off) to match the JAX
-    package's bins.
+    package's bins. (`inv_ex`: `inv`'s result without its check for a
+    singular matrix, which reads a flag on the host.)
     """
     M = torch.stack([camera.ddx, camera.ddy, camera.d0], dim=1)
-    Minv = torch.linalg.inv(M)
+    Minv = torch.linalg.inv_ex(M)[0]
     big = 1e9
 
     def box(P):  # (N, K, 3) corner points per primitive
@@ -183,13 +189,13 @@ def _pinhole_bboxes(packed, camera: Camera):
     )
     c = packed.sph_origin.T  # (Sp, 3)
     r = packed.sph_radius[0]
-    signs = _f32(
-        [[sx, sy, sz] for sx in (-1.0, 1.0) for sy in (-1.0, 1.0)
-         for sz in (-1.0, 1.0)],
-        c.device,
-    )  # (8, 3) AABB corner pattern
+    signs = device_const(_AABB_SIGNS, c.device)  # (8, 3) AABB corner pattern
     sph_box = box(c[:, None, :] + r[:, None, None] * signs[None])
     return tri_box, sph_box
+
+
+_AABB_SIGNS = np.array([[sx, sy, sz] for sx in (-1.0, 1.0) for sy in (-1.0, 1.0)
+                        for sz in (-1.0, 1.0)], np.float32)
 
 
 def _prep_projective_coefs(packed, camera: Camera):
@@ -410,7 +416,7 @@ def _shadow_tables(rows_per_light, box, n_real, nty, ntx, k, lights_pos,
     Returns (tables, counts (n_tiles, L) int32, overflow)."""
     tabs, cnts = [], []
     overflow = torch.zeros((), dtype=torch.bool, device=lights_pos.device)
-    null_row = _f32(null_row, lights_pos.device)
+    null_row = device_const(null_row, lights_pos.device)
     for li in range(lights_pos.shape[0]):
         idx, valid, count, over = _bin_prims(
             box, n_real, nty, ntx, k,
@@ -552,7 +558,7 @@ def bin_scene(packed, *, height: int, width: int, k: int = 32,
             )
             overflow = overflow | over
     else:
-        tri_sh_t = _f32(_NULL_SH_TRI, dev).expand(
+        tri_sh_t = device_const(_NULL_SH_TRI, dev).expand(
             sh_tiles, n_lights * CHUNK, 16).contiguous()
         cnt_sh_tri = zero_sh
     if k_sh_sph:
@@ -562,7 +568,7 @@ def bin_scene(packed, *, height: int, width: int, k: int = 32,
             # false-occlude a ray passing exactly through it)
             real = torch.arange(packed.padded_spheres, device=dev) < packed.n_spheres
             sph_rows = torch.where(real[:, None], sph_rows,
-                                   _f32(_NULL_SH_SPH, dev))
+                                   device_const(_NULL_SH_SPH, dev))
             sph_sh_t = sph_rows.expand(n_lights, k_sh_sph, 16).reshape(
                 1, n_lights * k_sh_sph, 16)
             cnt_sh_sph = torch.full_like(zero_sh, packed.n_spheres)
@@ -574,7 +580,7 @@ def bin_scene(packed, *, height: int, width: int, k: int = 32,
             )
             overflow = overflow | over
     else:
-        sph_sh_t = _f32(_NULL_SH_SPH, dev).expand(
+        sph_sh_t = device_const(_NULL_SH_SPH, dev).expand(
             sh_tiles, n_lights * CHUNK, 16).contiguous()
         cnt_sh_sph = zero_sh
 
@@ -600,7 +606,7 @@ def _gather_coefs(coef, idx, valid, null_col):
     """Camera-dependent per-frame gather: coef (C, P) -> (n_tiles, k, 16)."""
     c = coef.shape[0]
     g = coef.T[idx]
-    g = torch.where(valid[..., None], g, _f32(null_col[:c], coef.device))
+    g = torch.where(valid[..., None], g, device_const(null_col[:c], coef.device))
     return torch.nn.functional.pad(g, (0, 16 - c))
 
 
@@ -898,11 +904,14 @@ def _shadow_occluded_plain(tri_sh, sph_sh, n_tri, n_sph, li, tri_stride,
 def tiled_kernel(params, counts, tri_coef_t, tri_attr_t, sph_coef_t,
                  sph_attr_t, tri_sh_t, sph_sh_t, *, height: int, width: int,
                  ntx: int, shading: str, shadows: bool, projective: bool,
-                 out_format: str):
+                 out_format: str, run_if=None, want: int = 0):
     """The tiled hard forward kernel.
 
     CUDA tensors launch kernels/csrc/fwd_tiled.cu (built on first use) or
-    raise; CPU tensors run `_tiled_kernel_plain`. Inputs: params (21+7L,)
+    raise; CPU tensors run `_tiled_kernel_plain`. `run_if` (one int32 on the
+    device, or None) is the device-side branch of `lax.cond`: the kernel
+    does its work only where *run_if == want, else its frame is zeros (the
+    twin: a torch.where). Inputs: params (21+7L,)
     f32; counts (n_tiles, 2+2L) i32; tri/sph coefficient tables (n_tiles,
     k, 16) f32 and attribute tables (n_tiles, k, 8) f32; shadow tables
     (n_tiles or 1, L*k_sh, 16) f32. out_format "packed" gives (H, W) int32
@@ -914,8 +923,9 @@ def tiled_kernel(params, counts, tri_coef_t, tri_attr_t, sph_coef_t,
     dev = params.device
     if shading not in _SHADING_CODES or out_format not in _FORMAT_CODES:
         raise ValueError(f"bad shading {shading!r} / out_format {out_format!r}")
+    _check_run_if(run_if, dev)
     if dev.type == "cpu":
-        return _tiled_kernel_plain(*args, **kw)
+        return _select_branch(_tiled_kernel_plain(*args, **kw), run_if, want)
     if dev.type != "cuda":
         raise ValueError(f"tiled_kernel runs on cuda or cpu tensors, got {dev}")
 
@@ -941,7 +951,7 @@ def tiled_kernel(params, counts, tri_coef_t, tri_attr_t, sph_coef_t,
                 or tab.shape[1] % n_lights:
             raise ValueError(f"{name}: bad shadow table shape {tuple(tab.shape)}")
 
-    return _tiled_kernel_cuda(*args, **kw)[0]
+    return _tiled_kernel_cuda(*args, **kw, run_if=run_if, want=want)[0]
 
 
 def _live_tiles(counts):
@@ -954,12 +964,14 @@ def _live_tiles(counts):
 
 def _tiled_kernel_cuda(params, counts, tri_coef_t, tri_attr_t, sph_coef_t,
                        sph_attr_t, tri_sh_t, sph_sh_t, *, height, width, ntx,
-                       shading, shadows, projective, out_format):
+                       shading, shadows, projective, out_format, run_if=None,
+                       want=0):
     """Launch B1/B2 on CUDA tensors (checked by `tiled_kernel`) -> (frame,
     tiles). `tiles` is the int32 list of non-empty tiles that the kernel's
     blocks build from `counts` (kernels/csrc/tile_list.cuh): tiles[0] their
     number, tiles[2 : 2 + tiles[0]] the tiles in ascending order
-    (`_live_tiles` is its plain version), then the empty ones."""
+    (`_live_tiles` is its plain version), then the empty ones. With
+    `run_if`, both start as zeros, which a skipped launch leaves."""
     global KERNEL_LAUNCHES
     from opencl_ray_tracer_tpu_torch.kernels._build import load_library
 
@@ -968,11 +980,11 @@ def _tiled_kernel_cuda(params, counts, tri_coef_t, tri_attr_t, sph_coef_t,
     n_tiles = counts.shape[0]
     n_lights = (params.shape[0] - _P_LIGHTS) // _LIGHT_STRIDE
     if out_format == "packed":
-        out = torch.empty((height, width), dtype=torch.int32, device=dev)
+        out = _out_buffer((height, width), torch.int32, dev, run_if)
     else:
-        out = torch.empty((height, width, 4), dtype=torch.float32, device=dev)
-    tiles = torch.empty(2 + n_tiles, dtype=torch.int32, device=dev)
-    p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+        out = _out_buffer((height, width, 4), torch.float32, dev, run_if)
+    tiles = _out_buffer((2 + n_tiles,), torch.int32, dev, run_if)
+    p = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.octrt_fwd_tiled(
@@ -982,7 +994,7 @@ def _tiled_kernel_cuda(params, counts, tri_coef_t, tri_attr_t, sph_coef_t,
             sph_coef_t.shape[1], tri_sh_t.shape[1] // n_lights,
             sph_sh_t.shape[1] // n_lights, n_lights, _SHADING_CODES[shading],
             int(bool(shadows)), int(bool(projective)), _FORMAT_CODES[out_format],
-            ctypes.c_void_p(stream),
+            p(run_if), int(want), ctypes.c_void_p(stream),
         )
     if rc != 0:
         raise RuntimeError(
@@ -1021,7 +1033,7 @@ def kernel_inputs(packed, camera: Camera, bins: TileBins, *, height: int,
     def table(k, coef, idx, valid, null):
         if k:
             return _gather_coefs(coef, idx, valid, null)
-        row = torch.nn.functional.pad(_f32(null, dev), (0, 16 - null.shape[0]))
+        row = device_const(np.pad(null, (0, 16 - null.shape[0])), dev)
         return row.expand(n_tiles, CHUNK, 16).contiguous()
 
     args = (
@@ -1069,6 +1081,68 @@ def bin_for_config(packed, camera: Camera, config: RenderConfig) -> TileBins:
 
 def render_tiled(scene, camera: Camera, config: RenderConfig) -> torch.Tensor:
     return render_tiled_packed(scene.pack(), camera, config)
+
+
+def _tiled_branches(packed, camera: Camera, bins: TileBins, *, height: int,
+                    width: int, shading: str, shadows: bool, out_format: str):
+    """(tiled, brute, overflow) of a compiled frame: the tiled kernel's frame
+    (kernel_inputs' formats: (H, W) words or (H, W, 4) float), which it
+    writes only where the bins do not overflow, and the brute kernel's float
+    frame, which it writes only where they do; each is zeros where its
+    kernel did no work. Both launches are made, neither is read on the
+    host."""
+    flag = bins.overflow.to(torch.int32)
+    args, kw = kernel_inputs(packed, camera, bins, height=height, width=width,
+                             shading=shading, shadows=shadows,
+                             out_format=out_format)
+    tiled = tiled_kernel(*args, **kw, run_if=flag, want=0)
+    brute = _render_pallas_jit(packed, camera, height=height, width=width,
+                               shading=shading, shadows=shadows, run_if=flag,
+                               want=1)
+    return tiled, brute, bins.overflow
+
+
+@torch.no_grad()
+def _render_tiled_jit(packed, camera: Camera, bins: TileBins, *, height: int,
+                      width: int, shading: str, shadows: bool,
+                      out_format: str = "int") -> torch.Tensor:
+    """The tiled frame from given bins with no host read: the JAX package's
+    `_render_tiled_jit` (fwd_tiled.py:1266-1505). The bins may overflow
+    their K caps: the tiled kernel (B1/B2) does its work where they do not,
+    the brute kernel (B3) where they do, each told by the overflow flag on
+    the card, as `lax.cond` chooses under `jit`; a packed frame packs the
+    brute frame's words on the card as `brute_render_packed` does. Returns
+    what `render_tiled_packed` returns for `out_format`."""
+    tiled, brute, overflow = _tiled_branches(
+        packed, camera, bins, height=height, width=width, shading=shading,
+        shadows=shadows, out_format=out_format)
+    if out_format == "packed":
+        return torch.where(overflow, pack_framebuffer_words(brute), tiled)
+    img = torch.where(overflow, brute, tiled)
+    if out_format == "int":
+        return torch.trunc(img).to(torch.int32)
+    return img
+
+
+def bin_fixed(packed, camera: Camera, config: RenderConfig) -> TileBins:
+    """`bin_scene` at the config's K caps (no re-binning: the bins may
+    overflow), the bins of the JAX package's `render_tiled_packed` under
+    `jit`."""
+    return bin_scene(packed, height=config.height, width=config.width,
+                     k=config.cull_k, shadows=config.shadows,
+                     shadow_k=config.shadow_cull_k, camera=camera)
+
+
+def render_tiled_fixed(scene, camera: Camera, config: RenderConfig) -> torch.Tensor:
+    """The whole tiled frame at fixed K caps with no host read (pack, bins,
+    gather, B1/B2 or the brute fallback B3 chosen on the card): what the
+    JAX package's `render_tiled` is under `jax.jit`, and what
+    `runtime.graph.jit` captures. Takes a Scene or a PackedScene."""
+    packed = scene.pack() if hasattr(scene, "pack") else scene
+    return _render_tiled_jit(
+        packed, camera, bin_fixed(packed, camera, config), height=config.height,
+        width=config.width, shading=config.shading, shadows=config.shadows,
+        out_format=config.framebuffer_dtype)
 
 
 @torch.no_grad()

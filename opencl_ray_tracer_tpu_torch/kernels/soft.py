@@ -37,6 +37,9 @@ from opencl_ray_tracer_tpu_torch.diff.soft import (
     tmax,
 )
 from opencl_ray_tracer_tpu_torch.kernels.fwd import (
+    _check_run_if,
+    _out_buffer,
+    _select_branch,
     _LIGHT_STRIDE,
     _P_AMBIENT,
     _P_D0,
@@ -55,6 +58,7 @@ from opencl_ray_tracer_tpu_torch.kernels.fwd import (
 )
 from opencl_ray_tracer_tpu_torch.ops.intersect import EPSILON
 from opencl_ray_tracer_tpu_torch.ops.shading import LEGACY_FOG_MAX
+from opencl_ray_tracer_tpu_torch.runtime.graph import device_scalar
 
 NEG_BIG = -1e30
 CK = 128         # the plain twin walks the padded primitives in these chunks
@@ -454,31 +458,37 @@ def _raise_on(rc, what):
 
 
 def soft_brute_fwd(params, taus, tri_geo, tri_alb, sph_geo, sph_alb, *,
-                   height, width, cfg) -> torch.Tensor:
+                   height, width, cfg, run_if=None, want: int = 0) -> torch.Tensor:
     """B6, the brute soft forward -> (H, W, 4) float32. CUDA tensors launch
     kernels/csrc/soft_brute.cu (built on first use) or raise; CPU tensors
-    run `_soft_brute_plain` without autograd."""
+    run `_soft_brute_plain` without autograd. `run_if` (one int32 on the
+    device, or None) is the device-side branch of `lax.cond`: the kernels do
+    their work only where *run_if == want, else the frame is zeros (the
+    twin: a torch.where)."""
     global SOFT_BRUTE_FWD_LAUNCHES
     inputs = (params, taus, tri_geo, tri_alb, sph_geo, sph_alb)
     dev = params.device
+    _check_run_if(run_if, dev)
     if dev.type == "cpu":
         with torch.no_grad():
-            return _soft_brute_plain(*inputs, height=height, width=width, cfg=cfg)
+            return _select_branch(
+                _soft_brute_plain(*inputs, height=height, width=width, cfg=cfg),
+                run_if, want)
     if dev.type != "cuda":
         raise ValueError(f"soft_brute_fwd runs on cuda or cpu tensors, got {dev}")
     _check_brute(*inputs, height, width, cfg)
     from opencl_ray_tracer_tpu_torch.kernels._build import load_library
 
     lib = load_library()
-    out = torch.empty((height, width, 4), dtype=torch.float32, device=dev)
+    out = _out_buffer((height, width, 4), torch.float32, dev, run_if)
     scratch = _row_scratch(cfg, dev, torch.empty)
-    p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    p = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.octrt_soft_brute_fwd(
             *(p(t) for t in inputs), p(out), p(scratch),
-            *_brute_ints(tri_geo, sph_geo, height, width, cfg),
-            ctypes.c_void_p(stream))
+            *_brute_ints(tri_geo, sph_geo, height, width, cfg), p(run_if),
+            int(want), ctypes.c_void_p(stream))
     _raise_on(rc, "soft_brute forward")
     SOFT_BRUTE_FWD_LAUNCHES += 1
     return out
@@ -546,34 +556,41 @@ class SoftBruteFunction(torch.autograd.Function):
     """(params, taus, tri_geo, tri_alb, sph_geo, sph_alb) + the frame size
     and static cfg -> (H, W, 4) float image. Forward is B6 and backward B7
     on CUDA tensors; the plain twin and its autograd on CPU tensors. The
-    backward always recomputes: nothing but the inputs is saved."""
+    backward always recomputes: nothing but the inputs is saved. With
+    `run_if` the forward is a branch of `lax.cond` (see `soft_brute_fwd`);
+    the backward needs no flag: the branch not taken gets a zero cotangent,
+    on which B7 returns exact zeros."""
 
     @staticmethod
     def forward(ctx, params, taus, tri_geo, tri_alb, sph_geo, sph_alb, height,
-                width, cfg):
+                width, cfg, run_if=None, want=0):
         ctx.save_for_backward(params, taus, tri_geo, tri_alb, sph_geo, sph_alb)
         ctx.frame = (height, width, cfg)
         return soft_brute_fwd(params, taus, tri_geo, tri_alb, sph_geo, sph_alb,
-                              height=height, width=width, cfg=cfg)
+                              height=height, width=width, cfg=cfg,
+                              run_if=run_if, want=want)
 
     @staticmethod
     def backward(ctx, g):
         height, width, cfg = ctx.frame
         grads = soft_brute_bwd(*ctx.saved_tensors, g, height=height,
                                width=width, cfg=cfg)
-        return tuple(grads) + (None, None, None)
+        return tuple(grads) + (None, None, None, None, None)
 
 
 def _soft_render_core(packed, camera: Camera, tau_d, tau_e, height: int,
                       width: int, shading: str, shadows: bool,
-                      normalize_dir: bool) -> torch.Tensor:
+                      normalize_dir: bool, run_if=None,
+                      want: int = 0) -> torch.Tensor:
     """The brute soft frame -> (H, W, 4) float32, 0..255 domain, with
     autograd to every leaf of the packed scene, the camera's tensors, the
-    lights and both temperatures (tensors or floats)."""
+    lights and both temperatures (tensors or floats). With `run_if` the
+    forward is the brute branch of `lax.cond` (zeros unless *run_if ==
+    want; see `soft_brute_fwd`)."""
     dev = packed.device
     arrays = [a.contiguous() for a in _prep_soft_arrays(packed)]
     params = _camera_params(camera, packed.lights).contiguous()
-    taus = torch.stack([torch.as_tensor(t, dtype=torch.float32, device=dev)
-                        for t in (tau_d, tau_e)])
+    taus = torch.stack([device_scalar(t, dev) for t in (tau_d, tau_e)])
     cfg = _static_cfg(packed, shading, shadows, normalize_dir)
-    return SoftBruteFunction.apply(params, taus, *arrays, height, width, cfg)
+    return SoftBruteFunction.apply(params, taus, *arrays, height, width, cfg,
+                                   run_if, want)

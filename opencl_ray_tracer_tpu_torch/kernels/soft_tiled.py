@@ -7,7 +7,11 @@ then hand-written CUDA kernels for the forward (B4) and backward (B5).
    the gradients. Shadow candidates use the segment-hull corridor of
    fwd_tiled._bin_prims with the same pad. `soft_bins_for_config` re-bins
    with K doubled until no tile overflows (up to the primitive count), so
-   the kernels never see a truncated list and no brute fallback exists.
+   the kernels never see a truncated list. `_soft_tiled_core` bins at fixed
+   K caps instead, as the JAX package always does, and launches both the
+   tiled and the brute soft kernels (kernels/soft.py), each told by the
+   bins' overflow flag on the card whether to do its work: `lax.cond`, with
+   no host read, for a CUDA graph to capture (runtime/graph.py).
 2. TABLES (torch, differentiable): per-tile gathered coefficient rows
    (`_gather_soft_tables`). Autograd of the gather IS the scatter-add of the
    per-tile gradient tables back onto the scene, camera and lights.
@@ -37,6 +41,9 @@ from opencl_ray_tracer_tpu_torch.diff.soft import (
     tmax,
 )
 from opencl_ray_tracer_tpu_torch.kernels.fwd import (
+    _check_run_if,
+    _out_buffer,
+    _select_branch,
     _LIGHT_STRIDE,
     _P_AMBIENT,
     _P_D0,
@@ -58,8 +65,8 @@ from opencl_ray_tracer_tpu_torch.kernels.fwd_tiled import (
     TILE_H,
     TILE_PIX,
     TILE_W,
+    _AABB_SIGNS,
     _bin_prims,
-    _f32,
     _prep_projective_coefs,
     _prim_bboxes,
     _prim_z_extents,
@@ -74,9 +81,11 @@ from opencl_ray_tracer_tpu_torch.kernels.soft import (
     _raise_on,
     _safe_norm_rows,
     _safe_unit_rows,
+    _soft_render_core,
 )
 from opencl_ray_tracer_tpu_torch.ops.intersect import EPSILON
 from opencl_ray_tracer_tpu_torch.ops.shading import LEGACY_FOG_MAX
+from opencl_ray_tracer_tpu_torch.runtime.graph import device_const, device_scalar
 from opencl_ray_tracer_tpu_torch.utils.log import log_warning
 
 # Candidate-list granularity: K caps round to it, and a tile's candidates
@@ -134,12 +143,9 @@ def _pinhole_bboxes_soft(packed, camera: Camera, pad):
     padded AABB; any corner behind the near plane degrades to a full-screen
     bbox."""
     M = torch.stack([camera.ddx, camera.ddy, camera.d0], dim=1)
-    Minv = torch.linalg.inv(M)
+    Minv = torch.linalg.inv_ex(M)[0]  # inv without its host-side check
     big = 1e9
-    signs = _f32(
-        [[sx, sy, sz] for sx in (-1.0, 1.0) for sy in (-1.0, 1.0)
-         for sz in (-1.0, 1.0)], camera.device,
-    )
+    signs = device_const(_AABB_SIGNS, camera.device)
 
     def box_of_aabb(lo, hi):  # (N, 3) each
         ctr = 0.5 * (lo + hi)
@@ -188,7 +194,7 @@ def _bin_soft(packed, tau_e, camera: Camera, *, height, width, k, shadows,
     ntx = _round_up(width, TILE_W) // TILE_W
     n_tiles = nty * ntx
     n_lights = packed.lights.position.shape[0]
-    tau_e = torch.as_tensor(tau_e, dtype=torch.float32, device=dev)
+    tau_e = device_scalar(tau_e, dev)
     pad = SOFT_CULL_SIGMAS * tau_e
     if projective:
         tri_box, sph_box = _pinhole_bboxes_soft(packed, camera, pad)
@@ -345,7 +351,7 @@ def _gather_soft_tables(packed, camera: Camera, tau_e, bins: SoftBins):
     Returns (tri_t, tri_alb_t, sph_t, sph_alb_t, tsh_t, ssh_t), contiguous."""
     dev = packed.device
     projective = bins.projective
-    tau_e = torch.as_tensor(tau_e, dtype=torch.float32, device=dev)
+    tau_e = device_scalar(tau_e, dev)
     e1t, e2t = packed.tri_e1.T, packed.tri_e2.T
     s1 = _safe_norm_rows(e1t)
     s2 = _safe_norm_rows(e2t)
@@ -387,7 +393,7 @@ def _gather_soft_tables(packed, camera: Camera, tau_e, bins: SoftBins):
     def gather(rows, idx, valid, null):
         # index_select: its backward is one index_add_ (atomic adds), where
         # that of rows[idx] sorts the indices first
-        null = torch.as_tensor(null, dtype=torch.float32, device=dev)
+        null = device_const(null, dev)
         picked = rows.index_select(0, idx.reshape(-1).long()).reshape(
             *idx.shape, rows.shape[1])
         return torch.where(valid[..., None], picked, null)
@@ -402,15 +408,15 @@ def _gather_soft_tables(packed, camera: Camera, tau_e, bins: SoftBins):
     if projective:
         real_t = (torch.arange(tp_, device=dev) < packed.n_tris)[:, None]
         real_s = (torch.arange(sp_, device=dev) < packed.n_spheres)[:, None]
-        tsh_rows = torch.where(real_t, tri_sh16, _f32(_NULL_TSH16, dev))
-        ssh_rows = torch.where(real_s, sph_sh16, _f32(_NULL_SSH16, dev))
+        tsh_rows = torch.where(real_t, tri_sh16, device_const(_NULL_TSH16, dev))
+        ssh_rows = torch.where(real_s, sph_sh16, device_const(_NULL_SSH16, dev))
         kt = max(bins.k_sh_tri, CH)
         ks = max(bins.k_sh_sph, CH)
 
         def pad_rows(rows, kk, null):
             if rows.shape[0] >= kk:
                 return rows[:kk]
-            extra = _f32(null, dev).expand(kk - rows.shape[0], 16)
+            extra = device_const(null, dev).expand(kk - rows.shape[0], 16)
             return torch.cat([rows, extra], 0)
 
         tsh_rows = pad_rows(tsh_rows, kt, _NULL_TSH16)
@@ -800,39 +806,50 @@ def _launch_args(params, taus, tables, counts, cfg):
     return ptrs, ints
 
 
-def soft_tiled_fwd(params, taus, tables, counts, *, cfg) -> torch.Tensor:
+def soft_tiled_fwd(params, taus, tables, counts, *, cfg, run_if=None,
+                   want: int = 0) -> torch.Tensor:
     """B4, the tiled soft forward -> (H, W, 4) float32. CUDA tensors launch
     kernels/csrc/soft_tiled.cu (built on first use) or raise; CPU tensors
-    run `_soft_tiled_plain` without autograd."""
+    run `_soft_tiled_plain` without autograd. `run_if` (one int32 on the
+    device, or None) is the device-side branch of `lax.cond`: the kernel
+    does its work only where *run_if == want, else its frame is zeros (the
+    twin: a torch.where)."""
     dev = params.device
+    _check_run_if(run_if, dev)
     if dev.type == "cpu":
         with torch.no_grad():
-            return _soft_tiled_plain(params, taus, tables, counts, cfg=cfg)
+            return _select_branch(
+                _soft_tiled_plain(params, taus, tables, counts, cfg=cfg),
+                run_if, want)
     if dev.type != "cuda":
         raise ValueError(f"soft_tiled_fwd runs on cuda or cpu tensors, got {dev}")
-    return _soft_tiled_fwd_cuda(params, taus, tables, counts, cfg)[0]
+    return _soft_tiled_fwd_cuda(params, taus, tables, counts, cfg, run_if,
+                                want)[0]
 
 
-def _soft_tiled_fwd_cuda(params, taus, tables, counts, cfg):
+def _soft_tiled_fwd_cuda(params, taus, tables, counts, cfg, run_if=None,
+                         want=0):
     """Launch B4 on CUDA tensors -> (frame, tiles). `tiles` is the int32
     list of non-empty tiles that the kernel's blocks build from `counts`
     (kernels/csrc/tile_list.cuh): tiles[0] their number, tiles[2 : 2 +
     tiles[0]] the tiles in ascending order (`fwd_tiled._live_tiles` is its
-    plain version), then the empty ones."""
+    plain version), then the empty ones. With `run_if`, both start as
+    zeros, which a skipped launch leaves."""
     global FWD_LAUNCHES
     dev = params.device
     _check_inputs(params, taus, tables, counts, cfg)
     from opencl_ray_tracer_tpu_torch.kernels._build import load_library
 
     lib = load_library()
-    out = torch.empty((cfg["height"], cfg["width"], 4), dtype=torch.float32,
-                      device=dev)
-    tiles = torch.empty(2 + cfg["nty"] * cfg["ntx"], dtype=torch.int32, device=dev)
+    out = _out_buffer((cfg["height"], cfg["width"], 4), torch.float32, dev,
+                      run_if)
+    tiles = _out_buffer((2 + cfg["nty"] * cfg["ntx"],), torch.int32, dev, run_if)
     ptrs, ints = _launch_args(params, taus, tables, counts, cfg)
-    p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    p = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.octrt_soft_tiled_fwd(*ptrs, p(out), p(tiles), *ints,
+                                      p(run_if), int(want),
                                       ctypes.c_void_p(stream))
     _raise_on(rc, "soft_tiled forward")
     FWD_LAUNCHES += 1
@@ -925,21 +942,25 @@ def _soft_tiled_bwd_cuda(params, taus, tables, counts, g, cfg):
 class SoftTiledFunction(torch.autograd.Function):
     """(params, taus, tri_t, tri_alb, sph_t, sph_alb, tsh_t, ssh_t) + the
     non-differentiable counts and cfg -> (H, W, 4) float image. Forward is
-    B4 and backward B5 on CUDA tensors; the plain twin on CPU tensors."""
+    B4 and backward B5 on CUDA tensors; the plain twin on CPU tensors. With
+    `run_if` the forward is a branch of `lax.cond` (see `soft_tiled_fwd`);
+    the backward needs no flag: the branch not taken gets a zero cotangent,
+    on which B5 returns exact zeros."""
 
     @staticmethod
     def forward(ctx, params, taus, tri_t, tri_alb, sph_t, sph_alb, tsh_t,
-                ssh_t, counts, cfg):
+                ssh_t, counts, cfg, run_if=None, want=0):
         tables = (tri_t, tri_alb, sph_t, sph_alb, tsh_t, ssh_t)
         ctx.save_for_backward(params, taus, *tables, counts)
         ctx.cfg = cfg
-        return soft_tiled_fwd(params, taus, tables, counts, cfg=cfg)
+        return soft_tiled_fwd(params, taus, tables, counts, cfg=cfg,
+                              run_if=run_if, want=want)
 
     @staticmethod
     def backward(ctx, g):
         params, taus, *tables, counts = ctx.saved_tensors
         grads = soft_tiled_bwd(params, taus, tables, counts, g, cfg=ctx.cfg)
-        return tuple(grads) + (None, None)
+        return tuple(grads) + (None, None, None, None)
 
 
 def soft_kernel_inputs(packed, camera: Camera, config: RenderConfig,
@@ -953,13 +974,44 @@ def soft_kernel_inputs(packed, camera: Camera, config: RenderConfig,
     dev = packed.device
     tables = _gather_soft_tables(packed, camera, config.tau_edge, bins)
     params = _camera_params(camera, packed.lights).contiguous()
-    taus = torch.tensor([config.tau_depth, config.tau_edge], dtype=torch.float32,
-                        device=dev)
+    taus = device_const([config.tau_depth, config.tau_edge], dev)
     cfg = dict(n_lights=packed.lights.position.shape[0], shading=config.shading,
                shadows=config.shadows, projective=bins.projective,
                nty=bins.nty, ntx=bins.ntx, height=config.height,
                width=config.width)
     return params, taus, tables, bins.counts, cfg
+
+
+def _soft_tiled_core(packed, camera: Camera, tau_d, tau_e, height: int,
+                     width: int, shading: str, shadows: bool, k: int,
+                     shadow_k: int) -> torch.Tensor:
+    """The soft frame at fixed K caps with no host read: the JAX package's
+    `_soft_tiled_core` (soft_tiled.py:2041-2173). `_bin_soft` runs at the K
+    caps and its lists may overflow; the tiled kernels (B4, and B5 in the
+    backward) do their work where they do not, the brute soft kernels (B6,
+    B7) where they do, each forward told by the overflow flag on the card
+    and the two frames selected by a torch.where on it, so the branch not
+    taken gets a zero cotangent in the backward, as under `lax.cond`.
+    (H, W, 4) float32 with autograd to the packed scene, the camera's
+    tensors and both temperatures (device scalars the caller owns, or
+    numbers)."""
+    dev = packed.device
+    tau_d, tau_e = device_scalar(tau_d, dev), device_scalar(tau_e, dev)
+    bins = _bin_soft(packed, tau_e, camera, height=height, width=width, k=k,
+                     shadows=shadows, shadow_k=shadow_k)
+    flag = bins.overflow.to(torch.int32)
+    tables = _gather_soft_tables(packed, camera, tau_e, bins)
+    params = _camera_params(camera, packed.lights).contiguous()
+    taus = torch.stack([tau_d, tau_e])
+    cfg = dict(n_lights=packed.lights.position.shape[0], shading=shading,
+               shadows=shadows, projective=bins.projective, nty=bins.nty,
+               ntx=bins.ntx, height=height, width=width)
+    tiled = SoftTiledFunction.apply(params, taus, *tables, bins.counts, cfg,
+                                    flag, 0)
+    brute = _soft_render_core(packed, camera, tau_d, tau_e, height, width,
+                              shading, shadows, camera.normalize, run_if=flag,
+                              want=1)
+    return torch.where(bins.overflow, brute, tiled)
 
 
 def render_soft_tiled(scene, camera: Camera, config: RenderConfig) -> torch.Tensor:

@@ -13,11 +13,17 @@ facade dispatches to:
   soft + other  -> diff/soft.py render_soft (the torch-autograd oracle)
 
 Every other frame runs on the device the scene's tensors lie on.
+
+`render_jit(config)` is the compiled tiled frame: forward(scene, camera) at
+the config's K caps with no host read, captured as a CUDA graph on the card
+(runtime/graph.py), the brute kernel taking over on the card where a tile's
+list overflows, as the JAX package's `render_tiled` does under `jax.jit`.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import functools
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -103,6 +109,21 @@ def render(
     from opencl_ray_tracer_tpu_torch.kernels.fwd_tiled import render_tiled
 
     return render_tiled(scene, camera, config)
+
+
+def render_jit(config: RenderConfig) -> Callable:
+    """forward(scene, camera) -> the tiled frame of `config` (the formats of
+    `render_tiled`), compiled: `kernels.fwd_tiled.render_tiled_fixed` at the
+    config's K caps through `runtime.graph.jit`. On the card the first call
+    captures a CUDA graph and every call returns the graph's static output
+    (clone what you keep); on the CPU it runs the plain twins eagerly."""
+    from opencl_ray_tracer_tpu_torch.kernels.fwd_tiled import render_tiled_fixed
+    from opencl_ray_tracer_tpu_torch.runtime.graph import jit
+
+    if config.soft or config.msaa > 1:
+        raise ValueError("render_jit compiles the hard tiled frame: soft=False, "
+                         "msaa <= 1")
+    return jit(functools.partial(render_tiled_fixed, config=config))
 
 
 class Renderer:

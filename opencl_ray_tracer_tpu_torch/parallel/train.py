@@ -20,12 +20,18 @@ Over a mesh (parallel/mesh.py), as the JAX package's shard_map step:
     gradients, so the replicated state stays bit-identical across ranks.
 
 A step updates the scene's leaf tensors in place.
+
+`make_train_step(..., jit=True)` is the JAX package's `@jax.jit` step on one
+card: the soft frame at the config's K caps (kernels/soft_tiled.py
+`_soft_tiled_core`: the brute soft kernels take over on the card where a
+tile's list overflows, as under `lax.cond`), the loss, `torch.autograd.grad`
+and the Adam update captured as one CUDA graph at the first call and
+replayed after (runtime/graph.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
@@ -34,12 +40,14 @@ from opencl_ray_tracer_tpu_torch.camera import Camera
 from opencl_ray_tracer_tpu_torch.config import RenderConfig
 from opencl_ray_tracer_tpu_torch.diff.soft import render_soft
 from opencl_ray_tracer_tpu_torch.kernels.soft import render_soft_pallas
+from opencl_ray_tracer_tpu_torch.kernels.soft_tiled import _soft_tiled_core
 from opencl_ray_tracer_tpu_torch.parallel.mesh import (
     IMAGE_AXIS,
     Mesh,
     mesh_n_shards,
     shift_camera_rows,
 )
+from opencl_ray_tracer_tpu_torch.runtime import graph
 from opencl_ray_tracer_tpu_torch.scene.scene import Lights, Scene
 
 _SCENE_KEYS = ("sphere_origin", "sphere_radius", "sphere_colour", "tri_verts",
@@ -73,9 +81,17 @@ def trainable_scene(scene) -> Scene:
 
 def adam(learning_rate: float) -> Callable:
     """Optimizer factory: params -> torch.optim.Adam with optax.adam's
-    defaults."""
-    return functools.partial(torch.optim.Adam, lr=learning_rate,
-                             betas=(0.9, 0.999), eps=1e-8)
+    defaults; `capturable` (its step count and bias corrections on the
+    card, so that a CUDA graph can hold the update) where the parameters lie
+    on a card."""
+
+    def make(params) -> torch.optim.Adam:
+        params = list(params)
+        return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999),
+                                eps=1e-8,
+                                capturable=any(p.is_cuda for p in params))
+
+    return make
 
 
 def init_train_state(scene, optimizer: Callable) -> TrainState:
@@ -102,6 +118,7 @@ def make_train_step(
     mesh: Optional[Mesh] = None,
     axis: str = IMAGE_AXIS,
     param_filter: Optional[Callable[[str], bool]] = None,
+    jit: bool = False,
 ) -> Callable:
     """Build the train step: step(state, target) -> (state, loss), the
     reference's call shape `make_train_step(camera, config, optimizer,
@@ -116,7 +133,21 @@ def make_train_step(
     all-reduced with the gradients; `axis` must name one of the mesh's axes.
     `param_filter(leaf_name) -> bool` (a leaf name of `scene_leaves`, e.g.
     "sphere_origin" or "lights.position"; the JAX package passes a pytree
-    path) freezes the leaves it rejects: their gradients are zeroed."""
+    path) freezes the leaves it rejects: their gradients are zeroed.
+
+    `jit=True` (one device, backend "pallas") renders through
+    `_soft_tiled_core` at the config's K caps, with no host read, and on a
+    card captures the whole step (forward, loss, gradients, Adam update)
+    as one CUDA graph at its first call for a state, which later calls
+    replay (see `_jit_step`). The returned loss is then the graph's output,
+    which the next step overwrites."""
+    if jit and mesh is not None:
+        raise NotImplementedError(
+            "make_train_step(jit=True) over a mesh (NCCL inside a CUDA graph) "
+            "is not ported: ROADMAP A13")
+    if jit and config.backend != "pallas":
+        raise ValueError("make_train_step(jit=True) renders through the tiled "
+                         f"soft kernels: backend 'pallas', not {config.backend!r}")
     if config.msaa > 1:
         # The train loss is defined on 1-sample soft renders; supersampled
         # training would need the loss averaged over sample offsets.
@@ -162,7 +193,109 @@ def make_train_step(
         state.opt_state.step()
         return state._replace(step=state.step + 1), loss
 
+    if jit:
+        return _jit_step(camera, config, param_filter)
     return step
+
+
+def fixed_k_step(state: TrainState, target, camera: Camera,
+                 config: RenderConfig, taus, param_filter=None) -> torch.Tensor:
+    """One one-device train step at the config's K caps with no host read,
+    eagerly: `_soft_tiled_core` (tau_d, tau_e: `taus`, device scalars), the
+    loss, `torch.autograd.grad`, the optimizer's update of the state's
+    leaves in place. Returns the loss. What `make_train_step(jit=True)`
+    captures."""
+    leaves = scene_leaves(state.scene)
+    h, w = config.height, config.width
+    img = _soft_tiled_core(state.scene.pack(), camera, *taus, h, w,
+                           config.shading, config.shadows, config.cull_k,
+                           config.shadow_cull_k)
+    diff = (img[..., :3] - target[..., :3]) * (1.0 / 255.0)
+    loss = torch.sum(diff * diff) * (1.0 / (h * w * 3.0))
+    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    for (name, p), g in zip(leaves.items(), grads):
+        if g is None or (param_filter is not None and not param_filter(name)):
+            g = torch.zeros_like(p)
+        p.grad = g
+    state.opt_state.step()
+    return loss.detach()
+
+
+def step_taus(config: RenderConfig, device) -> tuple:
+    """(tau_d, tau_e) of the config as device scalars for `fixed_k_step`."""
+    return tuple(torch.tensor(t, dtype=torch.float32, device=device)
+                 for t in (config.tau_depth, config.tau_edge))
+
+
+def _jit_step(camera: Camera, config: RenderConfig, param_filter) -> Callable:
+    """`fixed_k_step` as a step(state, target), captured whole on a card.
+
+    The temperatures are device scalars the step owns. On a card, the first
+    call for a state runs the step twice on a side stream (the kernels'
+    build, the lazily made constants, Adam's state), puts the state back as
+    it was (parameters and Adam's moments and count, in place), then
+    captures the step over a static target buffer; every call copies its
+    target in and replays the graph. CPU tensors run the same step eagerly."""
+    h, w = config.height, config.width
+    taus = {}  # device -> (tau_d, tau_e)
+    graphs = {}  # id(optimizer) -> (optimizer, graph, target buffer, loss)
+
+    def body(state: TrainState, target) -> torch.Tensor:
+        dev = target.device
+        if dev not in taus:
+            taus[dev] = step_taus(config, dev)
+        return fixed_k_step(state, target, camera, config, taus[dev], param_filter)
+
+    def step(state: TrainState, target) -> tuple:
+        if tuple(target.shape[:2]) != (h, w):
+            raise ValueError(f"target {tuple(target.shape)}: the frame is "
+                             f"({h}, {w}, 4)")
+        if not target.is_cuda:
+            return state._replace(step=state.step + 1), body(state, target)
+        opt = state.opt_state
+        entry = graphs.get(id(opt))
+        if entry is None or tuple(entry[2].shape) != tuple(target.shape):
+            buf = target.detach().clone()
+            with torch.cuda.device(buf.device):
+                keep = _snapshot(opt)
+                graph_, loss = graph.capture(lambda: body(state, buf),
+                                             name="train step")
+                _restore(opt, keep)
+            entry = graphs[id(opt)] = (opt, graph_, buf, loss)
+        _, graph_, buf, loss = entry
+        with torch.cuda.device(buf.device):
+            buf.copy_(target)
+            graph_.replay()
+        return state._replace(step=state.step + 1), loss
+
+    return step
+
+
+def _snapshot(opt: torch.optim.Optimizer):
+    """Copies of the optimizer's parameters and of its state's tensors (None
+    where it has none yet)."""
+    params = [p for group in opt.param_groups for p in group["params"]]
+    with torch.no_grad():
+        return [(p, p.detach().clone(),
+                 {k: v.clone() for k, v in opt.state[p].items()
+                  if isinstance(v, torch.Tensor)} if p in opt.state else None)
+                for p in params]
+
+
+def _restore(opt: torch.optim.Optimizer, keep) -> None:
+    """Parameters and optimizer state back to a `_snapshot`, in place (a
+    graph captured in between keeps their addresses); state made since then
+    goes back to zeros, Adam's fresh state."""
+    with torch.no_grad():
+        for p, value, state in keep:
+            p.copy_(value)
+            for k, v in opt.state.get(p, {}).items():
+                if not isinstance(v, torch.Tensor):
+                    continue
+                if state is None:
+                    v.zero_()
+                else:
+                    v.copy_(state[k])
 
 
 def scene_snapshot(scene) -> Scene:

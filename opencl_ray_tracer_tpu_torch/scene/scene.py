@@ -28,6 +28,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from opencl_ray_tracer_tpu_torch.runtime.graph import device_const
+
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
@@ -135,8 +137,8 @@ class Scene:
         dev = self.device
 
         def pad(x, n, fill):
-            tail = torch.as_tensor(fill, dtype=torch.float32, device=dev)
-            tail = tail.expand((n - x.shape[0],) + x.shape[1:])
+            # the fill is a per-device constant: no host copy per call
+            tail = device_const(fill, dev).expand((n - x.shape[0],) + x.shape[1:])
             return torch.cat([x, tail], dim=0)
 
         # Spheres: far-away zero-radius padding that can never win

@@ -37,3 +37,20 @@ class Random:
 
     def get_float(self, lo: float, hi: float) -> float:
         return float(self._require().uniform(lo, hi))
+
+
+# Module-level singleton mirroring the reference's static class
+# (misc/Random.cpp), as the JAX package's utils/rng.py keeps one.
+_global = Random()
+
+
+def init(seed: int) -> None:
+    _global.init(seed)
+
+
+def get_int(lo: int, hi: int) -> int:
+    return _global.get_int(lo, hi)
+
+
+def get_float(lo: float, hi: float) -> float:
+    return _global.get_float(lo, hi)

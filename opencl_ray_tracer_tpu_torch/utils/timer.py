@@ -16,7 +16,10 @@ from typing import Callable, Dict, List
 
 import torch
 
-now_ns = time.perf_counter_ns
+
+def now_ns() -> int:
+    """The monotonic clock in nanoseconds (`time.perf_counter_ns`)."""
+    return time.perf_counter_ns()
 
 
 class PerformanceCounter:

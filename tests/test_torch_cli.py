@@ -108,3 +108,25 @@ def test_devices_names_the_selected_device(capsys):
     out = capsys.readouterr().out
     want = "cuda:0" if torch.cuda.is_available() else "cpu"
     assert out.strip().splitlines()[-1] == f"selected: {want}"
+
+
+def test_cmd_bench_forwards_its_arguments(monkeypatch):
+    """`cmd_bench(args)` hands args.bench_args whole to the bench, as JAX's
+    does to its own, and `main(["bench", ...])` goes through it."""
+    import sys
+    import types
+
+    from opencl_ray_tracer_tpu_torch import bench
+
+    seen = []
+    monkeypatch.setattr(bench, "main", lambda argv: seen.append(argv) or 0)
+    fake_jax_bench = types.SimpleNamespace(main=lambda argv: seen.append(argv))
+    monkeypatch.setitem(sys.modules, "bench", fake_jax_bench)
+    argv = ["--skip-context", "--scene", "3", "--width", "640"]
+    import argparse
+
+    ns = argparse.Namespace(bench_args=argv)
+    assert jcli.cmd_bench(ns) == 0
+    assert tcli.cmd_bench(ns) == 0
+    assert tcli.main(["bench", *argv]) == 0
+    assert seen == [argv, argv, argv]

@@ -680,3 +680,151 @@ def test_reference_backend_runs_on_the_host_cpu(cuda_device, fmt):
     on_card = _render_oracle(scene, cam, cfg)
     assert on_card.device.type == "cuda"
     assert T.Renderer(cfg, cam).render_cpu(scene).device.type == "cpu"
+
+
+# ---- the compiled path: the kernels' device-side branch and CUDA graphs ----
+
+
+def test_graph_host_read_inside_capture_raises(cuda_device):
+    """A host read inside a captured function fails the capture, which
+    raises with CUDA's message: it does not run the function eagerly."""
+    from opencl_ray_tracer_tpu_torch.runtime.graph import jit
+
+    calls = []
+
+    def fn(x):
+        calls.append(1)
+        return x * float(x.sum().item())
+
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        jit(fn)(torch.ones(4, device=cuda_device))
+    assert len(calls) == 3  # two warm-up runs on a side stream, one capture
+    # the card is still usable, and a capturable function captures
+    f = jit(lambda x: x * 2.0)
+    out = f(torch.ones(4, device=cuda_device))
+    assert torch.equal(out, torch.full((4,), 2.0, device=cuda_device))
+    out = f(torch.full((4,), 3.0, device=cuda_device))
+    assert torch.equal(out, torch.full((4,), 6.0, device=cuda_device))
+
+
+@pytest.mark.parametrize("kernel", ["B1", "B3", "B4", "B6"])
+def test_run_if_runs_or_skips_the_kernel(cuda_device, kernel):
+    """Each forward with run_if: the kernel's frame where *run_if == want,
+    all zeros where not, and a skipped launch is still a launch."""
+    from opencl_ray_tracer_tpu_torch.kernels import fwd, soft
+    from opencl_ray_tracer_tpu_torch.kernels import soft_tiled as S
+
+    scene = T.create_scene(1, seed=0, device=cuda_device)
+    cam = T.legacy_ortho_camera(device=cuda_device)
+    packed = scene.pack()
+    if kernel in ("B1", "B3"):
+        cfg = T.RenderConfig(width=W, height=H, shading="phong", shadows=True,
+                             framebuffer_dtype="packed" if kernel == "B1" else "float")
+        if kernel == "B1":
+            args, kw = _inputs(cuda_device, 1, "ortho", "phong", True, "packed")
+            call = lambda **b: fwd_tiled.tiled_kernel(*args, **kw, **b)  # noqa: E731
+            mod, name = fwd_tiled, "KERNEL_LAUNCHES"
+        else:
+            args, kw = fwd.brute_kernel_inputs(packed, cam, cfg)
+            call = lambda **b: fwd.brute_kernel(*args, **kw, **b)  # noqa: E731
+            mod, name = fwd, "BRUTE_LAUNCHES"
+    else:
+        cfg = T.RenderConfig(width=SOFT_W, height=SOFT_H, shading="phong",
+                             shadows=True, soft=True, framebuffer_dtype="float",
+                             tau_depth=1.0, tau_edge=0.5)
+        if kernel == "B4":
+            params, taus, tables, counts, kc = S.soft_kernel_inputs(packed, cam, cfg)
+            call = lambda **b: S.soft_tiled_fwd(  # noqa: E731
+                params, taus, tables, counts, cfg=kc, **b)
+            mod, name = S, "FWD_LAUNCHES"
+        else:
+            inputs = [soft._camera_params(cam, packed.lights).contiguous(),
+                      torch.tensor([1.0, 0.5], device=cuda_device)]
+            inputs += [a.contiguous() for a in soft._prep_soft_arrays(packed)]
+            kw = dict(height=SOFT_H, width=SOFT_W,
+                      cfg=soft._static_cfg(packed, "phong", True, False))
+            call = lambda **b: soft.soft_brute_fwd(*inputs, **kw, **b)  # noqa: E731
+            mod, name = soft, "SOFT_BRUTE_FWD_LAUNCHES"
+    with torch.no_grad():
+        want = call()
+        for flag, wanted in ((0, 0), (1, 1), (1, 0), (0, 1)):
+            before = getattr(mod, name)
+            got = call(run_if=torch.tensor(flag, dtype=torch.int32,
+                                           device=cuda_device), want=wanted)
+            torch.cuda.synchronize()
+            assert getattr(mod, name) == before + 1
+            if flag == wanted:
+                assert torch.equal(got, want), (flag, wanted)
+            else:
+                assert not got.any(), (flag, wanted)
+
+
+@pytest.mark.parametrize("cull_k", [32, 8])
+def test_entry_replay_matches_eager(cuda_device, cull_k):
+    """entry()'s captured frame, replayed with the camera moved: the eager
+    render_tiled_packed frame word for word where the lists fit (K 32), and
+    the brute kernel's frame, packed on the card, where they overflow (K 8;
+    render_jit at that K)."""
+    import dataclasses
+
+    from opencl_ray_tracer_tpu_torch.entry import entry
+    from opencl_ray_tracer_tpu_torch.kernels import fwd
+    from opencl_ray_tracer_tpu_torch.models.renderer import render_jit
+    from opencl_ray_tracer_tpu_torch.ops.shading import pack_framebuffer_words
+
+    forward, (scene, cam) = entry()
+    cfg = T.RenderConfig(width=640, height=480, shading="phong", shadows=True,
+                         framebuffer_dtype="packed", cull_k=cull_k,
+                         shadow_cull_k=64 if cull_k == 32 else 8)
+    if cull_k != 32:
+        forward = render_jit(cfg)
+    packed = scene.pack()
+    for d in ([0.0, 0.0, 0.0], [2.5, -1.25, 0.0]):
+        c = dataclasses.replace(cam, o0=cam.o0 + torch.tensor(d, device=cuda_device))
+        got = forward(scene, c).clone()
+        overflow = bool(fwd_tiled.bin_fixed(packed, c, cfg).overflow)
+        assert overflow == (cull_k == 8)
+        if overflow:
+            want = pack_framebuffer_words(fwd.render_pallas_packed(
+                packed, c, cfg.replace(framebuffer_dtype="float")))
+        else:
+            want = fwd_tiled.render_tiled_packed(packed, c, cfg)
+        assert torch.equal(got, want), d
+
+
+def test_jit_train_step_matches_eager_step(cuda_device):
+    """Two make_train_step(jit=True) steps at 256x128 against the eager step
+    from the same state: loss and every leaf within 1e-6 (relative)."""
+    from opencl_ray_tracer_tpu_torch.parallel import (
+        adam,
+        init_train_state,
+        make_train_step,
+    )
+    from opencl_ray_tracer_tpu_torch.parallel.train import scene_leaves
+
+    cfg = T.RenderConfig(width=SOFT_W, height=SOFT_H, shading="phong",
+                         shadows=True, soft=True, framebuffer_dtype="float",
+                         tau_depth=1.0, tau_edge=0.5)
+    cam = T.legacy_ortho_camera(device=cuda_device)
+    scene = T.random_scene(5, 3, seed=4, bounds=(250.0, 120.0), device=cuda_device)
+    target = torch.zeros((SOFT_H, SOFT_W, 4), device=cuda_device)
+    opt_e, opt_j = adam(1e-2), adam(1e-2)
+    assert opt_e([torch.zeros(1, device=cuda_device)]).defaults["capturable"]
+    step_e = make_train_step(cam, cfg, opt_e)
+    step_j = make_train_step(cam, cfg, opt_j, jit=True)
+    se, sj = init_train_state(scene, opt_e), init_train_state(scene, opt_j)
+    for i in range(2):
+        if i:
+            with torch.no_grad():
+                for a, b in zip(scene_leaves(se.scene).values(),
+                                scene_leaves(sj.scene).values()):
+                    b.copy_(a)
+                    for k, v in sj.opt_state.state[b].items():
+                        v.copy_(se.opt_state.state[a][k])
+        se, le = step_e(se, target)
+        sj, lj = step_j(sj, target)
+        assert abs(lj.item() - le.item()) <= 1e-6 * abs(le.item())
+        for k, v in scene_leaves(se.scene).items():
+            rel = ((scene_leaves(sj.scene)[k] - v).abs()
+                   / v.abs().clamp_min(1e-30)).max().item()
+            assert rel <= 1e-6, (i, k, rel)

@@ -26,6 +26,8 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "opencl_ray_tracer_tpu"))
 assert not bad, bad
+for new in ("entry", "runtime.graph"):  # the compiled path's modules
+    assert f"opencl_ray_tracer_tpu_torch.{new}" in names, new
 print(len(names))
 """
 
@@ -43,6 +45,7 @@ calls = (
     lambda: T.get_renderer("soft", width=128, height=64).render(
         T.create_scene1(device="cuda")),
     lambda: T.cli.main(["fit", "--steps", "2"]),
+    lambda: __import__("opencl_ray_tracer_tpu_torch.entry").entry.entry(),
     lambda: T.cli.main(["bench", "--skip-context"]),
     lambda: app.MainState(app.StateManager(), app.InputManager()),
     lambda: T.cli.main(["compare"]),
@@ -73,7 +76,7 @@ def _run(code_or_args, cwd=REPO, **env):
 def test_port_imports_no_jax():
     proc = _run(IMPORT_ALL)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 51  # every ported module
+    assert int(proc.stdout.split()[-1]) >= 53  # every ported module
 
 
 def test_cuda_device_without_card_raises():

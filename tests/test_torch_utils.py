@@ -188,3 +188,35 @@ def test_memory_and_platform_on_cpu():
     assert info["backend"] == ("gpu" if torch.cuda.is_available() else "cpu")
     assert len(info["devices"]) >= 1 and info["process_count"] == 1
     platform_info.log_system_info()
+
+
+def test_rng_module_singleton_matches_jax():
+    """The module-level init / get_int / get_float over one shared Random,
+    as the JAX package's utils/rng.py: the same draws from the same seed."""
+    from opencl_ray_tracer_tpu.utils import rng as jr
+    from opencl_ray_tracer_tpu_torch.utils import rng as tr
+
+    for seed in (0, 7, 12345):
+        jr.init(seed)
+        tr.init(seed)
+        want = [jr.get_int(-5, 9) for _ in range(8)] + [jr.get_float(-1.0, 2.5)
+                                                       for _ in range(8)]
+        got = [tr.get_int(-5, 9) for _ in range(8)] + [tr.get_float(-1.0, 2.5)
+                                                      for _ in range(8)]
+        assert got == want
+    assert isinstance(tr._global, tr.Random)
+
+
+def test_now_ns_matches_jax_clock_kind():
+    """`now_ns` is a function of the monotonic clock in nanoseconds, as
+    JAX's utils/timer.now_ns."""
+    import time
+
+    from opencl_ray_tracer_tpu.utils import timer as jtimer
+    from opencl_ray_tracer_tpu_torch.utils import timer as ttimer
+
+    a = ttimer.now_ns()
+    b = jtimer.now_ns()
+    c = time.perf_counter_ns()
+    assert callable(ttimer.now_ns) and isinstance(a, int) and isinstance(b, int)
+    assert a <= c and abs(b - a) < 10**9
