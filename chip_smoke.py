@@ -5,8 +5,8 @@
 
 Drives the port's paths — the tiled hard forward frame, the soft
 differentiable train step, the brute render path (forward and
-differentiable), the row-sharded path and the app shell — through the
-entry points a user calls, and fails
+differentiable), the row-sharded path, the app shell and the compiled
+forms (CUDA graphs) — through the entry points a user calls, and fails
 (non-zero exit, no result line) unless every phase passes:
 
 1. device: torch, CUDA and nvcc versions, the card's name and power limit;
@@ -90,7 +90,9 @@ entry points a user calls, and fails
    kernels before their redesign;
    then `python -m opencl_ray_tracer_tpu_torch.bench --skip-scaling` as a
    subprocess, whose exit code, 13 rows (device_ms > 0, the K caps of every
-   tiled row) and JSON keys (shard_map_overhead among them) are checked;
+   tiled row; no soft row's lists overflow its caps, so every soft row runs
+   the tiled kernels) and JSON keys (shard_map_overhead among them) are
+   checked;
 13. the configurations new to the card, through their entry points first
    (launches counted): the bench's dynamic frame (the headline frame
    through its pinhole camera, re-binned in the call) against the frame
@@ -126,7 +128,8 @@ entry points a user calls, and fails
    99.9% of pixels, xla frames on >= 99.9%); the flythrough example at its
    defaults (1280x720, 60 frames, phong + shadows, pinhole; frame 0
    through B2 against the twin) and the inverse-rendering example at its
-   defaults (the loss falls; B4 and B5 launched); the memory report shows
+   defaults (the loss falls; B4 and B5 launched: at the compiled step's
+   warm-up and capture, its replays uncounted); the memory report shows
    bytes in use on the card and the platform report names it;
 16. the compiled path (`graph_phase`): the JAX package's `jit` forms as
    CUDA graphs. `entry()`, the 1080p headline frame (packed and float) and
@@ -139,7 +142,21 @@ entry points a user calls, and fails
    `make_train_step(jit=True)` train1080 steps against the eager step from
    the same state (1e-6); eager and replayed times, kernels a call, busy
    share and the JAX bench's slope. Its launches are the `graph` path of
-   every kernel in the `kernels` line.
+   every kernel in the `kernels` line;
+17. the JAX package's last compiled forms (`compiled_forms_phase`): C1 (the
+   40-sphere pile at the default caps through `render_soft_pallas` takes
+   the brute soft kernels B6/B7, train1080 the tiled ones B4/B5); the
+   compiled mesh step over a one-rank NCCL group on `make_mesh(1)` and
+   `make_mesh_2d(1, 1)`, its all-reduce inside the CUDA graph, 5 train1080
+   steps in lockstep with the eager mesh step (1e-6), a replay traced (the
+   NCCL kernel in it) and timed; `render_sharded_jit` (the headline frame
+   packed and float word for word / bit for bit with the eager frame, at
+   cull_k 8 the brute frame's words; the soft and `xla` blocks); the
+   compiled fit (`fit_scene` at 640x480, 20 steps, lockstep with the eager
+   step, then resume in place into a captured state against the
+   uninterrupted run, 1e-6); `render_xla_jit` at 1080p against eager
+   `render_xla` and the `jit=True` step on backend `xla` in lockstep with
+   the eager one. Its launches are the `phase 17` path of every kernel.
 
 Hard kernel vs twin is bounded on every pixel: float frames within 0.5/255,
 packed and int frames within one step of 1/255 (and identical on >= 99.5%
@@ -460,14 +477,17 @@ def main() -> int:
     sharded = sharded_phase(T, dev, smi)        # 14
     shell = shell_phase(T, dev, smi)            # 15
     graph, _ = graph_phase(T, dev, smi)         # 16
+    compiled = compiled_forms_phase(T, dev, smi)  # 17
     for row, key in zip(soft_rows, ("B4", "B5")):
         row["launches_by_path"] = {"phase 9": row["launches"], "phase 13": new[key],
                                    "phase 14": sharded[key], "phase 15": shell[key],
-                                   "graph": graph[key]}
-        row["launches"] += new[key] + sharded[key] + shell[key] + graph[key]
+                                   "graph": graph[key], "phase 17": compiled[key]}
+        row["launches"] += (new[key] + sharded[key] + shell[key] + graph[key]
+                            + compiled[key])
     for row, key in zip(brute_rows, ("B3", "B6", "B7")):
-        row["launches_by_path"] = {"phase 12": row["launches"], "graph": graph[key]}
-        row["launches"] += graph[key]
+        row["launches_by_path"] = {"phase 12": row["launches"], "graph": graph[key],
+                                   "phase 17": compiled[key]}
+        row["launches"] += graph[key] + compiled[key]
 
     hl = kernel_rows[0]
     print(smi)  # name, power limit exactly as nvidia-smi gives them
@@ -478,9 +498,11 @@ def main() -> int:
         "route": "cuda",
         "source": src,
         "replaces": "opencl_ray_tracer_tpu/kernels/fwd_tiled.py:514",
-        "launches": main_launches + new["B1"] + sharded["B1"] + graph["B1"],
+        "launches": (main_launches + new["B1"] + sharded["B1"] + graph["B1"]
+                     + compiled["B1"]),
         "launches_by_path": {"phase 5": main_launches, "phase 13": new["B1"],
-                             "phase 14": sharded["B1"], "graph": graph["B1"]},
+                             "phase 14": sharded["B1"], "graph": graph["B1"],
+                             "phase 17": compiled["B1"]},
         "max_abs_err": hl["perr"],
         "tolerance": "every pixel: packed bytes within 1 of the twin's, "
                      "identical on >= 99.5%",
@@ -496,9 +518,11 @@ def main() -> int:
         "route": "cuda",
         "source": src,
         "replaces": "opencl_ray_tracer_tpu/kernels/fwd_tiled.py:1358",
-        "launches": new["B2"] + sharded["B2"] + shell["B2"] + graph["B2"],
+        "launches": (new["B2"] + sharded["B2"] + shell["B2"] + graph["B2"]
+                     + compiled["B2"]),
         "launches_by_path": {"phase 13": new["B2"], "phase 14": sharded["B2"],
-                             "phase 15": shell["B2"], "graph": graph["B2"]},
+                             "phase 15": shell["B2"], "graph": graph["B2"],
+                             "phase 17": compiled["B2"]},
         "max_abs_err": hl["ferr"],
         "tolerance": "every pixel within 0.5/255 of the twin",
         "shape": hl["label"].replace("packed", "float"),
@@ -1836,6 +1860,10 @@ def brute_phase_full_size(T, dev, smi):
     print("\n".join(ln for ln in err_lines if "overflow: re-binning" not in ln))
     print(f"[bench] {len(rebins)} re-binning warnings on stderr"
           + (f", the last: {rebins[-1]}" if rebins else ""))
+    # a soft row whose lists overflow its caps would render the brute soft
+    # frame (as the JAX package does) while reporting the re-binned caps
+    soft_rebins = [ln for ln in rebins if "soft tile candidate overflow" in ln]
+    _require(not soft_rebins, f"a soft bench row overflows its K caps: {soft_rebins}")
     _require(proc.returncode == 0, f"the bench failed:\n{proc.stderr[-4000:]}")
     lines = proc.stdout.strip().splitlines()
     _require(len(lines) == 1, f"the bench printed {len(lines)} stdout lines")
@@ -2588,7 +2616,11 @@ def shell_phase(T, dev, smi):
         _require(all(os.path.exists(os.path.join(tmp, f"inv_{p}.png"))
                      for p in ("target", "init", "fitted")), "[shell] inverse demo PNGs")
     losses = res["losses"]
-    _require(got["B4"] >= 150 and got["B5"] >= 150,
+    # fit_scene runs the compiled step: B4 and B5 launch through their
+    # wrappers at the graph's two warm-up calls and its capture; the other
+    # 147 steps replay the same launches with no wrapper call (uncounted),
+    # and the falling loss is their work
+    _require(got["B4"] >= 3 and got["B5"] >= 3,
              f"[shell] inverse demo launches {got}")
     _require(all(np.isfinite(losses)) and losses[-1] < losses[0],
              f"[shell] inverse demo losses {losses}")
@@ -2885,6 +2917,399 @@ def graph_phase(T, dev, smi):
               f"{smi}")
     print(f"[graph] phase 16 took {time.perf_counter() - t_phase:.1f} s")
     return launches, times
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's last compiled forms: the mesh step with its all-reduce in
+# the graph, the compiled sharded frame, the compiled fit, the xla forms
+# ---------------------------------------------------------------------------
+
+def _replay_trace(fn):
+    """(device operations in one call, whether an NCCL kernel is among
+    them, the operations' names) from a torch.profiler trace of one call of
+    `fn` (a graph replay: one entry per kernel, copy and fill node)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return len(names), any("nccl" in n.lower() for n in names), names
+
+
+def compiled_forms_phase(T, dev, smi):
+    """Phase 17: the JAX package's last compiled forms on one card. Its
+    main path runs with every count set to 0 just before each call and read
+    just after. (i) C1: the 40-sphere pile (256x128, lambert, the default
+    caps) through `render_soft_pallas`: the overflow flag set, B6/B7
+    launched and B4/B5 not, the image within 0.05/255 of eager
+    `_soft_render_core` and the leaf gradients within 1e-3 normalised of the
+    brute backward's; train1080 through `render_soft_pallas`: B4/B5
+    launched and B6/B7 not. (ii) the compiled mesh step
+    (`make_train_step(..., mesh=, jit=True)`) over a one-rank NCCL group,
+    on `make_mesh(1)` and on `make_mesh_2d(1, 1)` (two one-rank
+    communicators in one graph): 5 train1080 steps in lockstep with the
+    eager mesh step (one state taken to both sides before each step, for
+    B5's atomics), loss and every leaf within 1e-6 relative; one replay
+    traced (its device operations, the NCCL kernel among them) and its
+    per-call median beside the eager mesh step's. (iii) the compiled
+    sharded frame (`render_sharded_jit` on `make_mesh(1)`): the headline
+    1080p frame, packed and float, replayed with the camera moved, equal to
+    the eager tiled frame word for word (bit for bit); at cull_k 8 the flag
+    set and the frame the eager brute frame's words; the train1080 soft
+    frame and the `xla` frame equal to their eager blocks. (iv) the
+    compiled fit: `fit_scene` (scene 1 at 640x480, 20 steps, on the
+    group's mesh) through the compiled step, which must lower the loss; the
+    same compiled step in lockstep with the eager step for 20 steps (1e-6
+    relative); then 20 compiled steps straight, checkpointed at step 10,
+    against a state whose graph is already captured, resumed from that
+    checkpoint in place and stepped 10 more times (1e-6 relative). (v) the
+    `xla` forms: `render_xla_jit` at 1080p phong + shadows, int and float,
+    equal to the eager `render_xla` word for word and bit for bit; the
+    `jit=True` step on backend `xla` at 256x128 in lockstep with the eager
+    `xla` step for 3 steps (1e-6 relative); replay and eager per-call
+    medians. Returns the launches of its main path per kernel."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from opencl_ray_tracer_tpu_torch.diff import render_soft
+    from opencl_ray_tracer_tpu_torch.kernels import fwd, fwd_tiled
+    from opencl_ray_tracer_tpu_torch.kernels import soft as B
+    from opencl_ray_tracer_tpu_torch.kernels import soft_tiled as S
+    from opencl_ray_tracer_tpu_torch.kernels.soft import render_soft_pallas
+    from opencl_ray_tracer_tpu_torch.models.inverse import (
+        SPHERE_PARAMS,
+        fit_scene,
+        param_filter_from_names,
+        perturb_scene,
+    )
+    from opencl_ray_tracer_tpu_torch.models.xla_backend import (
+        render_xla,
+        render_xla_jit,
+    )
+    from opencl_ray_tracer_tpu_torch.ops.shading import pack_framebuffer_words
+    from opencl_ray_tracer_tpu_torch.parallel import (
+        adam,
+        distributed,
+        init_train_state,
+        make_mesh,
+        make_mesh_2d,
+        make_train_step,
+        render_sharded,
+        render_sharded_jit,
+        replicate,
+        scene_leaves,
+        shard_rows,
+    )
+    from opencl_ray_tracer_tpu_torch.parallel.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+
+    t_phase = time.perf_counter()
+    counters = _graph_counters()
+    launches = dict.fromkeys(GRAPH_KERNELS, 0)
+    times = {}
+
+    def counted(fn, fmt="float"):
+        """fn() with every count set to 0 just before and read just after;
+        returns (fn's result, this call's launches per kernel)."""
+        for mod, name in counters.values():
+            setattr(mod, name, 0)
+        out = fn()
+        torch.cuda.synchronize()
+        got = {}
+        for key, (mod, name) in counters.items():
+            if key == "B12":
+                key = "B1" if fmt == "packed" else "B2"
+            got[key] = getattr(mod, name)
+            launches[key] += got[key]
+        return out, got
+
+    def rel_err(a, b):
+        return ((a - b).abs() / b.abs().clamp_min(1e-30)).max().item()
+
+    def scene_err(a, b, norm):
+        """(largest difference of two scenes, its leaf): relative to each
+        element, or with `norm` to the leaf's largest magnitude."""
+        worst = (0.0, None)
+        for k, v in scene_leaves(b.scene).items():
+            d = scene_leaves(a.scene)[k] - v
+            e = ((d.abs().max() / v.abs().max().clamp_min(1e-30)).item() if norm
+                 else rel_err(scene_leaves(a.scene)[k], v))
+            worst = max(worst, (e, k), key=lambda t: t[0])
+        return worst
+
+    def lockstep(step_a, state_a, step_b, state_b, target, n, label, norm=False):
+        """n steps of two steps, state_a taken to state_b before each (for
+        B5's atomics): the largest relative difference of the loss and of
+        the scene (each element's, or with `norm` normalised by each leaf's
+        largest), and state_b's losses."""
+        lerr, serr, worst, losses = 0.0, 0.0, None, []
+        for i in range(n):
+            if i:
+                _copy_train_state(state_a, state_b)
+            state_a, la = step_a(state_a, target)
+            (state_b, lb), _ = counted(lambda: step_b(state_b, target))
+            la, lb = la.item(), lb.item()
+            losses.append(lb)
+            lerr = max(lerr, abs(lb - la) / abs(la))
+            e, k = scene_err(state_b, state_a, norm)
+            if e > serr:
+                serr, worst = e, k
+        print(f"[compiled] {label}, {n} steps in lockstep: largest relative "
+              f"difference of the loss {lerr:.2e}, of the scene {serr:.2e} "
+              f"({'normalised by each leaf' if norm else 'each element'}, at "
+              f"{worst}; bar 1e-6); losses {losses[0]:.9g} -> {losses[-1]:.9g}")
+        _require(lerr <= 1e-6 and serr <= 1e-6,
+                 f"[compiled] {label}: {lerr}, {serr} over 1e-6")
+        return state_a, state_b, losses
+
+    w, h = 1920, 1080
+    ortho = T.legacy_ortho_camera(device=dev)
+    headline = T.random_scene(10, 1, seed=0, bounds=(1910.0, 1070.0), device=dev)
+    soft_cfg = _soft_cfg(T, w, h, "phong", True)
+
+    # ---- (i) C1: the brute frame where a list overflows its cap -----------
+    pile = T.random_scene(40, 0, seed=9, bounds=(60.0, 40.0), device=dev)
+    pile_cfg = _soft_cfg(T, SOFT_W, SOFT_H, "lambert", False)
+    flag = S._bin_soft(pile.pack(), 0.5, ortho, height=SOFT_H, width=SOFT_W,
+                       k=pile_cfg.cull_k, shadows=False,
+                       shadow_k=pile_cfg.shadow_cull_k).overflow
+    _require(bool(flag), "[compiled] the pile fits its lists at the default caps")
+    got_g, used = counted(lambda: _leaf_grads(render_soft_pallas, pile, ortho,
+                                              pile_cfg, _mean_sq))
+    with torch.no_grad():
+        img = render_soft_pallas(pile, ortho, pile_cfg)
+        want = B._soft_render_core(pile.pack(), ortho, 1.0, 0.5, SOFT_H, SOFT_W,
+                                   "lambert", False, False)
+    ierr = (img - want).abs().max().item()
+    want_g = _leaf_grads(lambda s, c, cf: B._soft_render_core(
+        s.pack(), c, 1.0, 0.5, SOFT_H, SOFT_W, "lambert", False, False), pile,
+        ortho, pile_cfg, _mean_sq)
+    # two runs of B7, whose sums are atomic adds in no fixed order; the pile
+    # has no triangles, so their leaves are empty
+    keep = [k for k, v in want_g.items() if v.numel()]
+    gerr = _compare_grads("[compiled] C1 pile", {k: got_g[k] for k in keep},
+                          {k: want_g[k] for k in keep}, 1e-3, lost_floor=1e-3)
+    print(f"[compiled] C1: the 40-sphere pile at cull_k {pile_cfg.cull_k} / "
+          f"{pile_cfg.shadow_cull_k}: overflow flag {bool(flag)}, launches {used}; "
+          f"image vs eager _soft_render_core max err {ierr:.5f}/255 (bar "
+          f"{FWD_BAR}), leaf gradients {gerr:.2e} normalised (bar 1e-3)")
+    _require(used["B6"] >= 1 and used["B7"] >= 1 and used["B4"] == 0
+             and used["B5"] == 0, f"[compiled] C1 pile launches {used}")
+    _require(ierr <= FWD_BAR, f"[compiled] C1 pile image err {ierr}")
+    _, used = counted(lambda: _leaf_grads(render_soft_pallas, headline, ortho,
+                                          soft_cfg, _mean_sq))
+    print(f"[compiled] C1: train1080 at cull_k {soft_cfg.cull_k} / "
+          f"{soft_cfg.shadow_cull_k} through render_soft_pallas: launches {used}")
+    _require(used["B4"] >= 1 and used["B5"] >= 1 and used["B6"] == 0
+             and used["B7"] == 0, f"[compiled] C1 train1080 launches {used}")
+
+    # ---- (ii) the compiled mesh step over a one-rank NCCL group -----------
+    distributed.initialize(f"127.0.0.1:{distributed.free_port()}", 1, 0)
+    try:
+        nccl = ".".join(map(str, torch.cuda.nccl.version()))
+        print(f"[compiled] process group: world size {dist.get_world_size()}, "
+              f"backend {dist.get_backend()}, NCCL {nccl}, "
+              f"NCCL_GRAPH_MIXING_SUPPORT="
+              f"{os.environ.get('NCCL_GRAPH_MIXING_SUPPORT', 'unset (default 1)')}")
+        target = torch.zeros((h, w, 4), dtype=torch.float32, device=dev)
+        for label, mesh in (("make_mesh(1)", make_mesh(1)),
+                            ("make_mesh_2d(1, 1)", make_mesh_2d(1, 1))):
+            backends = [dist.get_backend(g) for g in mesh.reduce_groups]
+            _require(backends and all(b == "nccl" for b in backends),
+                     f"[compiled] {label} groups {backends}")
+            opt_e, opt_j = adam(1e-3), adam(1e-3)
+            step_e = make_train_step(ortho, soft_cfg, opt_e, mesh=mesh)
+            step_j = make_train_step(ortho, soft_cfg, opt_j, mesh=mesh, jit=True)
+            state_e = init_train_state(replicate(headline, mesh), opt_e)
+            state_j = init_train_state(replicate(headline, mesh), opt_j)
+            tgt = shard_rows(target, mesh)
+            state_e, state_j, _ = lockstep(
+                step_e, state_e, step_j, state_j, tgt, 5,
+                f"train1080 mesh step on {label} ({len(backends)} NCCL "
+                f"communicators), jit=True vs eager")
+            n_ops, has_nccl, names = _replay_trace(lambda: step_j(state_j, tgt))
+            nccl_names = sorted({n for n in names if "nccl" in n.lower()})
+            e_ms = _time_ms(lambda: step_e(state_e, tgt), 20)
+            r_ms = _time_ms(lambda: step_j(state_j, tgt), 50)
+            times[label] = (e_ms, r_ms)
+            # NCCL runs no kernel for an in-place all-reduce on a one-rank
+            # communicator, so a one-card replay shows none; the capture of
+            # the collective itself raises where NCCL refuses it
+            # (scripts/torch_mesh_cards.py traces a replay over 4 cards)
+            print(f"[compiled] [time] train1080 mesh step on {label}: one replay "
+                  f"runs {n_ops} device operations (profiler), an NCCL kernel "
+                  f"among them: {has_nccl} {nccl_names} (one rank: NCCL launches "
+                  f"none for an in-place all-reduce); replay median "
+                  f"{r_ms[0]:.4f} ms [{r_ms[1]:.4f}, {r_ms[2]:.4f}] over 50, eager "
+                  f"mesh step {e_ms[0]:.4f} ms [{e_ms[1]:.4f}, {e_ms[2]:.4f}] over "
+                  f"20 (eager / replay {e_ms[0] / r_ms[0]:.2f}x); {smi}")
+            # an eager all-reduce on the communicators the graph holds, then a
+            # replay: captured and eager collectives mix on one communicator
+            probe = mesh.all_reduce(torch.ones(4, device=dev))
+            (_, lj), _ = counted(lambda: step_j(state_j, tgt))
+            _require(bool(torch.isfinite(lj)) and probe.sum().item() == 4.0,
+                     f"[compiled] {label}: an eager all-reduce beside the replays")
+
+        # ---- (iii) the compiled sharded frame --------------------------------
+        mesh = make_mesh(1)
+        hl_cfg = T.RenderConfig(width=w, height=h, shading="phong", shadows=True,
+                                framebuffer_dtype="packed")
+        moves = [torch.tensor(v, dtype=torch.float32, device=dev)
+                 for v in ([0.0, 0.0, 0.0], [0.37, -0.21, 0.0], [-3.0, 2.5, 0.0])]
+        packed = headline.pack()
+        for cfg in (hl_cfg, hl_cfg.replace(framebuffer_dtype="float")):
+            fmt = cfg.framebuffer_dtype
+            fn = render_sharded_jit(cfg, mesh)
+            for i, d in enumerate(moves):
+                c = dataclasses.replace(ortho, o0=ortho.o0 + d)
+                got, _ = counted(lambda: fn(headline, c).clone(), fmt)
+                _require(not bool(fwd_tiled.bin_fixed(packed, c, cfg).overflow),
+                         f"[compiled] headline {fmt}: the caps overflow")
+                want = fwd_tiled.render_tiled_packed(packed, c, cfg)
+                _require(torch.equal(got, want), f"[compiled] sharded headline "
+                         f"{fmt}, replay {i}: not the eager frame")
+            print(f"[compiled] render_sharded_jit on make_mesh(1), the headline "
+                  f"1080p {fmt} frame, {len(moves)} replays with the camera moved: "
+                  f"identical to eager render_tiled_packed at K {cfg.cull_k} / "
+                  f"{cfg.shadow_cull_k}")
+        cfg8 = hl_cfg.replace(cull_k=8, shadow_cull_k=8)
+        fn8 = render_sharded_jit(cfg8, mesh)
+        for i, d in enumerate(moves[:2]):
+            c = dataclasses.replace(ortho, o0=ortho.o0 + d)
+            got, used = counted(lambda: fn8(headline, c).clone(), "packed")
+            flag8 = bool(fwd_tiled.bin_fixed(packed, c, cfg8).overflow)
+            want = pack_framebuffer_words(fwd.render_pallas_packed(
+                packed, c, cfg8.replace(framebuffer_dtype="float")))
+            same = torch.equal(got, want)
+            print(f"[compiled] render_sharded_jit at cull_k 8, call {i}: overflow "
+                  f"flag {flag8}, the frame vs eager render_pallas_packed: "
+                  f"identical {same}; launches {used}")
+            _require(flag8 and same, "[compiled] the sharded frame at cull_k 8 is "
+                     "not the brute frame")
+        for label, cfg in (("train1080 soft", soft_cfg),
+                           ("xla phong+shadows float",
+                            hl_cfg.replace(framebuffer_dtype="float", backend="xla"))):
+            fn = render_sharded_jit(cfg, mesh)
+            got, _ = counted(lambda: fn(headline, ortho).clone())
+            with torch.no_grad():
+                want = render_sharded(headline, ortho, cfg, mesh=mesh)
+            _require(torch.equal(got, want), f"[compiled] sharded {label}: not the "
+                     "eager block")
+            print(f"[compiled] render_sharded_jit {label} 1080p on make_mesh(1): "
+                  f"identical to the eager render_sharded")
+
+        # ---- (iv) the compiled fit --------------------------------------------
+        fw, fh = 640, 480
+        fit_cfg = T.RenderConfig(width=fw, height=fh, shading="lambert", soft=True,
+                                 framebuffer_dtype="float", tau_depth=1.0,
+                                 tau_edge=0.5)
+        true_scene = T.create_scene(1, seed=0, device=dev)
+        with torch.no_grad():
+            fit_target = render_soft(true_scene, ortho, fit_cfg)
+        init = perturb_scene(true_scene, seed=1)
+        (fitted, fit_losses), used = counted(lambda: fit_scene(
+            init, fit_target, camera=ortho, config=fit_cfg, steps=20,
+            learning_rate=0.5, trainable=SPHERE_PARAMS, log_every=1))
+        print(f"[compiled] fit_scene 640x480 scene 1, 20 compiled steps on the "
+              f"group's mesh: loss {fit_losses[0]:.6f} -> {fit_losses[-1]:.6f}; "
+              f"launches {used}")
+        _require(len(fit_losses) == 20 and fit_losses[-1] < fit_losses[0],
+                 f"[compiled] fit_scene losses {fit_losses}")
+        fmesh = make_mesh()
+        fltr = param_filter_from_names(SPHERE_PARAMS)
+
+        def fit_step(jit):
+            opt = adam(0.5)
+            step = make_train_step(ortho, fit_cfg, opt, mesh=fmesh,
+                                   param_filter=fltr, jit=jit)
+            return step, init_train_state(replicate(init, fmesh), opt)
+
+        (step_e, state_e), (step_j, state_j) = fit_step(False), fit_step(True)
+        tgt = shard_rows(fit_target, fmesh)
+        # Adam at 0.5 moves a sphere parameter near zero by a step that B5's
+        # atomic order changes in its last bits: each leaf's error is read
+        # against its largest magnitude (an element's own read 3.4e-6)
+        _, _, lock_losses = lockstep(step_e, state_e, step_j, state_j, tgt, 20,
+                                     "fit 640x480, jit=True vs eager", norm=True)
+        drift = max(abs(a - b) / abs(b) for a, b in zip(fit_losses, lock_losses))
+        print(f"[compiled] fit_scene's losses vs the lockstep compiled run's: "
+              f"largest relative difference {drift:.2e} (two runs, not lockstep)")
+        step_a, state_a = fit_step(True)
+        step_b, state_b = fit_step(True)
+        with tempfile.TemporaryDirectory() as ck:
+            straight = []
+            for i in range(20):
+                (state_a, la), _ = counted(lambda: step_a(state_a, tgt))
+                straight.append(la.item())
+                if i == 9:
+                    path = save_checkpoint(ck, state_a, mesh=fmesh)
+            step_b(state_b, tgt)  # captures state_b's graph
+            state_b = load_checkpoint(path, state_b)
+            resumed = []
+            for _ in range(10):
+                (state_b, lb), _ = counted(lambda: step_b(state_b, tgt))
+                resumed.append(lb.item())
+        lerr = max(abs(a - b) / abs(b) for a, b in zip(resumed, straight[10:]))
+        serr, worst = scene_err(state_b, state_a, True)
+        print(f"[compiled] resume: 20 compiled steps straight vs a captured state "
+              f"resumed in place from the step-10 checkpoint and stepped 10 times: "
+              f"largest relative difference of the loss {lerr:.2e}, of the final "
+              f"scene {serr:.2e} (normalised by each leaf, at {worst}; bar 1e-6)")
+        _require(lerr <= 1e-6 and serr <= 1e-6, f"[compiled] resume: {lerr}, {serr}")
+    finally:
+        dist.destroy_process_group()
+
+    # ---- (v) the xla forms ----------------------------------------------------
+    for as_int in (True, False):
+        kw = dict(height=h, width=w, shading="phong", shadows=True, as_int=as_int)
+        xcfg = T.RenderConfig(width=w, height=h, shading="phong", shadows=True,
+                              framebuffer_dtype="int" if as_int else "float")
+        got, _ = counted(lambda: render_xla_jit(headline, ortho, **kw).clone())
+        want = render_xla(headline, ortho, xcfg)
+        _require(torch.equal(got, want), f"[compiled] render_xla_jit as_int={as_int}"
+                 ": not the eager frame")
+        e_ms = _time_ms(lambda: render_xla(headline, ortho, xcfg), 20)
+        r_ms = _time_ms(lambda: render_xla_jit(headline, ortho, **kw), 50)
+        times[f"xla {'int' if as_int else 'float'}"] = (e_ms, r_ms)
+        print(f"[compiled] [time] render_xla_jit 1080p phong+shadows "
+              f"{'int' if as_int else 'float'}: identical to eager render_xla; "
+              f"replay median {r_ms[0]:.4f} ms [{r_ms[1]:.4f}, {r_ms[2]:.4f}] over "
+              f"50, eager {e_ms[0]:.4f} ms [{e_ms[1]:.4f}, {e_ms[2]:.4f}] over 20; "
+              f"{smi}")
+    small = T.random_scene(5, 3, seed=4, bounds=(250.0, 120.0), device=dev)
+    xla_cfg = _soft_cfg(T, SOFT_W, SOFT_H, "phong", True).replace(backend="xla")
+    xtarget = torch.zeros((SOFT_H, SOFT_W, 4), dtype=torch.float32, device=dev)
+    opt_e, opt_j = adam(1e-2), adam(1e-2)
+    step_e = make_train_step(ortho, xla_cfg, opt_e)
+    step_j = make_train_step(ortho, xla_cfg, opt_j, jit=True)
+    state_e, state_j, _ = lockstep(step_e, init_train_state(small, opt_e), step_j,
+                                   init_train_state(small, opt_j), xtarget, 3,
+                                   "xla train step 256x128 phong + soft shadows, "
+                                   "jit=True vs eager")
+    e_ms = _time_ms(lambda: step_e(state_e, xtarget), 20)
+    r_ms = _time_ms(lambda: step_j(state_j, xtarget), 50)
+    times["xla step"] = (e_ms, r_ms)
+    print(f"[compiled] [time] xla train step 256x128: replay median {r_ms[0]:.4f} "
+          f"ms [{r_ms[1]:.4f}, {r_ms[2]:.4f}] over 50, eager {e_ms[0]:.4f} ms "
+          f"[{e_ms[1]:.4f}, {e_ms[2]:.4f}] over 20; {smi}")
+
+    print(f"[compiled] launches of phase 17's path (warm-up and capture of each "
+          f"graph counted; a replay runs the graph's launches without a wrapper "
+          f"call): {launches}")
+    _require(all(launches[k] >= 1 for k in GRAPH_KERNELS),
+             f"[compiled] phase 17's path did not go through every kernel: {launches}")
+    print(f"[compiled] phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 if __name__ == "__main__":

@@ -221,7 +221,8 @@ def cmd_app(args) -> int:
 def cmd_fit(args) -> int:
     """Render the chosen library scene through the chosen camera/shading as
     the target (with the soft oracle), perturb its sphere parameters and
-    recover them by gradient descent through the soft renderer (the tiled
+    recover them by gradient descent through the soft renderer (the
+    compiled step of `fit_scene`: one CUDA graph a step, through the tiled
     soft kernels for backend pallas), with optional checkpoint/resume."""
     import torch
 

@@ -385,8 +385,9 @@ def render_soft_jit(scene, camera: Camera, tau_d, tau_e, height: int,
                     remat: bool = True) -> torch.Tensor:
     """Row-chunked soft render. Under autograd each chunk is checkpointed
     (`remat`): only its rays are kept, and its (pixels x prims) planes are
-    recomputed in the backward. Named after the JAX function it ports;
-    there is nothing to compile."""
+    recomputed in the backward (a CUDA graph captures the checkpoint and
+    its recompute: the compiled train step on backend "xla"). Named after
+    the JAX function it ports."""
     o, d = camera.rays(height, width)
 
     def do_chunk(oc, dc):
@@ -408,11 +409,9 @@ def render_soft(scene, camera: Camera, config: RenderConfig) -> torch.Tensor:
     the scene's device. Legacy depth-fog, lambert and phong (with soft
     shadows when config.shadows) are all differentiable."""
     dev = scene.device
-    f32 = torch.float32
     return render_soft_jit(
         scene, camera,
-        torch.tensor(config.tau_depth, dtype=f32, device=dev),
-        torch.tensor(config.tau_edge, dtype=f32, device=dev),
+        device_const(config.tau_depth, dev), device_const(config.tau_edge, dev),
         height=config.height, width=config.width,
         shading=config.shading, shadows=config.shadows,
     )

@@ -17,7 +17,8 @@ helpers the tiled soft path shares.
 3. ENTRY POINTS: `_soft_render_core` (the brute path, with gradients for
    every scene leaf, the camera, the lights and both temperatures) and
    `render_soft_pallas` (the tiled path of kernels/soft_tiled.py, which
-   culls; the brute path is its cross-check).
+   culls, and which takes the brute path for the frame where a tile's list
+   overflows its K cap).
 """
 
 from __future__ import annotations
@@ -96,10 +97,12 @@ def _safe_unit_rows(v):
 
 def render_soft_pallas(scene, camera: Camera, config: RenderConfig) -> torch.Tensor:
     """Soft differentiable render through the tiled soft kernels, forward
-    AND backward (kernels/soft_tiled.py): CUDA on the card, their plain
-    twin on the CPU. Legacy / lambert / phong, soft shadows when
-    config.shadows, both camera families. Output float32 (H, W, 4), 0..255
-    domain. (The name is the JAX package's entry point this ports.)"""
+    AND backward, at the config's K caps, or through the brute soft kernels
+    where a tile's list overflows them (kernels/soft_tiled.py
+    `render_soft_tiled`): CUDA on the card, their plain twins on the CPU.
+    Legacy / lambert / phong, soft shadows when config.shadows, both camera
+    families. Output float32 (H, W, 4), 0..255 domain. (The name is the JAX
+    package's entry point this ports.)"""
     from opencl_ray_tracer_tpu_torch.kernels.soft_tiled import render_soft_tiled
 
     return render_soft_tiled(scene, camera, config)

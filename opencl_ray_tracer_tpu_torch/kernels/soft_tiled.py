@@ -5,13 +5,16 @@ then hand-written CUDA kernels for the forward (B4) and backward (B5).
    SOFT_CULL_SIGMAS * tau_edge — beyond ~16 sigma the coverage sigmoids
    underflow to exact float32 zero, so culling changes neither the image nor
    the gradients. Shadow candidates use the segment-hull corridor of
-   fwd_tiled._bin_prims with the same pad. `soft_bins_for_config` re-bins
-   with K doubled until no tile overflows (up to the primitive count), so
-   the kernels never see a truncated list. `_soft_tiled_core` bins at fixed
-   K caps instead, as the JAX package always does, and launches both the
-   tiled and the brute soft kernels (kernels/soft.py), each told by the
-   bins' overflow flag on the card whether to do its work: `lax.cond`, with
-   no host read, for a CUDA graph to capture (runtime/graph.py).
+   fwd_tiled._bin_prims with the same pad. Binning is at the config's K
+   caps, as the JAX package always bins; where any tile's list overflows,
+   the frame is the brute soft kernels' (kernels/soft.py), as under JAX's
+   `lax.cond`. `render_soft_tiled` reads the overflow flag once and runs
+   only that branch; `_soft_tiled_core` launches both, each told by the
+   flag on the card whether to do its work, with no host read, for a CUDA
+   graph to capture (runtime/graph.py). `soft_bins_for_config` is an opt-in
+   helper that re-bins with K doubled until no tile overflows (not the JAX
+   package's semantics): what the smoke and the bench use to set a kernel's
+   K outright.
 2. TABLES (torch, differentiable): per-tile gathered coefficient rows
    (`_gather_soft_tables`). Autograd of the gather IS the scatter-add of the
    per-tile gradient tables back onto the scene, camera and lights.
@@ -293,7 +296,9 @@ def _bin_soft(packed, tau_e, camera: Camera, *, height, width, k, shadows,
 def soft_bins_for_config(packed, camera: Camera, config: RenderConfig) -> SoftBins:
     """`_bin_soft` at the config's K caps, re-binning with both caps doubled
     while any tile overflows, up to the primitive count (where no list can
-    overflow)."""
+    overflow). An opt-in helper that sets the tiled kernels' K outright; it
+    is NOT the JAX package's semantics, which render the brute soft frame
+    wherever a list overflows its cap (`render_soft_tiled` does that)."""
     k, shadow_k = config.cull_k, config.shadow_cull_k
 
     def make(k_, sk_):
@@ -966,7 +971,9 @@ class SoftTiledFunction(torch.autograd.Function):
 def soft_kernel_inputs(packed, camera: Camera, config: RenderConfig,
                        bins: SoftBins = None):
     """(params, taus, tables, counts, cfg) of a frame; params and tables
-    carry autograd history back to the packed scene and the camera."""
+    carry autograd history back to the packed scene and the camera. `bins`
+    None bins through `soft_bins_for_config`, the opt-in escalating helper
+    (not the JAX package's semantics: see `render_soft_tiled`)."""
     if bins is None:
         bins = soft_bins_for_config(packed, camera, config)
     if bins.projective != camera.normalize:
@@ -1015,10 +1022,23 @@ def _soft_tiled_core(packed, camera: Camera, tau_d, tau_e, height: int,
 
 
 def render_soft_tiled(scene, camera: Camera, config: RenderConfig) -> torch.Tensor:
-    """Tiled+culled soft differentiable render, forward and backward through
-    the tiled soft kernels. Both camera families; any tile over the K caps
-    re-bins with larger caps. Output float32 (H, W, 4), 0..255 domain, with
-    autograd to every scene leaf (and the camera's tensors)."""
+    """Tiled+culled soft differentiable render, the JAX package's
+    `render_soft_tiled`: the lists binned at the config's K caps; where none
+    overflows, the tiled soft kernels (B4 forward, B5 backward), else the
+    brute soft kernels (B6, B7) for the whole frame, as JAX's `lax.cond`
+    chooses. Eagerly the overflow flag is read once on the host and only
+    the branch taken runs (`_soft_tiled_core` is the same function with no
+    host read). Both camera families. Output float32 (H, W, 4), 0..255
+    domain, with autograd to every scene leaf (and the camera's tensors)."""
     packed = scene.pack() if hasattr(scene, "pack") else scene
-    params, taus, tables, counts, cfg = soft_kernel_inputs(packed, camera, config)
+    h, w = config.height, config.width
+    bins = _bin_soft(packed, config.tau_edge, camera, height=h, width=w,
+                     k=config.cull_k, shadows=config.shadows,
+                     shadow_k=config.shadow_cull_k)
+    if bool(bins.overflow):
+        return _soft_render_core(packed, camera, config.tau_depth,
+                                 config.tau_edge, h, w, config.shading,
+                                 config.shadows, camera.normalize)
+    params, taus, tables, counts, cfg = soft_kernel_inputs(packed, camera,
+                                                           config, bins)
     return SoftTiledFunction.apply(params, taus, *tables, counts, cfg)

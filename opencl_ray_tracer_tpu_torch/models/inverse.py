@@ -95,6 +95,12 @@ def fit_scene(
     this with the same arguments; the target's rows are split here and the
     scene is broadcast from rank 0.
 
+    The step is the compiled one (`make_train_step(jit=True)`), as the
+    JAX package's fit always runs its jitted step: on a card one CUDA graph
+    a step, all-reduce included; on the CPU the same step eagerly. Each
+    loss is read (`float`) at once at the `log_every` points: the next
+    replay overwrites it.
+
     With `checkpoint_dir`, the TrainState (scene + optimizer + step) is
     saved every `checkpoint_every` steps and at the end (by rank 0), and a
     killed run resumes from the latest checkpoint on the next call."""
@@ -108,7 +114,7 @@ def fit_scene(
     fltr = param_filter_from_names(trainable) if trainable else None
     optimizer = adam(learning_rate)
     step = make_train_step(camera, config, optimizer, mesh=mesh,
-                           param_filter=fltr)
+                           param_filter=fltr, jit=True)
 
     target = torch.as_tensor(np.asarray(
         target.detach().cpu() if isinstance(target, torch.Tensor) else target,

@@ -52,15 +52,47 @@ def latest_checkpoint(path: str) -> Optional[str]:
 
 
 def load_checkpoint(ckpt_path: str, example_state: TrainState) -> TrainState:
-    """Restore a TrainState into `example_state`'s scene leaves (in place)
-    and optimizer; the structure is taken from `example_state`."""
+    """Restore a TrainState into `example_state`'s scene leaves and
+    optimizer, in place; the structure is taken from `example_state`.
+
+    Where the optimizer already holds state (Adam's moments and step count
+    once it has stepped), that state is copied into its tensors in place: a
+    compiled step (`make_train_step(jit=True)`) holds them by address, and
+    its graph then reads the restored values. Before the first step the
+    optimizer's own `load_state_dict` makes them."""
     dev = example_state.scene.device
     payload = torch.load(ckpt_path, map_location=dev, weights_only=True)
     with torch.no_grad():
         for k, v in scene_leaves(example_state.scene).items():
             v.copy_(payload["scene"][k])
-    example_state.opt_state.load_state_dict(payload["optimizer"])
+    opt = example_state.opt_state
+    if opt.state:
+        _load_optimizer_in_place(opt, payload["optimizer"])
+    else:
+        opt.load_state_dict(payload["optimizer"])
     return example_state._replace(step=int(payload["step"]))
+
+
+def _load_optimizer_in_place(opt: torch.optim.Optimizer, saved: dict) -> None:
+    """`opt.load_state_dict(saved)` that keeps the optimizer's tensors: the
+    saved state of parameter i (in param_groups order, as `state_dict`
+    numbers them) is copied into the tensors the optimizer holds for it,
+    and each group's options are taken from the saved groups."""
+    groups = saved["param_groups"]
+    if [len(g["params"]) for g in groups] != [len(g["params"])
+                                             for g in opt.param_groups]:
+        raise ValueError("the checkpoint's optimizer holds other parameters")
+    for group, sg in zip(opt.param_groups, groups):
+        group.update({k: v for k, v in sg.items() if k != "params"})
+    params = [p for group in opt.param_groups for p in group["params"]]
+    with torch.no_grad():
+        for i, p in enumerate(params):
+            have = opt.state[p]
+            for k, v in saved["state"][i].items():
+                if isinstance(v, torch.Tensor):
+                    have[k].copy_(v)
+                else:
+                    have[k] = v
 
 
 def resume_or_init(path: str, init_state: TrainState) -> TrainState:

@@ -100,15 +100,18 @@ def dryrun_multichip(n_devices: int) -> None:
 
 def save_problem(path: str, scene_arrays: dict, target: np.ndarray, config,
                  *, steps: int = 1, learning_rate: float = 1e-2,
-                 fit: Optional[dict] = None, render=None) -> None:
+                 jit: bool = False, fit: Optional[dict] = None,
+                 render=None) -> None:
     """Write a problem for `--problem`: the scene (`scene_to_arrays`), the
     (H, W, 4) target, the config (its mesh_shape picks the mesh), and
-    either `steps` train steps at `learning_rate` or `fit`, the keywords of
-    `fit_scene` (steps, trainable, checkpoint_dir, ...). With `render`, a
-    config whose row-sharded frame (`render_sharded` + `gather_rows`) each
-    rank also writes. The camera is the legacy ortho one."""
+    either `steps` train steps at `learning_rate` (the compiled step with
+    `jit`) or `fit`, the keywords of `fit_scene` (steps, trainable,
+    checkpoint_dir, ...). With `render`, a config whose row-sharded frame
+    (`render_sharded` + `gather_rows`) each rank also writes. The camera is
+    the legacy ortho one."""
     spec = {"config": config.to_json(), "steps": steps, "lr": learning_rate,
-            "fit": fit, "render": render.to_json() if render is not None else None}
+            "jit": jit, "fit": fit,
+            "render": render.to_json() if render is not None else None}
     np.savez(path, target=np.asarray(target, np.float32), spec=json.dumps(spec),
              **{f"scene:{k}": v for k, v in scene_arrays.items()})
 
@@ -146,7 +149,8 @@ def run_problem(path: str) -> str:
                                    mesh=mesh, **spec["fit"])
     else:
         optimizer = adam(spec["lr"])
-        step = make_train_step(camera, config, optimizer, mesh=mesh)
+        step = make_train_step(camera, config, optimizer, mesh=mesh,
+                               jit=spec.get("jit", False))
         state = init_train_state(replicate(scene, mesh), optimizer)
         target_rows = shard_rows(target, mesh)
         losses = []

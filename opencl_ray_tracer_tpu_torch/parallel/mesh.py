@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -154,12 +154,16 @@ def shift_camera_rows(camera: Camera, row0) -> Camera:
                                d0=camera.d0 + r * camera.ddy)
 
 
-def _render_rows(scene, camera: Camera, h: int, w: int, config: RenderConfig):
+def _render_rows(scene, camera: Camera, h: int, w: int, config: RenderConfig,
+                 fixed: bool = False):
     """An (h, w) block through `camera` (already shifted to the block), by
     the config's path: MSAA per block in the facade's order; soft through
     the tiled soft kernels for backend "pallas", else the torch-autograd
     oracle; hard through the tiled hard kernel for "pallas", else the
-    whole-frame plain backend; packed words where asked."""
+    whole-frame plain backend; packed words where asked. `fixed`: the
+    compiled forms, at the config's K caps with no host read (the brute
+    kernels take over on the card where a list overflows, as under JAX's
+    `jit`); else the eager hard path re-bins with larger caps instead."""
     from opencl_ray_tracer_tpu_torch.ops.shading import pack_framebuffer_words
 
     if config.msaa > 1:
@@ -171,7 +175,7 @@ def _render_rows(scene, camera: Camera, h: int, w: int, config: RenderConfig):
         acc = None
         for dx, dy in MSAA_OFFSETS[config.msaa]:
             img = _render_rows(scene, camera.shift_subpixel(dx, dy), h, w,
-                               sample_cfg)
+                               sample_cfg, fixed)
             acc = img if acc is None else acc + img
         out = acc * (1.0 / config.msaa)
         if config.framebuffer_dtype == "int":
@@ -181,6 +185,13 @@ def _render_rows(scene, camera: Camera, h: int, w: int, config: RenderConfig):
         return out
     block_cfg = config.replace(height=h, width=w)
     if config.soft:
+        if config.backend == "pallas" and fixed:
+            from opencl_ray_tracer_tpu_torch.kernels.soft_tiled import _soft_tiled_core
+
+            return _soft_tiled_core(scene.pack(), camera, config.tau_depth,
+                                    config.tau_edge, h, w, config.shading,
+                                    config.shadows, config.cull_k,
+                                    config.shadow_cull_k)
         if config.backend == "pallas":
             from opencl_ray_tracer_tpu_torch.kernels.soft import render_soft_pallas
 
@@ -192,9 +203,13 @@ def _render_rows(scene, camera: Camera, h: int, w: int, config: RenderConfig):
         # The shifted camera's origin moves the block's tile rects into world
         # coordinates at binning time; a pinhole block bins through its own
         # shifted projection.
-        from opencl_ray_tracer_tpu_torch.kernels.fwd_tiled import render_tiled
+        from opencl_ray_tracer_tpu_torch.kernels.fwd_tiled import (
+            render_tiled,
+            render_tiled_fixed,
+        )
 
-        return render_tiled(scene, camera, block_cfg)
+        return (render_tiled_fixed if fixed else render_tiled)(scene, camera,
+                                                               block_cfg)
     from opencl_ray_tracer_tpu_torch.models.xla_backend import render_xla
 
     if config.framebuffer_dtype == "packed":
@@ -221,6 +236,32 @@ def render_sharded(scene, camera: Camera, config: RenderConfig,
     h_local = _rows_per_rank(config.height, mesh)
     cam = shift_camera_rows(camera, mesh.rank * h_local)
     return _render_rows(scene, cam, h_local, config.width, config)
+
+
+def render_sharded_jit(config: RenderConfig, mesh: Optional[Mesh] = None,
+                       axis: str = IMAGE_AXIS) -> Callable:
+    """forward(scene, camera) -> this rank's block of the row-sharded frame
+    (what `render_sharded` returns), compiled, as the JAX package's
+    `render_sharded` is one `jax.jit` program: the block through the
+    row-shifted camera at the config's K caps with no host read (hard
+    `pallas`: `render_tiled_fixed`, B3 taking over on the card where a list
+    overflows; soft `pallas`: `_soft_tiled_core`; `xla`: the whole-frame
+    path), MSAA and packed words per block, through `runtime.graph.jit`.
+    On the card the first call captures a CUDA graph and every call returns
+    the graph's static output (clone what you keep); on the CPU it runs
+    eagerly. It holds no collective: `gather_rows` assembles the frame.
+    Without `mesh`, config.mesh_shape picks it (mesh_from_config)."""
+    from opencl_ray_tracer_tpu_torch.runtime.graph import jit
+
+    mesh = mesh or mesh_from_config(config, axis=axis)
+    h_local = _rows_per_rank(config.height, mesh)
+    row0 = mesh.rank * h_local
+
+    def forward(scene, camera: Camera):
+        return _render_rows(scene, shift_camera_rows(camera, row0), h_local,
+                            config.width, config, fixed=True)
+
+    return jit(forward)
 
 
 def gather_rows(block: torch.Tensor, mesh: Mesh) -> torch.Tensor:

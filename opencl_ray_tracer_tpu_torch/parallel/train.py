@@ -21,12 +21,17 @@ Over a mesh (parallel/mesh.py), as the JAX package's shard_map step:
 
 A step updates the scene's leaf tensors in place.
 
-`make_train_step(..., jit=True)` is the JAX package's `@jax.jit` step on one
-card: the soft frame at the config's K caps (kernels/soft_tiled.py
+`make_train_step(..., jit=True)` is the JAX package's `@jax.jit` step, on
+one card or on each rank of a mesh: the soft frame of this rank's rows at
+the config's K caps for backend "pallas" (kernels/soft_tiled.py
 `_soft_tiled_core`: the brute soft kernels take over on the card where a
-tile's list overflows, as under `lax.cond`), the loss, `torch.autograd.grad`
-and the Adam update captured as one CUDA graph at the first call and
-replayed after (runtime/graph.py).
+tile's list overflows, as under `lax.cond`), the torch-autograd oracle at
+fixed temperatures for any other backend (`diff.soft.render_soft_jit`, as
+JAX's step renders through `render_soft_jit`), the loss,
+`torch.autograd.grad`, the all-reduce over the mesh's NCCL groups and the
+Adam update, captured as one CUDA graph at the first call and replayed
+after (runtime/graph.py). Every rank warms up, captures and replays in the
+same order, so the captured all-reduces meet.
 """
 
 from __future__ import annotations
@@ -35,10 +40,11 @@ import dataclasses
 from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from opencl_ray_tracer_tpu_torch.camera import Camera
 from opencl_ray_tracer_tpu_torch.config import RenderConfig
-from opencl_ray_tracer_tpu_torch.diff.soft import render_soft
+from opencl_ray_tracer_tpu_torch.diff.soft import render_soft, render_soft_jit
 from opencl_ray_tracer_tpu_torch.kernels.soft import render_soft_pallas
 from opencl_ray_tracer_tpu_torch.kernels.soft_tiled import _soft_tiled_core
 from opencl_ray_tracer_tpu_torch.parallel.mesh import (
@@ -135,19 +141,13 @@ def make_train_step(
     "sphere_origin" or "lights.position"; the JAX package passes a pytree
     path) freezes the leaves it rejects: their gradients are zeroed.
 
-    `jit=True` (one device, backend "pallas") renders through
-    `_soft_tiled_core` at the config's K caps, with no host read, and on a
-    card captures the whole step (forward, loss, gradients, Adam update)
-    as one CUDA graph at its first call for a state, which later calls
-    replay (see `_jit_step`). The returned loss is then the graph's output,
-    which the next step overwrites."""
-    if jit and mesh is not None:
-        raise NotImplementedError(
-            "make_train_step(jit=True) over a mesh (NCCL inside a CUDA graph) "
-            "is not ported: ROADMAP A13")
-    if jit and config.backend != "pallas":
-        raise ValueError("make_train_step(jit=True) renders through the tiled "
-                         f"soft kernels: backend 'pallas', not {config.backend!r}")
+    `jit=True` renders this rank's rows at fixed K caps with no host read
+    (`fixed_k_step`), and on a card captures the whole step (forward, loss,
+    gradients, all-reduce, Adam update) as one CUDA graph at its first call
+    for a state, which later calls replay (see `_jit_step`). The returned
+    loss is then the graph's output, which the next step overwrites. On a
+    card the mesh's groups must be NCCL: a gloo group cannot take part in a
+    CUDA graph, and the step raises rather than run eagerly."""
     if config.msaa > 1:
         # The train loss is defined on 1-sample soft renders; supersampled
         # training would need the loss averaged over sample offsets.
@@ -166,7 +166,8 @@ def make_train_step(
             raise ValueError(f"height {h} not divisible by mesh size {n}")
         h_local = h // n
         cam = shift_camera_rows(camera, mesh.rank * h_local)
-    inv_npix = 1.0 / (h * w * 3.0)
+    if jit:
+        return _jit_step(cam, config, param_filter, mesh, h_local)
     render = render_soft_pallas if config.backend == "pallas" else render_soft
     local_cfg = config.replace(height=h_local, soft=True,
                                framebuffer_dtype="float")
@@ -175,50 +176,57 @@ def make_train_step(
         if tuple(target.shape[:2]) != (h_local, w):
             raise ValueError(f"target {tuple(target.shape)}: this rank's rows "
                              f"are ({h_local}, {w}, 4)")
-        leaves = scene_leaves(state.scene)
         img = render(state.scene, cam, local_cfg)
-        diff = (img[..., :3] - target[..., :3]) * (1.0 / 255.0)
-        loss = torch.sum(diff * diff) * inv_npix
-        grads = torch.autograd.grad(loss, list(leaves.values()),
-                                    allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(leaves.values(), grads)]
-        loss = loss.detach()
-        if mesh is not None:
-            loss, grads = _all_reduce(mesh, loss, grads)
-        for (name, p), g in zip(leaves.items(), grads):
-            if param_filter is not None and not param_filter(name):
-                g = torch.zeros_like(p)
-            p.grad = g
-        state.opt_state.step()
+        loss = _descend(state, img, target, config, mesh, param_filter)
         return state._replace(step=state.step + 1), loss
 
-    if jit:
-        return _jit_step(camera, config, param_filter)
     return step
 
 
-def fixed_k_step(state: TrainState, target, camera: Camera,
-                 config: RenderConfig, taus, param_filter=None) -> torch.Tensor:
-    """One one-device train step at the config's K caps with no host read,
-    eagerly: `_soft_tiled_core` (tau_d, tau_e: `taus`, device scalars), the
-    loss, `torch.autograd.grad`, the optimizer's update of the state's
-    leaves in place. Returns the loss. What `make_train_step(jit=True)`
-    captures."""
+def _descend(state: TrainState, img, target, config: RenderConfig,
+             mesh: Optional[Mesh], param_filter) -> torch.Tensor:
+    """The rest of a step after the render of this rank's rows: the loss
+    over the whole frame's pixels, `torch.autograd.grad` to every leaf, the
+    all-reduce over the mesh, the parameter filter and the optimizer's
+    update of the leaves in place. Returns the (reduced) loss."""
     leaves = scene_leaves(state.scene)
-    h, w = config.height, config.width
-    img = _soft_tiled_core(state.scene.pack(), camera, *taus, h, w,
-                           config.shading, config.shadows, config.cull_k,
-                           config.shadow_cull_k)
     diff = (img[..., :3] - target[..., :3]) * (1.0 / 255.0)
-    loss = torch.sum(diff * diff) * (1.0 / (h * w * 3.0))
+    loss = torch.sum(diff * diff) * (1.0 / (config.height * config.width * 3.0))
     grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves.values(), grads)]
+    loss = loss.detach()
+    if mesh is not None:
+        loss, grads = _all_reduce(mesh, loss, grads)
     for (name, p), g in zip(leaves.items(), grads):
-        if g is None or (param_filter is not None and not param_filter(name)):
+        if param_filter is not None and not param_filter(name):
             g = torch.zeros_like(p)
         p.grad = g
     state.opt_state.step()
-    return loss.detach()
+    return loss
+
+
+def fixed_k_step(state: TrainState, target, camera: Camera,
+                 config: RenderConfig, taus, param_filter=None,
+                 mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """One train step with no host read, eagerly: what
+    `make_train_step(jit=True)` captures. `camera` is this rank's (shifted
+    to its first row on a mesh) and `target` its rows. The frame of those
+    rows at fixed temperatures (tau_d, tau_e: `taus`, device scalars):
+    `_soft_tiled_core` at the config's K caps for backend "pallas", else
+    `render_soft_jit`; the loss over the whole frame's pixels,
+    `torch.autograd.grad`, the all-reduce over the mesh, the parameter
+    filter and the optimizer's update of the state's leaves in place.
+    Returns the loss."""
+    h_local, w = int(target.shape[0]), config.width
+    if config.backend == "pallas":
+        img = _soft_tiled_core(state.scene.pack(), camera, *taus, h_local, w,
+                               config.shading, config.shadows, config.cull_k,
+                               config.shadow_cull_k)
+    else:
+        img = render_soft_jit(state.scene, camera, *taus, h_local, w,
+                              shading=config.shading, shadows=config.shadows)
+    return _descend(state, img, target, config, mesh, param_filter)
 
 
 def step_taus(config: RenderConfig, device) -> tuple:
@@ -227,16 +235,33 @@ def step_taus(config: RenderConfig, device) -> tuple:
                  for t in (config.tau_depth, config.tau_edge))
 
 
-def _jit_step(camera: Camera, config: RenderConfig, param_filter) -> Callable:
+def _require_nccl(mesh: Optional[Mesh], device) -> None:
+    """A step on a card all-reduces inside its CUDA graph: every group of
+    the mesh must be NCCL (a gloo group stages through the host)."""
+    if mesh is None or torch.device(device).type != "cuda":
+        return
+    for group in mesh.reduce_groups:
+        backend = dist.get_backend(group)
+        if backend != "nccl":
+            raise ValueError(
+                f"make_train_step(jit=True) on a card all-reduces inside a "
+                f"CUDA graph: the mesh's groups must be NCCL, not {backend!r}")
+
+
+def _jit_step(camera: Camera, config: RenderConfig, param_filter,
+              mesh: Optional[Mesh], h: int) -> Callable:
     """`fixed_k_step` as a step(state, target), captured whole on a card.
 
     The temperatures are device scalars the step owns. On a card, the first
     call for a state runs the step twice on a side stream (the kernels'
-    build, the lazily made constants, Adam's state), puts the state back as
-    it was (parameters and Adam's moments and count, in place), then
-    captures the step over a static target buffer; every call copies its
-    target in and replays the graph. CPU tensors run the same step eagerly."""
-    h, w = config.height, config.width
+    build, the lazily made constants, Adam's state, every NCCL
+    communicator's first all-reduce), puts the state back as it was
+    (parameters and Adam's moments and count, in place; no collective),
+    then captures the step over a static target buffer; every call copies
+    its target in and replays the graph. On a mesh every rank does this at
+    the same call. CPU tensors run the same step eagerly (over gloo groups
+    on a mesh). `camera` is this rank's and `h` its rows."""
+    w = config.width
     taus = {}  # device -> (tau_d, tau_e)
     graphs = {}  # id(optimizer) -> (optimizer, graph, target buffer, loss)
 
@@ -244,17 +269,19 @@ def _jit_step(camera: Camera, config: RenderConfig, param_filter) -> Callable:
         dev = target.device
         if dev not in taus:
             taus[dev] = step_taus(config, dev)
-        return fixed_k_step(state, target, camera, config, taus[dev], param_filter)
+        return fixed_k_step(state, target, camera, config, taus[dev],
+                            param_filter, mesh)
 
     def step(state: TrainState, target) -> tuple:
         if tuple(target.shape[:2]) != (h, w):
-            raise ValueError(f"target {tuple(target.shape)}: the frame is "
-                             f"({h}, {w}, 4)")
+            raise ValueError(f"target {tuple(target.shape)}: this rank's rows "
+                             f"are ({h}, {w}, 4)")
         if not target.is_cuda:
             return state._replace(step=state.step + 1), body(state, target)
         opt = state.opt_state
         entry = graphs.get(id(opt))
         if entry is None or tuple(entry[2].shape) != tuple(target.shape):
+            _require_nccl(mesh, target.device)
             buf = target.detach().clone()
             with torch.cuda.device(buf.device):
                 keep = _snapshot(opt)

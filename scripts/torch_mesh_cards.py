@@ -10,9 +10,14 @@ phong + soft shadows, Adam 1e-3, a zero target) on the flat mesh of every
 rank and on the (2, n/2) mesh with its two-level all-reduce: the losses of
 3 steps identical across ranks and between the two meshes (rtol 1e-6), and
 the first equal to the sum of the same blocks' losses on one card (rank 0,
-rtol 1e-6); per-step CUDA-event medians of 20 steps (each rank's, the
-slowest reported), the unsharded step on rank 0 alone, and the all-reduce
-of the step's gradients alone. Then the headline frame (phong + hard
+rtol 1e-6); the compiled step (`make_train_step(..., jit=True)`: the step
+and its all-reduce captured in one CUDA graph a rank) from the same start,
+its 3 losses within rtol 1e-6 of the eager step's, and on the cards the
+device operations of one replay with the NCCL kernels among them (a
+profiler trace on every rank; rank 0's reported); per-step CUDA-event
+medians of 20 steps of each (each rank's, the slowest reported), the
+unsharded step on rank 0 alone, and the all-reduce of the step's gradients
+alone. Then the headline frame (phong + hard
 shadows, packed words): `render_sharded` + `gather_rows` on every rank
 against `render_tiled` of the whole frame on rank 0 (>= 99.5% of words
 identical), both timed. Rank 0 prints one JSON line, with each card's
@@ -82,6 +87,19 @@ def _slowest(ms, dev):
     return max(per_rank), per_rank
 
 
+def _replay_kernels(fn):
+    """(device operations in one call of fn, the NCCL kernels among them by
+    name), from a torch.profiler trace of that call on this rank's card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return len(names), sorted({n for n in names if "nccl" in n.lower()})
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cpu", action="store_true")
@@ -135,9 +153,29 @@ def run(args) -> None:
         leaves = scene_leaves(state.scene).values()
         buf = torch.zeros(sum(v.numel() for v in leaves) + 1, device=dev)
         ar, _ = _slowest(_times_ms(lambda: mesh.all_reduce(buf), 100, dev), dev)
+        # the compiled step (jit=True): the all-reduce inside its CUDA graph
+        opt_j = adam(1e-3)
+        step_j = make_train_step(cam, soft, opt_j, mesh=mesh, jit=True)
+        state_j = init_train_state(replicate(scene, mesh), opt_j)
+        jit_losses = [step_j(state_j, tgt)[1].item() for _ in range(3)]
+        rel = max(abs(a - b) / abs(a) for a, b in zip(losses[name], jit_losses))
+        if rel > 1e-6:
+            raise RuntimeError(f"{name}: the compiled step's losses {jit_losses} "
+                               f"are not the eager step's {losses[name]}")
+        jms, jper_rank = _slowest(_times_ms(lambda: step_j(state_j, tgt), 20, dev),
+                                  dev)
+        if not args.cpu:
+            replay_ops, nccl_kernels = _replay_kernels(lambda: step_j(state_j, tgt))
+            if not nccl_kernels:
+                raise RuntimeError(f"{name}: no NCCL kernel in a replay of the "
+                                   "compiled step")
         out[name] = {"losses": losses[name], "step_ms": ms,
                      "step_ms_per_rank": per_rank, "all_reduce_ms": ar,
-                     "all_reduce_floats": buf.numel()}
+                     "all_reduce_floats": buf.numel(), "jit_losses": jit_losses,
+                     "jit_step_ms": jms, "jit_step_ms_per_rank": jper_rank}
+        if not args.cpu:
+            out[name].update(jit_replay_device_ops=replay_ops,
+                             jit_replay_nccl_kernels=nccl_kernels)
     first = list(losses.values())
     for other in first[1:]:
         rel = max(abs(a - b) / abs(a) for a, b in zip(first[0], other))

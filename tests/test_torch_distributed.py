@@ -7,7 +7,9 @@ the JAX tests never ran (tests/distributed_worker.py builds a flat mesh).
 
 Held: the loss and the post-step scene identical across ranks (==); equal
 to the JAX package's sharded step on the same mesh shape and to the port's
-one-device step within rtol 1e-5; the whole frame assembled by gather_rows;
+one-device step within rtol 1e-5; the compiled step (`jit=True`, 2 ranks
+flat and 4 on (2, 2), backends "pallas" and "xla") equal to the eager mesh
+step and to JAX's sharded step; the whole frame assembled by gather_rows;
 fit_scene over two ranks writing each checkpoint once and resuming from it;
 no rank importing JAX. The launches run in module fixtures, one process
 group each, with a timeout (tiny frames, one thread a rank).
@@ -102,6 +104,12 @@ def two_ranks(problem, tmp_path_factory):
                                                framebuffer_dtype="float")),
         "flat_pallas": dict(base, config=T.RenderConfig(**_config("pallas", None)),
                             steps=1, learning_rate=LR),
+        "flat_pallas3": dict(base, config=T.RenderConfig(**_config("pallas", (2,))),
+                             steps=3, learning_rate=LR),
+        "flat_pallas_jit": dict(base, config=T.RenderConfig(**_config("pallas", (2,))),
+                                steps=3, learning_rate=LR, jit=True),
+        "flat_xla_jit": dict(base, config=T.RenderConfig(**_config("xla", (2,))),
+                             steps=3, learning_rate=LR, jit=True),
         "fit_a": dict(base, config=T.RenderConfig(**_config("pallas", (2,))),
                       fit=dict(fit, steps=2, checkpoint_dir=ck)),
         "fit_b": dict(base, config=T.RenderConfig(**_config("pallas", (2,))),
@@ -124,6 +132,10 @@ def four_ranks(problem, tmp_path_factory):
                                                  framebuffer_dtype="packed")),
         "flat_pallas": dict(base, config=T.RenderConfig(**_config("pallas", (4,)))),
         "mesh2d_pallas": dict(base, config=T.RenderConfig(**_config("pallas", (2, 2)))),
+        "mesh2d_pallas_jit": dict(base, config=T.RenderConfig(**_config("pallas", (2, 2))),
+                                  steps=3, jit=True),
+        "mesh2d_xla_jit": dict(base, config=T.RenderConfig(**_config("xla", (2, 2))),
+                               jit=True),
     })
 
 
@@ -175,7 +187,8 @@ def _assert_close(run, losses, leaves, atol=1e-6):
 
 
 def test_two_ranks_identical_across_ranks(two_ranks):
-    for name in ("flat_ref", "flat_pallas", "fit_a", "fit_b", "fit_straight"):
+    for name in ("flat_ref", "flat_pallas", "flat_pallas3", "flat_pallas_jit",
+                 "flat_xla_jit", "fit_a", "fit_b", "fit_straight"):
         runs = two_ranks[name]
         assert [int(r["rank"]) for r in runs] == [0, 1]
         _assert_ranks_identical(runs)
@@ -196,6 +209,26 @@ def test_two_ranks_match_one_device_step(problem, two_ranks, backend, name, step
     "pallas" runs the tiled soft twin on each rank's 32-row block."""
     losses, leaves = _port_one_device(problem, steps, backend)
     _assert_close(two_ranks[name][0], losses, leaves)
+
+
+def _leaves_of(run):
+    return {k: run[f"scene:{k}"] for k in KEYS}
+
+
+def test_two_ranks_jit_step_matches_eager_and_jax(problem, two_ranks, eight_devices):
+    """The compiled mesh step (`jit=True`; gloo CPU ranks run it eagerly,
+    all-reduce included) over 2 ranks, 3 steps: "pallas" equal to the eager
+    mesh step (the same tiled branch: no list overflows) and to the JAX
+    package's sharded step on make_mesh(2) through its Pallas kernels in
+    interpret mode; "xla" equal to the eager oracle step and to JAX's."""
+    jit, eager = two_ranks["flat_pallas_jit"][0], two_ranks["flat_pallas3"][0]
+    _assert_close(jit, eager["losses"], _leaves_of(eager))
+    losses, leaves = _jax_run(problem, j_make_mesh(2), 3, backend="pallas")
+    _assert_close(jit, losses, leaves, atol=1e-5)
+    xla, ref = two_ranks["flat_xla_jit"][0], two_ranks["flat_ref"][0]
+    _assert_close(xla, ref["losses"], _leaves_of(ref))
+    losses, leaves = _jax_run(problem, j_make_mesh(2), 3, backend="xla")
+    _assert_close(xla, losses, leaves, atol=1e-5)
 
 
 def test_gather_rows_two_ranks(problem, two_ranks):
@@ -246,6 +279,24 @@ def test_mesh_2d_across_processes(problem, four_ranks, eight_devices):
     flat = four_ranks["flat_pallas"][0]
     _assert_close(four_ranks["mesh2d_pallas"][0], flat["losses"],
                   {k: flat[f"scene:{k}"] for k in KEYS})
+
+
+def test_mesh_2d_jit_step_matches_eager_and_jax(problem, four_ranks, eight_devices):
+    """The compiled step on the (2, 2) mesh over 4 processes (the two-level
+    all-reduce inside it): identical across ranks; "pallas" equal to the
+    eager (2, 2) step over its 2 steps and to the JAX package's
+    make_mesh_2d(2, 2) step over 3 (its Pallas kernels in interpret mode);
+    "xla" equal to the eager oracle step and to JAX's over 2."""
+    for name in ("mesh2d_pallas_jit", "mesh2d_xla_jit"):
+        _assert_ranks_identical(four_ranks[name])
+    jit, eager = four_ranks["mesh2d_pallas_jit"][0], four_ranks["mesh2d_pallas"][0]
+    np.testing.assert_allclose(jit["losses"][:2], eager["losses"], rtol=1e-6)
+    losses, leaves = _jax_run(problem, j_make_mesh_2d(2, 2), 3, backend="pallas")
+    _assert_close(jit, losses, leaves, atol=1e-5)
+    xla, ref = four_ranks["mesh2d_xla_jit"][0], four_ranks["mesh2d_ref"][0]
+    _assert_close(xla, ref["losses"], _leaves_of(ref))
+    losses, leaves = _jax_run(problem, j_make_mesh_2d(2, 2), 2, backend="xla")
+    _assert_close(xla, losses, leaves, atol=1e-5)
 
 
 def test_gather_rows_mesh_2d(problem, four_ranks):

@@ -11,9 +11,14 @@ JAX's Pallas kernels in interpret mode), inputs made from a seed.
   `render_soft_tiled` (always fixed K) at a K that overflows and one that does
   not: images within 0.05/255 on every pixel, gradients of mean(img^2)
   within 1e-3 normalised by JAX's largest;
+- the eager soft frame (`render_soft_tiled`, which reads the overflow flag
+  and runs one branch) against `_soft_tiled_core` on both branches, bit for
+  bit;
 - `runtime.graph.jit` on CPU tensors (it calls the function), the
-  `jit=True` train step on the CPU (the eager step's result) and with a mesh
-  (raises), and the two-point slope of `bench_util` against a fake clock.
+  `jit=True` train step on the CPU (the eager step's result; with a mesh
+  that has no group, the one-device step's; on backend "xla", the eager
+  "xla" step's) and what it refuses, and the two-point slope of
+  `bench_util` against a fake clock.
 """
 
 import jax
@@ -196,6 +201,33 @@ def test_soft_branch_not_taken_is_zero():
     assert torch.equal(got, eager)
 
 
+@pytest.mark.parametrize("case", ["pile", "few"])
+def test_eager_soft_frame_equals_core(case):
+    """The eager `render_soft_tiled` runs only the branch the overflow flag
+    takes (the brute soft frame on the pile, the tiled one on "few");
+    `_soft_tiled_core` runs both and selects on the card. Same image and
+    same leaf gradients, bit for bit."""
+    js, shading, shadows = _soft_case(case)
+    _, tcfg = _soft_cfgs(shading, shadows)
+    tc = T.legacy_ortho_camera(device=CPU)
+    outs = []
+    for render in (lambda s: soft_tiled.render_soft_tiled(s, tc, tcfg),
+                   lambda s: _core(s, tcfg, tc)):
+        ts = _port(js)
+        leaves = [getattr(ts, k) for k in LEAVES] + [ts.lights.position]
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        img = render(ts)
+        grads = torch.autograd.grad(torch.mean(img[..., :3] ** 2), leaves)
+        outs.append((img.detach(), grads))
+    (ie, ge), (ic, gc) = outs
+    assert torch.equal(ie, ic)
+    assert (ie[..., :3] > 1.0).any()
+    for name, a, b in zip(LEAVES + ("lights.position",), ge, gc):
+        assert torch.equal(a, b), name
+    assert ge[0].abs().max() > 0
+
+
 # ---- runtime.graph on CPU tensors ----------------------------------------------
 
 
@@ -281,14 +313,56 @@ def test_jit_train_step_on_cpu_equals_eager_step():
 
 
 def test_jit_train_step_rejects_mesh_and_other_backends():
-    from opencl_ray_tracer_tpu_torch.parallel import Mesh
+    """What `jit=True` takes: a mesh (one with no process group runs the
+    one-device step through the row-shifted camera, the `mesh=None` step bit
+    for bit; several ranks: tests/test_torch_distributed.py) and every
+    backend (the torch-autograd oracle at fixed temperatures for "xla", the
+    eager "xla" step bit for bit). What it still refuses: msaa > 1, a height
+    the mesh does not split, an axis the mesh lacks, and on a card a mesh
+    whose groups are not NCCL (a one-rank gloo group here)."""
+    import torch.distributed as dist
 
-    cfg, cam, _, _ = _train_problem()
-    with pytest.raises(NotImplementedError, match="A13"):
-        make_train_step(cam, cfg, adam(0.1), mesh=Mesh((1,), ("image",)),
+    from opencl_ray_tracer_tpu_torch.parallel import IMAGE_AXIS, Mesh, make_mesh
+    from opencl_ray_tracer_tpu_torch.parallel.train import _require_nccl
+
+    cfg, cam, target, init = _train_problem()
+
+    def run(c, **kw):
+        opt = adam(0.5)
+        step = make_train_step(cam, c, opt, **kw)
+        state, losses = init_train_state(init, opt), []
+        for _ in range(2):
+            state, loss = step(state, target)
+            losses.append(loss.clone())
+        return losses, scene_leaves(state.scene)
+
+    for c, kw_a, kw_b in (
+            (cfg, dict(mesh=Mesh((1,), (IMAGE_AXIS,)), jit=True), dict(jit=True)),
+            (cfg.replace(backend="xla"), dict(jit=True), dict(jit=False))):
+        (la, sa), (lb, sb) = run(c, **kw_a), run(c, **kw_b)
+        assert all(torch.equal(a, b) for a, b in zip(la, lb)), kw_a
+        for k in sa:
+            assert torch.equal(sa[k], sb[k]), (kw_a, k)
+    with pytest.raises(ValueError, match="msaa"):
+        make_train_step(cam, cfg.replace(msaa=4), adam(0.1), jit=True)
+    with pytest.raises(ValueError, match="divisible"):
+        make_train_step(cam, cfg, adam(0.1), mesh=Mesh((3,), (IMAGE_AXIS,)),
                         jit=True)
-    with pytest.raises(ValueError, match="pallas"):
-        make_train_step(cam, cfg.replace(backend="xla"), adam(0.1), jit=True)
+    with pytest.raises(ValueError, match="axis"):
+        make_train_step(cam, cfg, adam(0.1), mesh=Mesh((1,), (IMAGE_AXIS,)),
+                        axis="pixels", jit=True)
+    from opencl_ray_tracer_tpu_torch.parallel import distributed
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{distributed.free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1)
+        assert mesh.reduce_groups
+        _require_nccl(mesh, CPU)  # gloo ranks on the CPU: the tests' meshes
+        with pytest.raises(ValueError, match="NCCL"):
+            _require_nccl(mesh, torch.device("cuda", 0))
+    finally:
+        dist.destroy_process_group()
 
 
 def test_adam_is_capturable_only_on_a_card():

@@ -828,3 +828,59 @@ def test_jit_train_step_matches_eager_step(cuda_device):
             rel = ((scene_leaves(sj.scene)[k] - v).abs()
                    / v.abs().clamp_min(1e-30)).max().item()
             assert rel <= 1e-6, (i, k, rel)
+
+
+@pytest.mark.parametrize("shape", [(1,), (1, 1)])
+def test_jit_mesh_step_on_nccl_matches_eager_step(cuda_device, shape):
+    """make_train_step(jit=True) over a one-rank NCCL group (make_mesh(1),
+    and make_mesh_2d(1, 1): two one-rank communicators in one graph), the
+    all-reduce captured in the CUDA graph: two steps against the eager mesh
+    step from the same state, loss and every leaf within 1e-6 (relative)."""
+    import torch.distributed as dist
+
+    from opencl_ray_tracer_tpu_torch.parallel import (
+        adam,
+        distributed,
+        init_train_state,
+        make_mesh,
+        make_mesh_2d,
+        make_train_step,
+        replicate,
+        shard_rows,
+    )
+    from opencl_ray_tracer_tpu_torch.parallel.train import scene_leaves
+
+    distributed.initialize(f"127.0.0.1:{distributed.free_port()}", 1, 0)
+    try:
+        mesh = make_mesh(1) if len(shape) == 1 else make_mesh_2d(1, 1)
+        assert all(dist.get_backend(g) == "nccl" for g in mesh.reduce_groups)
+        cfg = T.RenderConfig(width=SOFT_W, height=SOFT_H, shading="phong",
+                             shadows=True, soft=True, framebuffer_dtype="float",
+                             tau_depth=1.0, tau_edge=0.5)
+        cam = T.legacy_ortho_camera(device=cuda_device)
+        scene = T.random_scene(5, 3, seed=4, bounds=(250.0, 120.0),
+                               device=cuda_device)
+        target = shard_rows(torch.zeros((SOFT_H, SOFT_W, 4), device=cuda_device),
+                            mesh)
+        opt_e, opt_j = adam(1e-2), adam(1e-2)
+        step_e = make_train_step(cam, cfg, opt_e, mesh=mesh)
+        step_j = make_train_step(cam, cfg, opt_j, mesh=mesh, jit=True)
+        se = init_train_state(replicate(scene, mesh), opt_e)
+        sj = init_train_state(replicate(scene, mesh), opt_j)
+        for i in range(2):
+            if i:
+                with torch.no_grad():
+                    for a, b in zip(scene_leaves(se.scene).values(),
+                                    scene_leaves(sj.scene).values()):
+                        b.copy_(a)
+                        for k, v in sj.opt_state.state[b].items():
+                            v.copy_(se.opt_state.state[a][k])
+            se, le = step_e(se, target)
+            sj, lj = step_j(sj, target)
+            assert abs(lj.item() - le.item()) <= 1e-6 * abs(le.item())
+            for k, v in scene_leaves(se.scene).items():
+                rel = ((scene_leaves(sj.scene)[k] - v).abs()
+                       / v.abs().clamp_min(1e-30)).max().item()
+                assert rel <= 1e-6, (i, k, rel)
+    finally:
+        dist.destroy_process_group()

@@ -28,6 +28,9 @@ bad = sorted(m for m in sys.modules
 assert not bad, bad
 for new in ("entry", "runtime.graph"):  # the compiled path's modules
     assert f"opencl_ray_tracer_tpu_torch.{new}" in names, new
+# the last compiled forms, in modules that import no JAX either
+from opencl_ray_tracer_tpu_torch.models.xla_backend import render_xla_jit
+from opencl_ray_tracer_tpu_torch.parallel import render_sharded_jit
 print(len(names))
 """
 

@@ -3,8 +3,10 @@ every row block of an 8-way and a 2x4 split through `_render_rows` /
 `render_sharded` against the JAX package's `render_sharded` on its virtual
 8-device CPU mesh (at the JAX tests' bars: xla identical, the tiled hard
 kernel >= 99.5% identical ortho and pinhole, soft within 1e-2, MSAA 4 within
-1e-3, packed words >= 99.5%), mesh_from_config, and the train step on a
-one-rank mesh with the reference's call shape against the one-device step.
+1e-3, packed words >= 99.5%), the compiled blocks of `render_sharded_jit`
+against the same JAX frame and the eager blocks, mesh_from_config, and the
+train step on a one-rank mesh with the reference's call shape against the
+one-device step.
 Several ranks over gloo: tests/test_torch_distributed.py.
 """
 
@@ -145,6 +147,59 @@ def test_render_rows_match_jax_render_sharded(scenes, eight_devices, backend,
     _agree(got, want, fmt, 1e-2 if soft else 0.995)
     if fmt != "packed":
         assert np.any(got[H // 2:, :, :3] != 0), "lower blocks render nothing"
+
+
+# (backend, shading, shadows, fmt, soft, cull_k): the compiled sharded frame
+# on the paths of `render_sharded_jit`; cull_k 8 overflows scene 1's lists,
+# where the jitted JAX frame and the compiled port frame take the brute
+# kernel (B3's twin here) and the eager frame re-bins instead.
+JIT_CASES = [
+    ("pallas", "legacy", False, "int", False, 32),
+    ("pallas", "phong", True, "packed", False, 8),
+    ("pallas", "lambert", False, "float", True, 32),
+    ("xla", "phong", True, "float", False, 32),
+]
+
+
+@pytest.mark.parametrize("backend,shading,shadows,fmt,soft,cull_k", JIT_CASES,
+                         ids=[f"{c[0]}-{c[1]}-{c[3]}-{'soft' if c[4] else 'hard'}"
+                              f"-k{c[5]}" for c in JIT_CASES])
+def test_render_sharded_jit_matches_jax(scenes, eight_devices, backend, shading,
+                                        shadows, fmt, soft, cull_k):
+    """Every block of an 8-way split through `render_sharded_jit` against
+    the JAX package's `render_sharded` (one jitted program) at the
+    cross-package bars, and against the eager blocks: identical where no
+    list overflows (the same bins at the same caps); at cull_k 8 the brute
+    frame's words, which the tiled frame matches on >= 99.5% of pixels."""
+    from opencl_ray_tracer_tpu_torch.kernels import fwd_tiled
+    from opencl_ray_tracer_tpu_torch.parallel import render_sharded_jit
+
+    js, ts = scenes
+    jc, tc = _cameras("ortho")
+    kw = dict(width=W, height=H, shading=shading, shadows=shadows,
+              framebuffer_dtype=fmt, soft=soft, backend=backend, cull_k=cull_k)
+    if soft:
+        kw.update(tau_depth=1.0, tau_edge=0.5)
+    cfg = T.RenderConfig(**kw)
+    meshes = [Mesh((8,), (IMAGE_AXIS,), rank=r) for r in range(8)]
+    with torch.no_grad():
+        got = torch.cat([render_sharded_jit(cfg, m)(ts, tc) for m in meshes])
+        eager = torch.cat([render_sharded(ts, tc, cfg, mesh=m) for m in meshes])
+    got = got.numpy()
+    assert got.shape == ((H, W) if fmt == "packed" else (H, W, 4))
+    want = np.asarray(j_render_sharded(js, jc, J.RenderConfig(**kw),
+                                       mesh=j_make_mesh(8)))
+    _agree(got, want, fmt, 1e-2 if soft else 0.995)
+    if cull_k == 8:
+        hl = H // 8
+        flags = [bool(fwd_tiled.bin_fixed(ts.pack(), shift_camera_rows(tc, r * hl),
+                                          cfg.replace(height=hl)).overflow)
+                 for r in range(8)]
+        assert any(flags), "cull_k 8 overflows no block"
+        _agree(got, eager.numpy(), fmt, 0.995)
+    else:
+        np.testing.assert_array_equal(got, eager.numpy())
+    assert np.any(got[H // 2:] != 0), "lower blocks render nothing"
 
 
 def test_partial_tile_blocks_match_whole_frame(scenes):

@@ -149,16 +149,22 @@ def test_soft_tiled_grads_match_jax(scenes, cam_kind, shading, shadows, atol):
 
 
 def test_overflow_escalates_k():
-    """40 overlapping spheres over cull_k: the port re-bins with K doubled
-    (capped at the primitive count) and renders what JAX's tiled kernel
-    renders at that K. (At the default K, JAX takes its brute fallback,
-    which does not cull. A culled sphere's ~1e-7 coverage costs its depth
+    """40 overlapping spheres over the default cull_k. The port renders what
+    JAX's `render_soft_tiled` renders at the same caps: its brute soft frame
+    (every tile's list is cut at K, so `lax.cond` takes the brute kernels),
+    through `render_soft_tiled` and `render_soft_pallas` alike; images
+    within 0.05/255, every leaf's gradient within 1e-3 normalised. K
+    escalates only where asked: `soft_bins_for_config`, the opt-in helper,
+    re-bins up to K 40, and at cull_k 40 the port renders JAX's tiled frame.
+    (The two frames differ: a culled sphere's ~1e-7 coverage costs its depth
     logit log(1e-7) = -16, but a sphere more than 16 tau_depth nearer still
     wins the softmin there, so JAX's own brute and tiled frames differ by
-    more than 1e-4 on ~3% of this frame's pixels, by up to 130/255: the
-    reference's tiled-vs-brute semantics, which no tiled render can meet.)"""
+    more than 1e-4 on ~3% of this frame's pixels, by up to 130/255.)"""
+    from opencl_ray_tracer_tpu_torch.kernels.soft import render_soft_pallas
+
     jp = J.random_scene(40, 0, seed=9, bounds=(60.0, 40.0))
-    tp = scene_from_arrays(scene_to_arrays(jp), CPU)
+    arrays = scene_to_arrays(jp)
+    tp = scene_from_arrays(arrays, CPU)
     jcfg, tcfg = _cfgs("lambert", False)
     cam_j, cam_t = _cameras("ortho")
     assert bool(S._bin_soft(tp.pack(), 0.5, cam_t, height=H, width=W,
@@ -166,11 +172,32 @@ def test_overflow_escalates_k():
                             shadow_k=tcfg.shadow_cull_k).overflow)
     bins = S.soft_bins_for_config(tp.pack(), cam_t, tcfg)
     assert not bool(bins.overflow) and bins.k_sph == 40
-    want = np.asarray(jst.render_soft_tiled(
+
+    want = np.asarray(jst.render_soft_tiled(jp, cam_j, jcfg, interpret=True))
+    tiled40 = np.asarray(jst.render_soft_tiled(
         jp, cam_j, jcfg.replace(cull_k=40), interpret=True))
-    got = S.render_soft_tiled(tp, cam_t, tcfg).numpy()
-    assert np.isfinite(got).all() and (got[..., :3] > 1.0).any()
-    assert np.abs(got - want).max() < 0.05
+    assert (np.abs(want - tiled40).max(-1) > 1e-4).mean() > 0.01
+    before = (S.FWD_LAUNCHES, S.BWD_LAUNCHES)
+    for render in (S.render_soft_tiled, render_soft_pallas):
+        with torch.no_grad():
+            got = render(tp, cam_t, tcfg).numpy()
+        assert np.isfinite(got).all() and (got[..., :3] > 1.0).any()
+        assert np.abs(got - want).max() < 0.05, render.__name__
+    with torch.no_grad():
+        got40 = S.render_soft_tiled(tp, cam_t, tcfg.replace(cull_k=40)).numpy()
+    assert np.abs(got40 - tiled40).max() < 0.05
+    assert (S.FWD_LAUNCHES, S.BWD_LAUNCHES) == before  # CPU: the twins
+
+    want_g = _leaf_grads_jax(jp, cam_j, jcfg)
+    got_g = _leaf_grads_torch(arrays, cam_t, tcfg)
+    names = LEAVES + tuple(f"lights.{k}" for k in LIGHT_LEAVES)
+    for name, a, b in zip(names, got_g, want_g):
+        assert np.all(np.isfinite(a)) and a.shape == b.shape, name
+        if not b.size:  # the pile has no triangles
+            continue
+        scale = np.abs(b).max() + 1e-12
+        np.testing.assert_allclose(a / scale, b / scale, atol=1e-3, err_msg=name)
+    assert np.any(got_g[0] != 0), "no sphere-origin gradient"
 
 
 def test_saturation_tie_rule():

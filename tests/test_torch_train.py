@@ -1,6 +1,8 @@
 """Port parity for training: perturb_scene, the Adam train step against the
 JAX package's (optax.adam through parallel/train.make_train_step on a
-1-device mesh), kill-and-resume of fit_scene, and the card-only CLI fit.
+1-device mesh), kill-and-resume of fit_scene (on the compiled step, which
+the CPU runs eagerly), `load_checkpoint` in place into a stepped state, and
+the card-only CLI fit.
 """
 
 import dataclasses
@@ -163,6 +165,82 @@ def test_fit_resume_past_end_is_noop(problem, tmp_path):
     assert losses == []
     assert torch.equal(a.sphere_origin, b.sphere_origin)
     assert dataclasses.is_dataclass(b)
+
+
+def _leaf_and_moment_tensors(state):
+    from opencl_ray_tracer_tpu_torch.parallel.train import scene_leaves
+
+    leaves = list(scene_leaves(state.scene).values())
+    return leaves + [v for p in leaves
+                     for v in state.opt_state.state.get(p, {}).values()
+                     if isinstance(v, torch.Tensor)]
+
+
+def test_load_checkpoint_keeps_the_optimizer_tensors(problem, tmp_path):
+    """Once the optimizer holds state, `load_checkpoint` copies into its
+    tensors in place (a captured step reads them by address): every leaf's
+    and every Adam moment's and step count's data_ptr is kept, and the values
+    are the checkpoint's. Before the first step it loads as the optimizer's
+    own `load_state_dict` does."""
+    from opencl_ray_tracer_tpu_torch.parallel.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+
+    cfg, cam, target, init = problem
+    opt = adam(0.3)
+    step = make_train_step(cam, cfg, opt, jit=True)
+    state = init_train_state(init, opt)
+    fresh = init_train_state(init, opt)
+    state, _ = step(state, target)
+    ck = save_checkpoint(str(tmp_path / "ck"), state)
+    saved = [t.clone() for t in _leaf_and_moment_tensors(state)]
+    assert len(saved) > 10  # leaves, exp_avg, exp_avg_sq, step
+    state, _ = step(state, target)
+    ptrs = [t.data_ptr() for t in _leaf_and_moment_tensors(state)]
+    back = load_checkpoint(ck, state)
+    assert back.step == 1
+    now = _leaf_and_moment_tensors(back)
+    assert [t.data_ptr() for t in now] == ptrs
+    for a, b in zip(now, saved):
+        assert torch.equal(a, b)
+    fresh = load_checkpoint(ck, fresh)  # no optimizer state yet
+    for a, b in zip(_leaf_and_moment_tensors(fresh), saved):
+        assert torch.equal(a, b)
+
+
+def test_resume_into_a_stepped_state_continues_the_run(problem, tmp_path):
+    """The compiled step (`jit=True`, as fit_scene builds it) keeps one
+    state: 6 steps straight, against 2 steps, a resume from the checkpoint
+    at step 3 into that same state, and 3 more steps: the same losses and
+    scene, bit for bit."""
+    from opencl_ray_tracer_tpu_torch.parallel.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from opencl_ray_tracer_tpu_torch.parallel.train import scene_leaves
+
+    cfg, cam, target, init = problem
+    opt = adam(0.3)
+    step = make_train_step(cam, cfg, opt, jit=True)
+    state, straight = init_train_state(init, opt), []
+    for i in range(6):
+        state, loss = step(state, target)
+        straight.append(float(loss))
+        if i == 2:
+            ck = save_checkpoint(str(tmp_path / "ck"), state)
+    other = init_train_state(perturb_scene(init, seed=3), opt)
+    for _ in range(2):
+        other, _ = step(other, target)
+    other = load_checkpoint(ck, other)
+    assert other.step == 3
+    resumed = []
+    for _ in range(3):
+        other, loss = step(other, target)
+        resumed.append(float(loss))
+    assert resumed == straight[3:]
+    for k, v in scene_leaves(state.scene).items():
+        assert torch.equal(scene_leaves(other.scene)[k], v), k
 
 
 def test_cli_fit_needs_a_card():

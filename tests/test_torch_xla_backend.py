@@ -1,5 +1,7 @@
 """Port parity: the whole-frame xla backend (models/xla_backend.py) against
-the JAX package's `render_xla`, and the renderer facade's xla route.
+the JAX package's `render_xla`, the renderer facade's xla route, and the
+compiled forms: `render_xla_jit` against JAX's, and the `jit=True` train
+step on backend "xla" against JAX's step on that backend.
 
 Bars: int frames identical on >= 99.9% of pixels (the goldens' bar), packed
 words likewise, float frames within 0.5/255 on every pixel.
@@ -82,3 +84,70 @@ def test_render_xla_msaa_matches_jax_facade():
     got = T.render(ts, tc, T.RenderConfig(**kw)).numpy()
     assert got.shape == (120, 160, 4) and got.dtype == np.int32
     _assert_same(got, want, "int")
+
+
+# ---- the compiled forms (render_xla_jit; the jit=True step on "xla") -------
+
+
+@pytest.mark.parametrize("as_int,shading,shadows,cam,h", [
+    (True, "legacy", False, "ortho", 128), (False, "phong", True, "pinhole", 128),
+    (True, "lambert", True, "ortho", 70)])
+def test_render_xla_jit_matches_jax(as_int, shading, shadows, cam, h):
+    """`render_xla_jit` with the JAX function's call shape against JAX's
+    `render_xla_jit` (the bars above) and against the eager `render_xla`
+    (identical: the same function, which the CPU runs eagerly)."""
+    from opencl_ray_tracer_tpu.models.xla_backend import render_xla_jit as j_jit
+    from opencl_ray_tracer_tpu_torch.models.xla_backend import render_xla_jit
+
+    w = 160
+    js, ts, jc, tc = _pair(2, cam, w, h)
+    kw = dict(height=h, width=w, shading=shading, shadows=shadows, as_int=as_int)
+    got = render_xla_jit(ts, tc, **kw).numpy()
+    want = np.asarray(j_jit(js, jc, **kw))
+    assert got.dtype == (np.int32 if as_int else np.float32)
+    _assert_same(got, want, "int" if as_int else "float")
+    cfg = T.RenderConfig(width=w, height=h, shading=shading, shadows=shadows,
+                         framebuffer_dtype="int" if as_int else "float")
+    np.testing.assert_array_equal(got, render_xla(ts, tc, cfg).numpy())
+
+
+def test_jit_train_step_on_xla_matches_jax():
+    """`make_train_step(jit=True)` on backend "xla" (the torch-autograd
+    oracle at fixed temperatures, as JAX's step renders through
+    `render_soft_jit`) against JAX's `make_train_step` on backend "xla" on
+    a one-device mesh: 2 Adam steps, losses and every scene leaf within rtol
+    1e-5, atol 1e-5 (tests/test_torch_distributed.py's bars)."""
+    import jax.numpy as jnp
+    import optax
+
+    from opencl_ray_tracer_tpu.parallel import init_train_state as j_init
+    from opencl_ray_tracer_tpu.parallel import make_mesh as j_make_mesh
+    from opencl_ray_tracer_tpu.parallel import make_train_step as j_make_step
+    from opencl_ray_tracer_tpu_torch.parallel import (
+        adam,
+        init_train_state,
+        make_train_step,
+    )
+
+    w, h = 128, 64
+    kw = dict(width=w, height=h, shading="lambert", shadows=True, soft=True,
+              framebuffer_dtype="float", tau_depth=1.0, tau_edge=0.5,
+              backend="xla")
+    js = J.random_scene(4, 2, seed=5, bounds=(float(w), float(h)))
+    ts = scene_from_arrays(scene_to_arrays(js), CPU)
+    target = np.random.default_rng(3).uniform(0, 255, (h, w, 4)).astype(np.float32)
+    jstep = j_make_step(J.legacy_ortho_camera(), J.RenderConfig(**kw),
+                        optax.adam(0.1), mesh=j_make_mesh(1))
+    jstate = j_init(js, optax.adam(0.1))
+    opt = adam(0.1)
+    step = make_train_step(T.legacy_ortho_camera(device=CPU), T.RenderConfig(**kw),
+                           opt, jit=True)
+    state = init_train_state(ts, opt)
+    for i in range(2):
+        jstate, jloss = jstep(jstate, jnp.asarray(target))
+        state, loss = step(state, torch.from_numpy(target))
+        np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+        want = scene_to_arrays(jstate.scene)
+        for k, v in scene_to_arrays(state.scene).items():
+            np.testing.assert_allclose(v, want[k], rtol=1e-5, atol=1e-5,
+                                       err_msg=f"step {i} {k}")
