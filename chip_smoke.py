@@ -136,13 +136,17 @@ forms (CUDA graphs) — through the entry points a user calls, and fails
    the dynamic pinhole frame through `render_jit`, captured at the first
    call and replayed with the camera moved at each replay, each equal to
    the eager frame word for word; the same frames at cull_k 8, where the
-   overflow flag is set on the card, the tiled kernel does no work and the
-   brute kernel's frame comes out; the soft frame at cull_k 8 (the brute
-   soft kernels' branch) against the eager brute frame and gradients; five
-   `make_train_step(jit=True)` train1080 steps against the eager step from
-   the same state (1e-6); eager and replayed times, kernels a call, busy
-   share and the JAX bench's slope. Its launches are the `graph` path of
-   every kernel in the `kernels` line;
+   overflow flag is set and the brute kernel's frame comes out; the soft
+   frame at cull_k 8 (the brute soft kernels' branch) against the eager
+   brute frame and gradients; five `make_train_step(jit=True)` train1080
+   steps against the eager step from the same state (1e-6); each of these
+   cases built again in a process of its own, where a profiler trace of
+   one replay holds the kernels of the branch of `lax.cond` taken and none
+   of the other's (`runtime.graph.cond`: conditional nodes), with its
+   device operations and busy ms beside the eager call's; eager and
+   replayed times, kernels a call, busy share and the JAX bench's slope.
+   Its launches are the `graph` path of every kernel in the `kernels`
+   line;
 17. the JAX package's last compiled forms (`compiled_forms_phase`): C1 (the
    40-sphere pile at the default caps through `render_soft_pallas` takes
    the brute soft kernels B6/B7, train1080 the tiled ones B4/B5); the
@@ -156,7 +160,9 @@ forms (CUDA graphs) — through the entry points a user calls, and fails
    step, then resume in place into a captured state against the
    uninterrupted run, 1e-6); `render_xla_jit` at 1080p against eager
    `render_xla` and the `jit=True` step on backend `xla` in lockstep with
-   the eager one. Its launches are the `phase 17` path of every kernel.
+   the eager one; the branch trace of phase 16 for the mesh steps, the
+   sharded frames (packed, float, cull_k 8, soft) and the fit step. Its
+   launches are the `phase 17` path of every kernel.
 
 Hard kernel vs twin is bounded on every pixel: float frames within 0.5/255,
 packed and int frames within one step of 1/255 (and identical on >= 99.5%
@@ -246,6 +252,8 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is visible: this smoke runs on the card")
+    if sys.argv[1:2] == ["--branch-case"]:  # one case of _branch_traces
+        return branch_case_main(sys.argv[2])
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import opencl_ray_tracer_tpu_torch as T
@@ -2681,6 +2689,243 @@ def _copy_train_state(src, dst):
                     v.copy_(sa[k])
 
 
+# Which branch a replay runs, from a profiler trace of one replay. A trace of
+# a replay names the kernels inside conditional nodes wrongly once a process
+# holds graphs of several shapes (torch 2.11, CUDA 12.8, an H100: the
+# soft step's B5 read as B1/B2 and B3 after the hard frames' graphs, or went
+# missing; eager module loading did not help), so each case is captured,
+# replayed and traced in a process of its own, four at a time.
+BRANCH_CASES = {
+    16: ("entry", "entry-k8", "headline-packed", "headline-packed-k8",
+         "headline-float", "dynamic", "dynamic-k8", "soft-k8", "train1080"),
+    17: ("mesh-1", "mesh-1x1", "sharded-packed", "sharded-float", "sharded-k8",
+         "sharded-soft", "fit"),
+}
+
+
+def _branch_case(name, T, dev):
+    """(replay_fn, eager_fn, overflow, soft, grads) of one compiled case of
+    phases 16 and 17, built as they build it: replay_fn calls the compiled
+    form (its first call captures), eager_fn the eager call of the same
+    work, overflow the bins' flag read on the host (the brute branch's
+    case), soft whether the cond is the soft one and grads whether the
+    replay runs its backward too."""
+    import torch
+
+    from opencl_ray_tracer_tpu_torch.diff import render_soft
+    from opencl_ray_tracer_tpu_torch.entry import entry
+    from opencl_ray_tracer_tpu_torch.kernels import fwd, fwd_tiled
+    from opencl_ray_tracer_tpu_torch.kernels import soft as B
+    from opencl_ray_tracer_tpu_torch.kernels import soft_tiled as S
+    from opencl_ray_tracer_tpu_torch.models.inverse import (
+        SPHERE_PARAMS,
+        param_filter_from_names,
+        perturb_scene,
+    )
+    from opencl_ray_tracer_tpu_torch.models.renderer import render_jit
+    from opencl_ray_tracer_tpu_torch.ops.shading import pack_framebuffer_words
+    from opencl_ray_tracer_tpu_torch.parallel import (
+        adam,
+        distributed,
+        init_train_state,
+        make_mesh,
+        make_mesh_2d,
+        make_train_step,
+        render_sharded,
+        render_sharded_jit,
+        replicate,
+        shard_rows,
+    )
+    from opencl_ray_tracer_tpu_torch.parallel.train import (
+        scene_leaves,
+        step_taus,
+        trainable_scene,
+    )
+    from opencl_ray_tracer_tpu_torch.runtime.graph import jit
+
+    w, h = 1920, 1080
+    ortho = T.legacy_ortho_camera(device=dev)
+    headline = T.random_scene(10, 1, seed=0, bounds=(1910.0, 1070.0), device=dev)
+    hl_cfg = T.RenderConfig(width=w, height=h, shading="phong", shadows=True,
+                            framebuffer_dtype="packed")
+    soft_cfg = _soft_cfg(T, w, h, "phong", True)
+    base = name.removesuffix("-k8")
+
+    def hard(fn, scene, cam, cfg):
+        packed = scene.pack()
+        flag = bool(fwd_tiled.bin_fixed(packed, cam, cfg).overflow)
+        if flag:
+            eager = lambda: pack_framebuffer_words(fwd.render_pallas_packed(  # noqa: E731
+                packed, cam, cfg.replace(framebuffer_dtype="float")))
+        else:
+            eager = lambda: fwd_tiled.render_tiled_packed(packed, cam, cfg)  # noqa: E731
+        return lambda: fn(scene, cam), eager, flag, False, False
+
+    def steps(cfg, scene, mesh=None, target=None, lr=1e-3, **kw):
+        target = torch.zeros((cfg.height, cfg.width, 4), device=dev) \
+            if target is None else target
+        place = (lambda x: x) if mesh is None else (lambda x: replicate(x, mesh))
+        tgt = target if mesh is None else shard_rows(target, mesh)
+        opt_e, opt_j = adam(lr), adam(lr)
+        step_e = make_train_step(ortho, cfg, opt_e, mesh=mesh, **kw)
+        step_j = make_train_step(ortho, cfg, opt_j, mesh=mesh, jit=True, **kw)
+        state_e = init_train_state(place(scene), opt_e)
+        state_j = init_train_state(place(scene), opt_j)
+        flag = bool(S._bin_soft(scene.pack(), cfg.tau_edge, ortho, height=cfg.height,
+                                width=cfg.width, k=cfg.cull_k, shadows=cfg.shadows,
+                                shadow_k=cfg.shadow_cull_k).overflow)
+        return (lambda: step_j(state_j, tgt), lambda: step_e(state_e, tgt), flag,
+                True, True)
+
+    if base in ("entry", "headline-packed", "headline-float", "dynamic"):
+        if base == "entry":
+            fn, (scene, cam) = entry()
+            cfg = T.RenderConfig(width=640, height=480, shading="phong",
+                                 shadows=True, framebuffer_dtype="packed")
+        else:
+            scene, cam = headline, ortho
+            cfg = hl_cfg.replace(framebuffer_dtype="float") \
+                if base == "headline-float" else hl_cfg
+            if base == "dynamic":
+                cam = T.pinhole_camera((w / 2.0, h / 2.0, 900.0),
+                                       (w / 2.0, h / 2.0, -85.0), fov_degrees=60.0,
+                                       width=w, height=h, device=dev)
+            bins = fwd_tiled.bin_for_config(scene.pack(), cam, cfg)
+            cfg = cfg.replace(cull_k=max(bins.k_tri, bins.k_sph),
+                              shadow_cull_k=max(bins.k_sh_tri, bins.k_sh_sph, 8))
+            fn = render_jit(cfg)
+        if name.endswith("-k8"):
+            cfg = cfg.replace(cull_k=8, shadow_cull_k=8)
+            fn = render_jit(cfg)
+        return hard(fn, scene, cam, cfg)
+    if name == "soft-k8":
+        taus = step_taus(soft_cfg, dev)
+
+        def fwd_bwd(render):
+            def run(scene, cam):
+                s = trainable_scene(scene)
+                leaves = scene_leaves(s)
+                img = render(s, cam)
+                grads = torch.autograd.grad(_mean_sq(img), list(leaves.values()),
+                                            allow_unused=True)
+                return img.detach(), [torch.zeros_like(v) if g is None else g
+                                      for v, g in zip(leaves.values(), grads)]
+            return run
+
+        compiled = jit(fwd_bwd(lambda s, c: S._soft_tiled_core(
+            s.pack(), c, *taus, h, w, "phong", True, 8, 8)))
+        eager = fwd_bwd(lambda s, c: B._soft_render_core(
+            s.pack(), c, *taus, h, w, "phong", True, False))
+        flag = bool(S._bin_soft(headline.pack(), 0.5, ortho, height=h, width=w,
+                                k=8, shadows=True, shadow_k=8).overflow)
+        return (lambda: compiled(headline, ortho), lambda: eager(headline, ortho),
+                flag, True, True)
+    if name == "train1080":
+        return steps(soft_cfg, headline)
+    # phase 17: one rank of an NCCL group
+    distributed.initialize(f"127.0.0.1:{distributed.free_port()}", 1, 0)
+    if name in ("mesh-1", "mesh-1x1"):
+        return steps(soft_cfg, headline,
+                     make_mesh(1) if name == "mesh-1" else make_mesh_2d(1, 1))
+    if name.startswith("sharded"):
+        mesh = make_mesh(1)
+        cfg = {"sharded-packed": hl_cfg, "sharded-k8": hl_cfg.replace(
+            cull_k=8, shadow_cull_k=8), "sharded-float": hl_cfg.replace(
+            framebuffer_dtype="float"), "sharded-soft": soft_cfg}[name]
+        fn = render_sharded_jit(cfg, mesh)
+        if name != "sharded-soft":
+            return hard(lambda s, c: fn(s, c), headline, ortho, cfg)
+        flag = bool(S._bin_soft(headline.pack(), 0.5, ortho, height=h, width=w,
+                                k=cfg.cull_k, shadows=True,
+                                shadow_k=cfg.shadow_cull_k).overflow)
+
+        def eager():
+            with torch.no_grad():
+                return render_sharded(headline, ortho, cfg, mesh=mesh)
+
+        return lambda: fn(headline, ortho), eager, flag, True, False
+    if name == "fit":
+        fit_cfg = T.RenderConfig(width=640, height=480, shading="lambert",
+                                 soft=True, framebuffer_dtype="float",
+                                 tau_depth=1.0, tau_edge=0.5)
+        true_scene = T.create_scene(1, seed=0, device=dev)
+        with torch.no_grad():
+            target = render_soft(true_scene, ortho, fit_cfg)
+        return steps(fit_cfg, perturb_scene(true_scene, seed=1), make_mesh(),
+                     target, lr=0.5,
+                     param_filter=param_filter_from_names(SPHERE_PARAMS))
+    raise ValueError(f"no compiled case {name!r}")
+
+
+def branch_case_main(name):
+    """`python3 chip_smoke.py --branch-case NAME`: build one compiled case
+    (`_branch_case`), trace one replay and time the replay and the eager
+    call (torch.profiler), print one JSON line."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import opencl_ray_tracer_tpu_torch as T
+    from opencl_ray_tracer_tpu_torch.utils import profiling as P
+
+    dev = torch.device("cuda", 0)
+    try:
+        replay_fn, eager_fn, flag, soft, grads = _branch_case(name, T, dev)
+        names = P.trace_ops(replay_fn)
+        rep, eag = P.device_profile(replay_fn, 5), P.device_profile(eager_fn, 5)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    print(json.dumps(dict(
+        case=name, overflow=flag, soft=soft, grads=grads, ops=len(names),
+        kernels=sorted(P.kernels_in(names)),
+        own=sorted({n[:80] for n in names if "at::native" not in n}),
+        replay_ops=rep[0], replay_ms=rep[2], eager_ops=eag[0], eager_ms=eag[2])))
+    return 0
+
+
+def _branch_traces(phase, tag):
+    """The compiled cases of a phase (BRANCH_CASES), each traced in a
+    process of its own: one replay holds the kernels of the branch of
+    `lax.cond` that its flag takes and none of the other branch's (hard:
+    B1/B2 tiled, B3 brute; soft: B4 and, with gradients, B5 tiled, B6 and
+    B7 brute); prints its device operations and device ms a replay (the
+    union of its operations' intervals, 5 calls) beside the eager call's.
+    Returns {case: result}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def run(name):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--branch-case", name],
+            capture_output=True, text=True, timeout=300)
+        _require(proc.returncode == 0, f"{tag} branch case {name} failed "
+                 f"({proc.returncode}): {proc.stderr[-2000:]}")
+        return json.loads(proc.stdout.strip().splitlines()[-1])
+
+    with ThreadPoolExecutor(4) as pool:
+        results = list(pool.map(run, BRANCH_CASES[phase]))
+    for r in results:
+        _require(r["overflow"] == r["case"].endswith("k8"),
+                 f"{tag} {r['case']}: overflow flag {r['overflow']}")
+        tiled = ("B4", "B5")[:1 + r["grads"]] if r["soft"] else ("B1/B2",)
+        brute = ("B6", "B7")[:1 + r["grads"]] if r["soft"] else ("B3",)
+        taken, other = (brute, tiled) if r["overflow"] else (tiled, brute)
+        seen = set(r["kernels"])
+        print(f"{tag} [branch] {r['case']}: overflow {r['overflow']}, one replay "
+              f"traced in its own process: {r['ops']} device operations, the "
+              f"{'brute' if r['overflow'] else 'tiled'} branch's {'/'.join(taken)} "
+              f"present {set(taken) <= seen}, the other branch's "
+              f"{'/'.join(other)} absent {not seen & set(other)}; replay "
+              f"{r['replay_ops']:.1f} device operations, {r['replay_ms']:.4f} "
+              f"busy ms a call; eager {r['eager_ops']:.1f}, {r['eager_ms']:.4f} "
+              f"busy ms")
+        _require(set(taken) <= seen and not seen & set(other),
+                 f"{tag} {r['case']}: a replay ran {sorted(seen)}; the branch "
+                 f"taken needs {taken} and excludes {other}; its operations "
+                 f"other than PyTorch's own: {r['own']}")
+    return {r["case"]: r for r in results}
+
+
 def graph_phase(T, dev, smi):
     """Phase 16: the compiled path, the JAX package's `jit` forms as CUDA
     graphs (runtime/graph.py), on one card. Its main path runs with every
@@ -2692,15 +2937,18 @@ def graph_phase(T, dev, smi):
     cull_k 8 with its gradients; five `make_train_step(jit=True)` train1080
     steps. (a) every replayed hard frame equals the eager
     `render_tiled_packed` word for word (bit for bit for float) at the same
-    K caps, and at cull_k 8 the overflow flag is set on the card, the tiled
-    kernel's buffer is all zeros (it did no work) and the frame equals the
-    eager brute frame (`render_pallas_packed`, packed on the card) word for
-    word; (b) the soft frame at cull_k 8 within 0.05/255 of the eager
+    K caps, and at cull_k 8 the overflow flag is set and the frame equals
+    the eager brute frame (`render_pallas_packed`, packed on the card) word
+    for word; (b) the soft frame at cull_k 8 within 0.05/255 of the eager
     `_soft_render_core` and its leaf gradients within 1e-3 normalised, then
     each train step within 1e-6 (loss and every leaf, relative) of the eager
-    step from the same state; (c) eager and replay per-call medians (CUDA
-    events), device kernels and busy share a call (torch.profiler), and the
-    JAX bench's slope (`device_frame_time_us` / `device_step_time_us`).
+    step from the same state; then each compiled case of (a) and (b),
+    built again in a process of its own, has one replay traced: it holds
+    the kernels of the branch taken and none of the other branch's
+    (`_branch_traces`: a replay runs one branch of each `cond`); (c) eager
+    and replay per-call medians (CUDA events), device
+    kernels and busy share a call (torch.profiler), and the JAX bench's
+    slope (`device_frame_time_us` / `device_step_time_us`).
     Returns the launches of its main path per kernel, and the times."""
     import dataclasses
 
@@ -2791,25 +3039,21 @@ def graph_phase(T, dev, smi):
         packed = scene.pack()
         cfg8 = cfg.replace(cull_k=8, shadow_cull_k=8)
         fn = render_jit(cfg8)
-        branches = jit(lambda p, c, cf=cfg8: fwd_tiled._tiled_branches(
-            p, c, fwd_tiled.bin_fixed(p, c, cf), height=cf.height, width=cf.width,
-            shading=cf.shading, shadows=cf.shadows, out_format=cf.framebuffer_dtype))
+
+        def eager_brute(c):
+            return pack_framebuffer_words(fwd.render_pallas_packed(
+                packed, c, cfg8.replace(framebuffer_dtype="float")))
+
         for i, d in enumerate(moves[:2]):
             c = dataclasses.replace(cam, o0=cam.o0 + d)
             got = counted(lambda: fn(scene, c)).clone()
-            tiled, brute, flag = counted(lambda: branches(packed, c))
-            brute_words = pack_framebuffer_words(fwd.render_pallas_packed(
-                packed, c, cfg8.replace(framebuffer_dtype="float")))
-            flag_set, idle = bool(flag), not bool(tiled.any())
-            same = torch.equal(got, brute_words)
-            print(f"[graph] {label} at cull_k 8, replay {i}: overflow flag on "
-                  f"the card {flag_set}, the tiled kernel's buffer all zeros "
-                  f"{idle}, the frame vs eager render_pallas_packed: identical "
-                  f"{same}")
-            _require(flag_set and idle and same,
+            flag_set = bool(fwd_tiled.bin_fixed(packed, c, cfg8).overflow)
+            same = torch.equal(got, eager_brute(c))
+            print(f"[graph] {label} at cull_k 8, replay {i}: overflow flag "
+                  f"{flag_set}, the frame vs eager render_pallas_packed: "
+                  f"identical {same}")
+            _require(flag_set and same,
                      f"[graph] {label} at cull_k 8: the brute branch was not taken")
-            _require(torch.equal(pack_framebuffer_words(brute), brute_words),
-                     f"[graph] {label}: the brute buffer is not the brute frame")
 
     # ---- (b) the soft fallback and train1080 ------------------------------
     soft_cfg = _soft_cfg(T, w, h, "phong", True)
@@ -2877,6 +3121,8 @@ def graph_phase(T, dev, smi):
     _require(all(launches[k] >= 1 for k in GRAPH_KERNELS),
              f"[graph] the compiled path did not go through every kernel: {launches}")
 
+    _branch_traces(16, "[graph]")
+
     # ---- (c) times ----------------------------------------------------------
     times = {}
     state_t = init_train_state(headline, adam(1e-3))
@@ -2924,23 +3170,6 @@ def graph_phase(T, dev, smi):
 # the graph, the compiled sharded frame, the compiled fit, the xla forms
 # ---------------------------------------------------------------------------
 
-def _replay_trace(fn):
-    """(device operations in one call, whether an NCCL kernel is among
-    them, the operations' names) from a torch.profiler trace of one call of
-    `fn` (a graph replay: one entry per kernel, copy and fill node)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return len(names), any("nccl" in n.lower() for n in names), names
-
-
 def compiled_forms_phase(T, dev, smi):
     """Phase 17: the JAX package's last compiled forms on one card. Its
     main path runs with every count set to 0 just before each call and read
@@ -2972,7 +3201,10 @@ def compiled_forms_phase(T, dev, smi):
     equal to the eager `render_xla` word for word and bit for bit; the
     `jit=True` step on backend `xla` at 256x128 in lockstep with the eager
     `xla` step for 3 steps (1e-6 relative); replay and eager per-call
-    medians. Returns the launches of its main path per kernel."""
+    medians. Then each compiled case of (ii)-(iv), built again in a process
+    of its own, has one replay traced: it holds the kernels of the branch
+    taken and none of the other branch's (`_branch_traces`). Returns the
+    launches of its main path per kernel."""
     import dataclasses
     import tempfile
 
@@ -3012,6 +3244,7 @@ def compiled_forms_phase(T, dev, smi):
         load_checkpoint,
         save_checkpoint,
     )
+    from opencl_ray_tracer_tpu_torch.utils import profiling as P
 
     t_phase = time.perf_counter()
     counters = _graph_counters()
@@ -3137,8 +3370,10 @@ def compiled_forms_phase(T, dev, smi):
                 step_e, state_e, step_j, state_j, tgt, 5,
                 f"train1080 mesh step on {label} ({len(backends)} NCCL "
                 f"communicators), jit=True vs eager")
-            n_ops, has_nccl, names = _replay_trace(lambda: step_j(state_j, tgt))
+            names = P.trace_ops(lambda: step_j(state_j, tgt))
+            n_ops = len(names)
             nccl_names = sorted({n for n in names if "nccl" in n.lower()})
+            has_nccl = bool(nccl_names)
             e_ms = _time_ms(lambda: step_e(state_e, tgt), 20)
             r_ms = _time_ms(lambda: step_j(state_j, tgt), 50)
             times[label] = (e_ms, r_ms)
@@ -3303,6 +3538,7 @@ def compiled_forms_phase(T, dev, smi):
           f"ms [{r_ms[1]:.4f}, {r_ms[2]:.4f}] over 50, eager {e_ms[0]:.4f} ms "
           f"[{e_ms[1]:.4f}, {e_ms[2]:.4f}] over 20; {smi}")
 
+    _branch_traces(17, "[compiled]")
     print(f"[compiled] launches of phase 17's path (warm-up and capture of each "
           f"graph counted; a replay runs the graph's launches without a wrapper "
           f"call): {launches}")

@@ -21,7 +21,8 @@ import time
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "build")
-SOURCES = ("fwd_tiled.cu", "fwd_brute.cu", "soft_tiled.cu", "soft_brute.cu")
+SOURCES = ("fwd_tiled.cu", "fwd_brute.cu", "soft_tiled.cu", "soft_brute.cu",
+           "graph_cond.cu")
 HEADERS = ("soft_tiled.cuh", "tile_list.cuh")
 
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -109,6 +110,14 @@ def load_library() -> ctypes.CDLL:
         lib.octrt_soft_brute_fwd.argtypes = [ptr] * 8 + [i] * 10 + [ptr, i, ptr]
         lib.octrt_soft_brute_bwd.restype = i
         lib.octrt_soft_brute_bwd.argtypes = [ptr] * 16 + [i] * 10 + [ptr]
+        lib.octrt_cond_handles.restype = i
+        lib.octrt_cond_handles.argtypes = [ptr, ptr, ptr]
+        lib.octrt_cond_begin_body.restype = i
+        lib.octrt_cond_begin_body.argtypes = [ctypes.c_ulonglong, ptr, ptr]
+        lib.octrt_cond_end_body.restype = i
+        lib.octrt_cond_end_body.argtypes = [ptr]
+        lib.octrt_body_stream.restype = i
+        lib.octrt_body_stream.argtypes = [ptr]
         lib.octrt_cuda_error_string.restype = ctypes.c_char_p
         lib.octrt_cuda_error_string.argtypes = [i]
         _LIB = lib

@@ -18,10 +18,10 @@ see `_prep_projective_coefs`).
 3. OVERFLOW: eagerly, `render_tiled_packed` re-bins with K doubled until
    every candidate fits (bounded by the primitive count), so the tiled kernel
    never sees a truncated list. The compiled frame, `_render_tiled_jit`,
-   bins at fixed K caps with no host read and launches both the tiled and
-   the brute kernel (kernels/fwd.py), each told by the bins' overflow flag on
-   the card whether to do its work (`run_if`): the JAX package's `lax.cond`
-   under `jit`, for a CUDA graph to capture (runtime/graph.py).
+   bins at fixed K caps with no host read and chooses between the tiled and
+   the brute kernel (kernels/fwd.py) on the bins' overflow flag through
+   `runtime.graph.cond`, the JAX package's `lax.cond` under `jit`: in a
+   CUDA graph only the branch taken runs (runtime/graph.py).
 
 Shadows: a point p is occluded by triangle T from point light L iff p lies
 inside T's light frustum — behind T's plane and inside the three side planes
@@ -67,7 +67,7 @@ from opencl_ray_tracer_tpu_torch.ops.shading import (
     LEGACY_FOG_MAX,
     pack_framebuffer_words,
 )
-from opencl_ray_tracer_tpu_torch.runtime.graph import device_const
+from opencl_ray_tracer_tpu_torch.runtime.graph import cond, device_const
 from opencl_ray_tracer_tpu_torch.utils.log import log_warning
 
 TILE_H = 64
@@ -1083,23 +1083,30 @@ def render_tiled(scene, camera: Camera, config: RenderConfig) -> torch.Tensor:
     return render_tiled_packed(scene.pack(), camera, config)
 
 
-def _tiled_branches(packed, camera: Camera, bins: TileBins, *, height: int,
+def _frame_branches(packed, camera: Camera, bins: TileBins, *, height: int,
                     width: int, shading: str, shadows: bool, out_format: str):
-    """(tiled, brute, overflow) of a compiled frame: the tiled kernel's frame
-    (kernel_inputs' formats: (H, W) words or (H, W, 4) float), which it
-    writes only where the bins do not overflow, and the brute kernel's float
-    frame, which it writes only where they do; each is zeros where its
-    kernel did no work. Both launches are made, neither is read on the
-    host."""
-    flag = bins.overflow.to(torch.int32)
+    """(brute_render, tiled_render): the two branches of the compiled
+    frame's cond, split as the JAX package's (fwd_tiled.py:1353-1500). The
+    coefficient gather (`kernel_inputs`) runs here, before the cond;
+    `tiled_render` launches B1/B2 on it, `brute_render` prepares B3's
+    operands, launches B3 and for a packed frame packs its words, as
+    `brute_render_packed` does. Each is fn(run_if=None) -> the frame in
+    kernel_inputs' formats ((H, W) words or (H, W, 4) float); with `run_if`
+    its kernel works only where the flag takes its branch."""
     args, kw = kernel_inputs(packed, camera, bins, height=height, width=width,
                              shading=shading, shadows=shadows,
                              out_format=out_format)
-    tiled = tiled_kernel(*args, **kw, run_if=flag, want=0)
-    brute = _render_pallas_jit(packed, camera, height=height, width=width,
-                               shading=shading, shadows=shadows, run_if=flag,
-                               want=1)
-    return tiled, brute, bins.overflow
+
+    def tiled_render(run_if=None):
+        return tiled_kernel(*args, **kw, run_if=run_if, want=0)
+
+    def brute_render(run_if=None):
+        rgba = _render_pallas_jit(packed, camera, height=height, width=width,
+                                  shading=shading, shadows=shadows,
+                                  run_if=run_if, want=1)
+        return pack_framebuffer_words(rgba) if out_format == "packed" else rgba
+
+    return brute_render, tiled_render
 
 
 @torch.no_grad()
@@ -1108,17 +1115,14 @@ def _render_tiled_jit(packed, camera: Camera, bins: TileBins, *, height: int,
                       out_format: str = "int") -> torch.Tensor:
     """The tiled frame from given bins with no host read: the JAX package's
     `_render_tiled_jit` (fwd_tiled.py:1266-1505). The bins may overflow
-    their K caps: the tiled kernel (B1/B2) does its work where they do not,
-    the brute kernel (B3) where they do, each told by the overflow flag on
-    the card, as `lax.cond` chooses under `jit`; a packed frame packs the
-    brute frame's words on the card as `brute_render_packed` does. Returns
-    what `render_tiled_packed` returns for `out_format`."""
-    tiled, brute, overflow = _tiled_branches(
+    their K caps: `cond(bins.overflow, brute_render, tiled_render)` runs the
+    brute kernel (B3) where they do and the tiled kernel (B1/B2) where they
+    do not, chosen on the card as `lax.cond` chooses under `jit` (captured,
+    a replay runs only the branch taken). Returns what
+    `render_tiled_packed` returns for `out_format`."""
+    img = cond(bins.overflow, *_frame_branches(
         packed, camera, bins, height=height, width=width, shading=shading,
-        shadows=shadows, out_format=out_format)
-    if out_format == "packed":
-        return torch.where(overflow, pack_framebuffer_words(brute), tiled)
-    img = torch.where(overflow, brute, tiled)
+        shadows=shadows, out_format=out_format))
     if out_format == "int":
         return torch.trunc(img).to(torch.int32)
     return img

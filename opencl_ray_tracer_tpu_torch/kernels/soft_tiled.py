@@ -9,12 +9,12 @@ then hand-written CUDA kernels for the forward (B4) and backward (B5).
    caps, as the JAX package always bins; where any tile's list overflows,
    the frame is the brute soft kernels' (kernels/soft.py), as under JAX's
    `lax.cond`. `render_soft_tiled` reads the overflow flag once and runs
-   only that branch; `_soft_tiled_core` launches both, each told by the
-   flag on the card whether to do its work, with no host read, for a CUDA
-   graph to capture (runtime/graph.py). `soft_bins_for_config` is an opt-in
-   helper that re-bins with K doubled until no tile overflows (not the JAX
-   package's semantics): what the smoke and the bench use to set a kernel's
-   K outright.
+   only that branch; `_soft_tiled_core` chooses on the card with no host
+   read, its forward and its backward each a `runtime.graph.cond`, so that
+   in a CUDA graph only the branch taken runs. `soft_bins_for_config` is an
+   opt-in helper that re-bins with K doubled until no tile overflows (not
+   the JAX package's semantics): what the smoke and the bench use to set a
+   kernel's K outright.
 2. TABLES (torch, differentiable): per-tile gathered coefficient rows
    (`_gather_soft_tables`). Autograd of the gather IS the scatter-add of the
    per-tile gradient tables back onto the scene, camera and lights.
@@ -83,12 +83,22 @@ from opencl_ray_tracer_tpu_torch.kernels.soft import (
     PATCH_W,
     _raise_on,
     _safe_norm_rows,
+    _prep_soft_arrays,
     _safe_unit_rows,
     _soft_render_core,
+    _static_cfg,
+    soft_brute_bwd,
+    soft_brute_fwd,
 )
 from opencl_ray_tracer_tpu_torch.ops.intersect import EPSILON
 from opencl_ray_tracer_tpu_torch.ops.shading import LEGACY_FOG_MAX
-from opencl_ray_tracer_tpu_torch.runtime.graph import device_const, device_scalar
+from opencl_ray_tracer_tpu_torch.runtime.graph import (
+    _flatten,
+    _unflatten,
+    cond,
+    device_const,
+    device_scalar,
+)
 from opencl_ray_tracer_tpu_torch.utils.log import log_warning
 
 # Candidate-list granularity: K caps round to it, and a tile's candidates
@@ -908,6 +918,8 @@ def soft_tiled_bwd(params, taus, tables, counts, g, *, cfg):
             leaves = [t.detach().requires_grad_(True) for t in inputs]
             out = _soft_tiled_plain(leaves[0], leaves[1], leaves[2:], counts,
                                     cfg=cfg)
+            if not out.requires_grad:  # no candidate in any tile
+                return tuple(torch.zeros_like(t) for t in inputs)
             grads = torch.autograd.grad(out, leaves, g, allow_unused=True)
         return tuple(torch.zeros_like(t) if gr is None else gr
                      for t, gr in zip(inputs, grads))
@@ -989,36 +1001,132 @@ def soft_kernel_inputs(packed, camera: Camera, config: RenderConfig,
     return params, taus, tables, bins.counts, cfg
 
 
+def _soft_operands(brute: bool, packed, camera: Camera, tau_d, tau_e,
+                   bins: SoftBins, frame):
+    """(kernel inputs, cfg) of one branch of `_soft_tiled_core`, in
+    differentiable torch ops: for the tiled kernels (B4, B5) the camera
+    parameters, the two taus and the six gathered tables; for the brute
+    ones (B6, B7) the camera parameters, the taus and the four primitive
+    arrays."""
+    # in the order of the eager paths (`soft_kernel_inputs`,
+    # `_soft_render_core`), so that autograd sums each leaf's gradient in
+    # the same order and the two agree bit for bit
+    height, width, shading, shadows = frame[:4]
+    if brute:
+        arrays = [a.contiguous() for a in _prep_soft_arrays(packed)]
+    else:
+        arrays = list(_gather_soft_tables(packed, camera, tau_e, bins))
+    params = _camera_params(camera, packed.lights).contiguous()
+    taus = torch.stack([tau_d, tau_e])
+    if brute:
+        return ([params, taus] + arrays,
+                _static_cfg(packed, shading, shadows, camera.normalize))
+    cfg = dict(n_lights=packed.lights.position.shape[0], shading=shading,
+               shadows=shadows, projective=bins.projective, nty=bins.nty,
+               ntx=bins.ntx, height=height, width=width)
+    return [params, taus] + arrays, cfg
+
+
+class _SoftCoreFunction(torch.autograd.Function):
+    """`_soft_tiled_core` as one autograd node over the tensors of (packed,
+    camera, tau_d, tau_e), flattened by `runtime.graph._flatten`: the JAX
+    package's custom_vjp (soft_tiled.py:2041-2169). The forward bins at the
+    K caps and runs `cond(overflow, brute_fwd, tiled_fwd)`: each branch
+    prepares its kernel's operands with autograd on (from detached copies
+    of the leaves) and runs B6 or B4 on them. The backward runs
+    `cond(overflow, brute_bwd, tiled_bwd)`: each branch runs its kernel's
+    backward (B7 or B5) on the cotangent and pulls the kernel's gradients
+    back through its forward branch's preparation with
+    `torch.autograd.grad`, to one gradient a leaf (zeros where the branch
+    does not use a leaf), so that both branches return the same tree.
+
+    JAX's `tiled_bwd` prepares the operands again inside the backward; here
+    the backward branch reuses the graph its forward branch kept, as the
+    eager path does: the same flag chooses both conds, so a backward branch
+    runs only where its forward branch ran. (Recomputing cost a replay of
+    the 1080p train step 179 more device operations and about 0.3 ms more
+    device time on an H100: scripts/torch_replay_times.py.)"""
+
+    @staticmethod
+    def forward(ctx, frame, spec, *leaves):
+        packed, camera, tau_d, tau_e = _unflatten(spec, iter(leaves))
+        height, width, shading, shadows, k, shadow_k = frame
+        bins = _bin_soft(packed, tau_e, camera, height=height, width=width,
+                         k=k, shadows=shadows, shadow_k=shadow_k)
+        preps = {}
+
+        def prepare(brute):
+            with torch.enable_grad():
+                lv = [t.detach().requires_grad_(True) for t in leaves]
+                inputs, cfg = _soft_operands(brute, *_unflatten(spec, iter(lv)),
+                                             bins, frame)
+            preps[brute] = (lv, inputs, cfg)
+            return [t.detach() for t in inputs], cfg
+
+        def tiled_fwd(run_if=None):
+            (params, taus, *tables), cfg = prepare(False)
+            return soft_tiled_fwd(params, taus, tables, bins.counts, cfg=cfg,
+                                  run_if=run_if, want=0)
+
+        def brute_fwd(run_if=None):
+            inputs, cfg = prepare(True)
+            return soft_brute_fwd(*inputs, height=height, width=width,
+                                  cfg=cfg, run_if=run_if, want=1)
+
+        img = cond(bins.overflow, brute_fwd, tiled_fwd)
+        ctx.frame, ctx.bins, ctx.preps = frame, bins, preps
+        return img
+
+    @staticmethod
+    def backward(ctx, g):
+        frame, bins, preps = ctx.frame, ctx.bins, ctx.preps
+        height, width = frame[:2]
+
+        def branch(brute):
+            def bwd(run_if=None):
+                # with run_if (an eager call on the card) the branch not
+                # taken gets a zero cotangent, on which B5 / B7 return zeros
+                g_ = _select_branch(g, run_if, int(brute))
+                lv, inputs, cfg = preps[brute]
+                detached = [t.detach() for t in inputs]
+                if brute:
+                    grads = soft_brute_bwd(*detached, g_, height=height,
+                                           width=width, cfg=cfg)
+                else:
+                    grads = soft_tiled_bwd(detached[0], detached[1],
+                                           detached[2:], bins.counts, g_,
+                                           cfg=cfg)
+                used = [(t, d) for t, d in zip(inputs, grads) if t.requires_grad]
+                pulled = torch.autograd.grad([t for t, _ in used], lv,
+                                             [d for _, d in used],
+                                             allow_unused=True)
+                return tuple(torch.zeros_like(t) if d is None else d
+                             for t, d in zip(lv, pulled))
+            return bwd
+
+        grads = cond(bins.overflow, branch(True), branch(False))
+        ctx.preps = None
+        return (None, None) + grads
+
+
 def _soft_tiled_core(packed, camera: Camera, tau_d, tau_e, height: int,
                      width: int, shading: str, shadows: bool, k: int,
                      shadow_k: int) -> torch.Tensor:
     """The soft frame at fixed K caps with no host read: the JAX package's
-    `_soft_tiled_core` (soft_tiled.py:2041-2173). `_bin_soft` runs at the K
-    caps and its lists may overflow; the tiled kernels (B4, and B5 in the
-    backward) do their work where they do not, the brute soft kernels (B6,
-    B7) where they do, each forward told by the overflow flag on the card
-    and the two frames selected by a torch.where on it, so the branch not
-    taken gets a zero cotangent in the backward, as under `lax.cond`.
-    (H, W, 4) float32 with autograd to the packed scene, the camera's
-    tensors and both temperatures (device scalars the caller owns, or
-    numbers)."""
+    `_soft_tiled_core` (soft_tiled.py:2041-2173), through
+    `_SoftCoreFunction`. `_bin_soft` runs at the K caps and its lists may
+    overflow; the tiled kernels (B4, and B5 in the backward) run where they
+    do not, the brute soft kernels (B6, B7) where they do, chosen on the
+    card by `runtime.graph.cond` as `lax.cond` chooses (captured, a replay
+    runs only the branch taken, forward and backward). (H, W, 4) float32
+    with autograd to the packed scene, the camera's tensors and both
+    temperatures (device scalars the caller owns, or numbers)."""
     dev = packed.device
-    tau_d, tau_e = device_scalar(tau_d, dev), device_scalar(tau_e, dev)
-    bins = _bin_soft(packed, tau_e, camera, height=height, width=width, k=k,
-                     shadows=shadows, shadow_k=shadow_k)
-    flag = bins.overflow.to(torch.int32)
-    tables = _gather_soft_tables(packed, camera, tau_e, bins)
-    params = _camera_params(camera, packed.lights).contiguous()
-    taus = torch.stack([tau_d, tau_e])
-    cfg = dict(n_lights=packed.lights.position.shape[0], shading=shading,
-               shadows=shadows, projective=bins.projective, nty=bins.nty,
-               ntx=bins.ntx, height=height, width=width)
-    tiled = SoftTiledFunction.apply(params, taus, *tables, bins.counts, cfg,
-                                    flag, 0)
-    brute = _soft_render_core(packed, camera, tau_d, tau_e, height, width,
-                              shading, shadows, camera.normalize, run_if=flag,
-                              want=1)
-    return torch.where(bins.overflow, brute, tiled)
+    leaves: list = []
+    spec = _flatten((packed, camera, device_scalar(tau_d, dev),
+                     device_scalar(tau_e, dev)), leaves)
+    return _SoftCoreFunction.apply(
+        (height, width, shading, shadows, k, shadow_k), spec, *leaves)
 
 
 def render_soft_tiled(scene, camera: Camera, config: RenderConfig) -> torch.Tensor:

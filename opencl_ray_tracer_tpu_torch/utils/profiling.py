@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import re
 import time
 from typing import Iterator, Optional
 
@@ -359,3 +360,36 @@ def device_profile(fn, n):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return (len(spans) / n, busy / wall_us, busy / n / 1e3,
             [(name[:60], us / n / 1e3) for name, us in top])
+
+
+# Each hand-written kernel's function name in kernels/csrc/, as a profiler
+# trace of a call shows it (B1 and B2 are one kernel with an output switch).
+KERNEL_NAMES = {"B1/B2": "fwd_tiled_kernel", "B3": "fwd_brute_kernel",
+                "B4": "soft_fwd_kernel", "B5": "soft_bwd_kernel",
+                "B6": "soft_brute_fwd_kernel", "B7": "soft_brute_bwd_kernel"}
+
+
+def trace_ops(fn):
+    """The names of the device operations (kernels, copies, fills) of one
+    call of `fn` on the card, from a torch.profiler trace; a first call runs
+    untraced (a graph's capture, a library's build). The names of kernels
+    inside a graph's conditional nodes are wrong once the process holds
+    graphs of several shapes (torch 2.11, CUDA 12.8): trace those in a
+    process of their own (chip_smoke.py `_branch_traces`)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def kernels_in(names) -> set:
+    """The keys of KERNEL_NAMES whose kernel is among the operation names
+    (demangled, or mangled with a length before and a type after)."""
+    return {k for k, fn in KERNEL_NAMES.items()
+            if any(re.search(rf"(?<![A-Za-z_]){fn}(?![a-z0-9_])", n)
+                   for n in names)}

@@ -90,16 +90,18 @@ def test_shaded_float_matches_jax(scenes, cam_kind, shading, shadows):
     assert close >= 0.999, f"only {close:.4%} within 0.5/255"
 
 
-def test_non_tile_aligned_resolution(scenes):
-    """100x70: a pixel count that is no multiple of the TPU kernel's
-    512-pixel tile nor of a CUDA block. 69% of this small frame is lit, so
-    the triangle-seam pixels (u + v == 1 up to float32 rounding, where XLA's
-    fused multiply-adds and the twin's unfused ones fall on different sides)
-    weigh more than at 256x128: 10 of 7000 differ, 99.857% identical. The
-    bar is 99.8% (the JAX package's own test at this size holds its kernel
-    to its oracle at 99.5%, tests/test_pallas_fwd.py:87-99)."""
-    got, want = _both(scenes, "scene1", "ortho", w=100, h=70, shading="legacy")
-    assert got.shape == (70, 100, 4)
+@pytest.mark.parametrize("w,h", [(100, 70), (130, 90)])
+def test_non_tile_aligned_resolution(scenes, w, h):
+    """100x70 and 130x90: pixel counts that are no multiple of the TPU
+    kernel's 512-pixel tile nor of a CUDA block. Most of these small frames
+    is lit, so the triangle-seam pixels (u + v == 1 up to float32 rounding,
+    where XLA's fused multiply-adds and the twin's unfused ones fall on
+    different sides) weigh more than at 256x128: at 100x70 10 of 7000
+    differ, 99.857% identical. The bar is 99.8% (the JAX package's own test
+    at 100x70 holds its kernel to its oracle at 99.5%,
+    tests/test_pallas_fwd.py:87-99)."""
+    got, want = _both(scenes, "scene1", "ortho", w=w, h=h, shading="legacy")
+    assert got.shape == (h, w, 4)
     frac = (got == want).all(-1).mean()
     assert frac >= 0.998, f"only {frac:.4%} identical"
 

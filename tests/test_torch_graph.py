@@ -14,12 +14,22 @@ JAX's Pallas kernels in interpret mode), inputs made from a seed.
 - the eager soft frame (`render_soft_tiled`, which reads the overflow flag
   and runs one branch) against `_soft_tiled_core` on both branches, bit for
   bit;
+- `runtime.graph.cond` on CPU tensors: both branches run and each output
+  tensor is selected, on nested trees, for both values of the predicate;
+  branches whose trees differ are refused;
+- the `_soft_tiled_core` autograd Function on both branches against the
+  eager pair that stays (`SoftTiledFunction` over the tables, as
+  `render_soft_tiled` composes it, and `_soft_render_core`), image and the
+  gradient of every scene leaf, camera tensor and both temperatures, within
+  1e-6 of each leaf's largest magnitude;
 - `runtime.graph.jit` on CPU tensors (it calls the function), the
   `jit=True` train step on the CPU (the eager step's result; with a mesh
   that has no group, the one-device step's; on backend "xla", the eager
   "xla" step's) and what it refuses, and the two-point slope of
   `bench_util` against a fake clock.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -96,17 +106,21 @@ def test_render_tiled_jit_matches_jax_cond(case):
 
 @pytest.mark.parametrize("overflow", [False, True])
 def test_tiled_branches_zero_where_not_taken(overflow):
-    """Both kernels are called; the one whose branch is not taken leaves
-    zeros (what its skipped CUDA launch leaves), the other its frame."""
+    """Both branches of the compiled frame called with the overflow flag as
+    `run_if` (what `cond` does on the card outside a capture): the one whose
+    branch is not taken leaves zeros (what its skipped CUDA launch leaves),
+    the other its frame."""
     ts = _port(_pile() if overflow else J.create_scene(1))
     tc = T.legacy_ortho_camera(device=CPU)
     cfg = T.RenderConfig(width=HW, height=HH, shading="legacy",
                          framebuffer_dtype="float")
     packed = ts.pack()
     bins = fwd_tiled.bin_fixed(packed, tc, cfg)
-    tiled, brute, flag = fwd_tiled._tiled_branches(
+    brute_render, tiled_render = fwd_tiled._frame_branches(
         packed, tc, bins, height=HH, width=HW, shading="legacy", shadows=False,
         out_format="float")
+    flag = bins.overflow.to(torch.int32)
+    tiled, brute = tiled_render(run_if=flag), brute_render(run_if=flag)
     assert bool(flag) == overflow
     taken, skipped = (brute, tiled) if overflow else (tiled, brute)
     assert not skipped.any()
@@ -228,7 +242,125 @@ def test_eager_soft_frame_equals_core(case):
     assert ge[0].abs().max() > 0
 
 
+@pytest.mark.parametrize("case", ["few", "pile"])
+def test_soft_core_function_matches_eager_pair(case):
+    """`_soft_tiled_core`'s Function (forward and backward each a cond) on
+    the tiled branch ("few" fits its lists) and the brute one (the pile
+    overflows K 32), against the eager composition of that branch with
+    autograd: the image, and the gradients of the scene's leaves, the
+    light positions, the camera's six tensors and both temperatures."""
+    js, shading, shadows = _soft_case(case)
+    _, tcfg = _soft_cfgs(shading, shadows)
+
+    def leaves_of(ts):
+        cam = T.legacy_ortho_camera(device=CPU)
+        cam = dataclasses.replace(cam, **{f.name: getattr(cam, f.name).clone()
+                                          for f in dataclasses.fields(cam)
+                                          if f.name != "normalize"})
+        taus = (torch.tensor(1.0), torch.tensor(0.5))
+        leaves = ([getattr(ts, k) for k in LEAVES] + [ts.lights.position]
+                  + [getattr(cam, n) for n in ("o0", "dox", "doy", "d0", "ddx",
+                                               "ddy")] + list(taus))
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        return cam, taus, leaves
+
+    def eager(packed, cam, tau_d, tau_e):
+        if case == "pile":
+            return soft._soft_render_core(packed, cam, tau_d, tau_e, SH, SW,
+                                          shading, shadows, cam.normalize)
+        bins = soft_tiled._bin_soft(packed, tau_e, cam, height=SH, width=SW,
+                                    k=tcfg.cull_k, shadows=shadows,
+                                    shadow_k=tcfg.shadow_cull_k)
+        tables = soft_tiled._gather_soft_tables(packed, cam, tau_e, bins)
+        params = fwd._camera_params(cam, packed.lights)
+        cfg = dict(n_lights=packed.lights.position.shape[0], shading=shading,
+                   shadows=shadows, projective=False, nty=bins.nty,
+                   ntx=bins.ntx, height=SH, width=SW)
+        return soft_tiled.SoftTiledFunction.apply(
+            params, torch.stack([tau_d, tau_e]), *tables, bins.counts, cfg)
+
+    def core(packed, cam, tau_d, tau_e):
+        return soft_tiled._soft_tiled_core(packed, cam, tau_d, tau_e, SH, SW,
+                                           shading, shadows, tcfg.cull_k,
+                                           tcfg.shadow_cull_k)
+
+    outs = []
+    for render in (eager, core):
+        ts = _port(js)
+        cam, taus, leaves = leaves_of(ts)
+        img = render(ts.pack(), cam, *taus)
+        grads = torch.autograd.grad(torch.mean(img[..., :3] ** 2), leaves,
+                                    allow_unused=True)
+        outs.append((img.detach(), [torch.zeros_like(x) if g is None else g
+                                    for x, g in zip(leaves, grads)]))
+    (ie, ge), (ic, gc) = outs
+    assert (ie[..., :3] > 1.0).any()
+    assert (ic - ie).abs().max() <= 1e-6 * ie.abs().max()
+    names = LEAVES + ("lights.position", "o0", "dox", "doy", "d0", "ddx", "ddy",
+                      "tau_d", "tau_e")
+    for name, a, b in zip(names, gc, ge):
+        if not b.numel():  # the pile has no triangles
+            continue
+        assert a.shape == b.shape and torch.isfinite(a).all(), name
+        assert (a - b).abs().max() <= 1e-6 * b.abs().max(), name
+    assert ge[0].abs().max() > 0 and ge[-1].abs() > 0 and ge[-2].abs() > 0
+
+
 # ---- runtime.graph on CPU tensors ----------------------------------------------
+
+
+@dataclasses.dataclass
+class _Pair:
+    img: torch.Tensor
+    words: tuple
+    tag: str = "t"
+
+
+@pytest.mark.parametrize("taken", [True, False])
+def test_cond_selects_leaf_by_leaf(taken):
+    """On CPU tensors both branches run with no `run_if`, and every tensor of
+    the result (in a tuple, a dataclass, a dict) is the branch's own where
+    the predicate takes it."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((4, 5)).astype(np.float32))
+    w = torch.from_numpy(rng.integers(0, 99, (6,)).astype(np.int32))
+    flags = []
+
+    def branch(sign):
+        def fn(a, b, run_if):
+            flags.append(run_if)
+            return (a * sign, _Pair(a + sign, (b * sign, b + 1)), {"n": b - sign})
+        return fn
+
+    got = graph.cond(torch.tensor(taken), branch(2), branch(-3), (x, w))
+    want = branch(2 if taken else -3)(x, w, None)
+    assert flags == [None, None, None]
+    assert isinstance(got[1], _Pair) and got[1].tag == "t"
+    got_leaves, want_leaves = [], []
+    assert graph._flatten(got, got_leaves) == graph._flatten(want, want_leaves)
+    assert len(got_leaves) == 5
+    for a, b in zip(got_leaves, want_leaves):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_cond_rejects_branches_that_differ():
+    x = torch.ones(3)
+    pred = torch.tensor(True)
+    same = lambda run_if: (x, x.int())  # noqa: E731
+    for other, match in ((lambda run_if: (x, x), "differs"),
+                         (lambda run_if: (x, torch.ones(4, dtype=torch.int32)),
+                          "differs"),
+                         (lambda run_if: [x, x.int()], "structures"),
+                         (lambda run_if: (x, x.int(), x), "structures")):
+        with pytest.raises(ValueError, match=match):
+            graph.cond(pred, same, other)
+    with pytest.raises(TypeError, match="one bool"):
+        graph.cond(torch.tensor([1.0]), same, same)
+    with pytest.raises(TypeError, match="one bool"):
+        graph.cond(torch.tensor([True, False]), same, same)
+
+
 
 
 def test_graph_jit_on_cpu_calls_the_function():

@@ -792,6 +792,95 @@ def test_entry_replay_matches_eager(cuda_device, cull_k):
         assert torch.equal(got, want), d
 
 
+def _branch_case(case):
+    """One compiled case of `test_replay_runs_only_the_branch_taken`, in
+    this process: (kernels its replay ran, kernels of the branch taken,
+    kernels of the other branch) from a profiler trace of one replay, after
+    checking the replay's result against the eager call's."""
+    from opencl_ray_tracer_tpu_torch.kernels import fwd
+    from opencl_ray_tracer_tpu_torch.models.renderer import render_jit
+    from opencl_ray_tracer_tpu_torch.ops.shading import pack_framebuffer_words
+    from opencl_ray_tracer_tpu_torch.parallel import (
+        adam,
+        init_train_state,
+        make_train_step,
+    )
+    from opencl_ray_tracer_tpu_torch.utils.profiling import kernels_in, trace_ops
+
+    dev = torch.device("cuda")
+    cam = T.legacy_ortho_camera(device=dev)
+    brute = case.endswith("brute")
+    if case.startswith("frame"):
+        scene = T.create_scene(1, seed=0, device=dev)
+        cfg = T.RenderConfig(width=160, height=120, shading="phong", shadows=True,
+                             framebuffer_dtype="packed")
+        if brute:
+            cfg = cfg.replace(cull_k=8, shadow_cull_k=8)
+        packed = scene.pack()
+        assert bool(fwd_tiled.bin_fixed(packed, cam, cfg).overflow) == brute
+        fn = render_jit(cfg)
+        got = fn(scene, cam).clone()
+        if brute:
+            want = pack_framebuffer_words(fwd.render_pallas_packed(
+                packed, cam, cfg.replace(framebuffer_dtype="float")))
+        else:
+            want = fwd_tiled.render_tiled_packed(packed, cam, cfg)
+        assert torch.equal(got, want)
+        seen = kernels_in(trace_ops(lambda: fn(scene, cam)))
+        taken, other = ({"B3"}, {"B1/B2"}) if brute else ({"B1/B2"}, {"B3"})
+    else:
+        w, h = 128, 64
+        if brute:
+            scene = T.random_scene(40, 0, seed=9, bounds=(60.0, 40.0), device=dev)
+            shading, shadows = "lambert", False
+        else:
+            scene = T.random_scene(5, 2, seed=4, bounds=(120.0, 60.0), device=dev)
+            shading, shadows = "phong", True
+        cfg = T.RenderConfig(width=w, height=h, shading=shading, shadows=shadows,
+                             soft=True, framebuffer_dtype="float", tau_depth=1.0,
+                             tau_edge=0.5)
+        target = torch.zeros((h, w, 4), device=dev)
+        opt_e, opt_j = adam(1e-2), adam(1e-2)
+        step_e = make_train_step(cam, cfg, opt_e)
+        step_j = make_train_step(cam, cfg, opt_j, jit=True)
+        se, sj = init_train_state(scene, opt_e), init_train_state(scene, opt_j)
+        se, le = step_e(se, target)
+        sj, lj = step_j(sj, target)
+        assert abs(lj.item() - le.item()) <= 1e-6 * abs(le.item())
+        seen = kernels_in(trace_ops(lambda: step_j(sj, target)))
+        taken, other = ({"B6", "B7"}, {"B4", "B5"}) if brute \
+            else ({"B4", "B5"}, {"B6", "B7"})
+    return sorted(seen), sorted(taken), sorted(other)
+
+
+@pytest.mark.parametrize("case", ["frame-tiled", "frame-brute", "step-tiled",
+                                  "step-brute"])
+def test_replay_runs_only_the_branch_taken(cuda_device, case):
+    """A profiler trace of one replay holds the kernels of the branch of
+    `runtime.graph.cond` taken and none of the other branch's: the 160x120
+    frame through render_jit (scene 1 at the default caps: B1 and no B3; at
+    cull_k 8, where its lists overflow: B3 and no B1) and the 128x64 soft
+    train step through make_train_step(jit=True) (a scene that fits its
+    lists: B4 and B5, no B6 or B7; the 40-sphere pile, which overflows K
+    32: B6 and B7, no B4 or B5). The replay's result is the eager call's.
+    Each case runs in a process of its own: a trace names kernels inside
+    conditional nodes wrongly once a process holds graphs of several
+    shapes (chip_smoke.py, `BRANCH_CASES`)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), case],
+                          capture_output=True, text=True, timeout=300, env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    seen, taken, other = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert set(taken) <= set(seen) and not set(seen) & set(other), (case, seen)
+
+
 def test_jit_train_step_matches_eager_step(cuda_device):
     """Two make_train_step(jit=True) steps at 256x128 against the eager step
     from the same state: loss and every leaf within 1e-6 (relative)."""
@@ -884,3 +973,10 @@ def test_jit_mesh_step_on_nccl_matches_eager_step(cuda_device, shape):
                 assert rel <= 1e-6, (i, k, rel)
     finally:
         dist.destroy_process_group()
+
+
+if __name__ == "__main__":  # one case of test_replay_runs_only_the_branch_taken
+    import json
+    import sys
+
+    print(json.dumps(_branch_case(sys.argv[1])))

@@ -211,3 +211,19 @@ def test_chip_smoke_keeps_no_bound_code():
                  "def _brute_soft_bounds"):
         assert name not in src, name
     assert "from opencl_ray_tracer_tpu_torch.utils import profiling as P" in src
+
+
+def test_kernels_in_names_each_kernel_once():
+    """The trace names of the hand-written kernels, demangled (templated or
+    not) and mangled, map to their kernel; a name that only contains
+    another's does not."""
+    names = ["void (anonymous namespace)::fwd_tiled_kernel<false, 2, true>((anonymous "
+             "namespace)::Args, int)",
+             "void (anonymous namespace)::soft_brute_fwd_kernel<false, 1>(Args)",
+             "_ZN46_GLOBAL__N__36cb4d3c_12soft_tiled_cu15soft_bwd_kernelILb0ELi1EEEvNS_4ArgsE",
+             "void at::native::vectorized_elementwise_kernel<4, at::native::FillFunctor<float>>",
+             "Memcpy DtoD (Device -> Device)"]
+    assert P.kernels_in(names) == {"B1/B2", "B6", "B5"}
+    assert P.kernels_in(["soft_fwd_kernel_x", "my_fwd_brute_kernel"]) == set()
+    assert P.kernels_in([]) == set()
+    assert set(P.KERNEL_NAMES) == {"B1/B2", "B3", "B4", "B5", "B6", "B7"}
