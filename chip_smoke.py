@@ -162,7 +162,29 @@ forms (CUDA graphs) — through the entry points a user calls, and fails
    `render_xla` and the `jit=True` step on backend `xla` in lockstep with
    the eager one; the branch trace of phase 16 for the mesh steps, the
    sharded frames (packed, float, cull_k 8, soft) and the fit step. Its
-   launches are the `phase 17` path of every kernel.
+   launches are the `phase 17` path of every kernel;
+18. the stored-finals regime of B4 / B5 (`finals_phase`): the main paths
+   that take it, counted (the eager stress soft step, the bench's `fwd+bwd
+   50 + 4` and `fwd+bwd stress` steps, the compiled stress step); B4's
+   finals block against the plain block row by row (train1080 tables and
+   stress 1080p, the regime forced at train1080 where the slot count may
+   not call for it; every row within 1e-4 normalised, bacc through exp;
+   the visibilities exp(logvis) 99.9% within 1e-4 and all within 5e-3: a
+   shadow ray starts at the hit point, which each side gives to its last
+   bits, and at stress scale a grazing occluder's sigmoids magnify that, to
+   1.4e-3 in one visibility while the frames agree within 0.05/255); B5
+   reading the block against B5 recomputing (1e-5
+   normalised) and exact zeros for an all-zero cotangent; a block
+   prefilled with NaN before B4 giving finite gradients within 1e-6 of an
+   unfilled one's; phase 7's 16 cases and 16 pixel-gradient rows with the
+   regime forced, against the twin and the recompute regime at phase 7's
+   bars; the compiled stress
+   step (K 96 / 136, tiled branch, and K 32 / 64, where a list overflows
+   and the brute branch runs), captured and replayed, in lockstep with the
+   eager step (1e-6, the loss and each leaf normalised by its largest, as
+   phase 17 reads the fit). Its
+   launches are the `phase 18` path of B4 and B5, and those made with a
+   finals block are `finals_launches_by_path` (eager, bench, compiled).
 
 Hard kernel vs twin is bounded on every pixel: float frames within 0.5/255,
 packed and int frames within one step of 1/255 (and identical on >= 99.5%
@@ -486,12 +508,15 @@ def main() -> int:
     shell = shell_phase(T, dev, smi)            # 15
     graph, _ = graph_phase(T, dev, smi)         # 16
     compiled = compiled_forms_phase(T, dev, smi)  # 17
-    for row, key in zip(soft_rows, ("B4", "B5")):
+    finals, finals_paths = finals_phase(T, dev, smi)  # 18
+    for i, (row, key) in enumerate(zip(soft_rows, ("B4", "B5"))):
         row["launches_by_path"] = {"phase 9": row["launches"], "phase 13": new[key],
                                    "phase 14": sharded[key], "phase 15": shell[key],
-                                   "graph": graph[key], "phase 17": compiled[key]}
+                                   "graph": graph[key], "phase 17": compiled[key],
+                                   "phase 18": finals[key]}
         row["launches"] += (new[key] + sharded[key] + shell[key] + graph[key]
-                            + compiled[key])
+                            + compiled[key] + finals[key])
+        row["finals_launches_by_path"] = {path: n[i] for path, n in finals_paths.items()}
     for row, key in zip(brute_rows, ("B3", "B6", "B7")):
         row["launches_by_path"] = {"phase 12": row["launches"], "graph": graph[key],
                                    "phase 17": compiled[key]}
@@ -1026,11 +1051,17 @@ def soft_phase_train(T, dev, smi):
         s = trainable_scene(scene)
         loss_fn(S.render_soft_tiled(s, cam, cfg)).backward()
 
+    # B4 and B5 as the step runs them: with a finals block where the bins'
+    # slot count calls for the stored regime (`_use_stored_finals`)
+    block = S.finals_block(kc, dev) if kc["stored_finals"] else None
+
     def b4():
-        S.soft_tiled_fwd(params, taus, tables, counts, cfg=kc)
+        S.soft_tiled_fwd(params, taus, tables, counts, cfg=kc, finals=block)
 
     def b5():
-        S.soft_tiled_bwd(params, taus, tables, counts, g, cfg=kc)
+        S.soft_tiled_bwd(params, taus, tables, counts, g, cfg=kc, finals=block)
+
+    b4()  # the block B5 reads
 
     fns = {
         "B4 alone": b4,
@@ -1111,7 +1142,9 @@ def soft_phase_train(T, dev, smi):
                      "[redesign] B5 with an all-zero cotangent is not exactly zero")
         run = lambda: S.soft_tiled_bwd(*ops_[:4], g_, cfg=ops_[4])  # noqa: E731
         ms, b2b_ms = device_ms(run, n), back_to_back_ms(run, n)
-        bound_ms, by, n_ops = P.tiled_soft_bounds(sc_, cam_, cfg_, ops_, g_)[1]
+        # the recomputing B5 of that time, and its bound without a block
+        lean = ops_[:4] + (dict(ops_[4], stored_finals=False),)
+        bound_ms, by, n_ops = P.tiled_soft_bounds(sc_, cam_, cfg_, lean, g_)[1]
         print(f"[redesign] {what}: {ms:.4f} ms of device time per launch, "
               f"{b2b_ms:.4f} back to back with the wrapper (measured in this run; "
               f"{n_patches} live patches, the card's list equals its plain "
@@ -1120,7 +1153,12 @@ def soft_phase_train(T, dev, smi):
               f"{bound_ms:.5f} ms by {by} ({n_ops:.4e} operations), "
               f"{ms / bound_ms:.1f}x over it; {smi}")
 
-    b4_ms = soft_tiled_fwd_redesign(scene, cam, pin, cfg, scene3, cfg3, smi)
+    soft_tiled_fwd_redesign(scene, cam, pin, cfg, scene3, cfg3, smi)
+    b4_ms = device_ms(b4, 20)
+    regime = "writing" if block is not None else "without"
+    print(f"[time] train 1080p phong+shadows: B4 as the step runs it ({regime} a "
+          f"finals block) {b4_ms:.4f} ms of device time per launch, behind a spin; "
+          f"{smi}")
 
     src = "opencl_ray_tracer_tpu_torch/kernels/csrc/soft_tiled.cu"
     shape = "train step 1920x1080 10sph+1cube phong+soft shadows"
@@ -1129,9 +1167,10 @@ def soft_phase_train(T, dev, smi):
          "replaces": "opencl_ray_tracer_tpu/kernels/soft_tiled.py:1397",
          "launches": launches[0], "max_abs_err": ferr,
          "tolerance": f"every pixel within {FWD_BAR}/255 of the twin",
-         "shape": shape, "ms": b4_ms["train1080 ortho phong+shadows"],
-         "ms_is": "device time per launch, behind a spin (per call with the "
-                  f"wrapper: median {times['B4 alone'][0]:.4f} ms, the [time] line)",
+         "shape": shape, "ms": b4_ms,
+         "ms_is": f"device time per launch ({regime} a finals block, as the step "
+                  "runs it), behind a spin (per call with the wrapper: median "
+                  f"{times['B4 alone'][0]:.4f} ms, the [time] line)",
          "plain_ms": times["twin forward"][0], "bound_ms": b4_bound[0],
          "bound_by": b4_bound[1], "library_ms": None},
         {"name": "soft_tiled_bwd", "route": "cuda", "source": src,
@@ -1140,7 +1179,8 @@ def soft_phase_train(T, dev, smi):
          "tolerance": "every scene-leaf gradient within 1e-3 of the twin's, "
                       "normalised by the twin's largest (max_abs_err is that "
                       "normalised error)",
-         "shape": shape + ", the step's own cotangent",
+         "shape": shape + ", the step's own cotangent"
+                  + (", reading the finals block" if block is not None else ""),
          "launch_is": "one wrapper call: the kernel that lists the live "
                       "patches, then the pixel kernel",
          "ms": times["B5 alone"][0],
@@ -1156,7 +1196,8 @@ def soft_tiled_fwd_redesign(scene, cam, pin, cfg, scene3, cfg3, smi):
     at 640x480; each held against the twin on every pixel and its list of
     non-empty tiles against the plain version, then its device time per
     launch behind a spin beside its bound and its recorded time before the
-    redesign. Returns {input: device ms}."""
+    redesign (the lean B4 of that time: no finals block, and its bound
+    without one)."""
     import torch
 
     from opencl_ray_tracer_tpu_torch.bench_util import back_to_back_ms, device_ms
@@ -1178,7 +1219,8 @@ def soft_tiled_fwd_redesign(scene, cam, pin, cfg, scene3, cfg3, smi):
         run = lambda: S.soft_tiled_fwd(*ops_[:4], cfg=ops_[4])  # noqa: E731
         n = 50 if what.startswith("train") else 20
         b4_ms[what], b2b_ms = device_ms(run, n), back_to_back_ms(run, n)
-        bound_ms, by, n_ops = P.tiled_soft_bounds(sc_, cam_, cfg_, ops_,
+        lean = ops_[:4] + (dict(ops_[4], stored_finals=False),)
+        bound_ms, by, n_ops = P.tiled_soft_bounds(sc_, cam_, cfg_, lean,
                                                  torch.zeros_like(got))[0]
         before = B4_BEFORE[what]
         print(f"[redesign] B4 {what}: {b4_ms[what]:.4f} ms of device time per "
@@ -1189,7 +1231,6 @@ def soft_tiled_fwd_redesign(scene, cam, pin, cfg, scene3, cfg3, smi):
               f"device time (recorded / measured = {before / b4_ms[what]:.1f}); "
               f"bound {bound_ms:.5f} ms by {by} "
               f"({n_ops:.4e} operations), {b4_ms[what] / bound_ms:.1f}x over it; {smi}")
-    return b4_ms
 
 
 def _train_stages(S, state, cam, cfg, loss_fn, smi):
@@ -2093,7 +2134,9 @@ def new_sizes_phase(T, dev, smi):
     g[..., :3] = 2.0 * got[..., :3] / (h * w * 3)   # d mean(img^2) / d img
     b4_ms = device_ms(lambda: S.soft_tiled_fwd(*ops[:4], cfg=kc), 20)
     b5_ms = device_ms(lambda: S.soft_tiled_bwd(*ops[:4], g, cfg=kc), 20)
-    b4b, b5b = P.tiled_soft_bounds(stress, ortho, soft_cfg, ops, g)[:2]
+    # the lean B4 and the recomputing B5 timed above, and their bounds
+    lean = ops[:4] + (dict(kc, stored_finals=False),)
+    b4b, b5b = P.tiled_soft_bounds(stress, ortho, soft_cfg, lean, g)[:2]
     print(f"[new] stress soft 1080p phong+soft shadows: final K caps k={k} "
           f"shadow_k={sk} (asked 96, 136); B4 vs twin {ferr:.5f} (bar {FWD_BAR}) "
           f"on every pixel; {n_live} of {ops[3].shape[0]} tiles non-empty, the "
@@ -3546,6 +3589,228 @@ def compiled_forms_phase(T, dev, smi):
              f"[compiled] phase 17's path did not go through every kernel: {launches}")
     print(f"[compiled] phase 17 took {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# The stored-finals regime of the tiled soft pair (B4 writes a finals block,
+# B5 reads it in place of its recompute pass)
+# ---------------------------------------------------------------------------
+
+def finals_phase(T, dev, smi):
+    """Phase 18 (see the module's docstring). Returns the launches of B4 and
+    B5 on its main paths, and per path (eager, bench, compiled) the B4 and
+    B5 launches made with a finals block."""
+    import numpy as np
+    import torch
+
+    from opencl_ray_tracer_tpu_torch import bench as BN
+    from opencl_ray_tracer_tpu_torch.kernels import soft_tiled as S
+    from opencl_ray_tracer_tpu_torch.parallel.train import (
+        adam,
+        init_train_state,
+        make_train_step,
+        scene_leaves,
+        trainable_scene,
+    )
+
+    t_phase = time.perf_counter()
+    w, h = 1920, 1080
+    ortho = T.legacy_ortho_camera(device=dev)
+    headline = T.random_scene(10, 1, seed=0, bounds=(1910.0, 1070.0), device=dev)
+    fifty = T.random_scene(50, 4, seed=1, bounds=(1910.0, 1070.0), device=dev)
+    stress = T.random_scene(100, 100, seed=0, bounds=(1910.0, 1070.0), device=dev)
+    soft = _soft_cfg(T, w, h, "phong", True)
+    stress_cfg = soft.replace(cull_k=96, shadow_cull_k=136)
+    launches = {"B4": 0, "B5": 0}
+    paths = {}
+
+    def counted(path, fn):
+        """fn() with the counts set to 0 just before and read just after."""
+        S.FWD_LAUNCHES = S.BWD_LAUNCHES = 0
+        S.FWD_FINALS_LAUNCHES = S.BWD_FINALS_LAUNCHES = 0
+        out = fn()
+        torch.cuda.synchronize()
+        launches["B4"] += S.FWD_LAUNCHES
+        launches["B5"] += S.BWD_LAUNCHES
+        got = (S.FWD_FINALS_LAUNCHES, S.BWD_FINALS_LAUNCHES)
+        old = paths.get(path, (0, 0))
+        paths[path] = (old[0] + got[0], old[1] + got[1])
+        return out
+
+    def regime(threshold):
+        S._FINALS_MIN_SLOTS = threshold
+
+    threshold = S._FINALS_MIN_SLOTS
+
+    # ---- the main paths that take the stored regime, counted ---------------
+    s = trainable_scene(stress)
+    counted("eager", lambda: _mean_sq(S.render_soft_tiled(s, ortho, stress_cfg)).backward())
+    _require(bool(torch.isfinite(s.sphere_origin.grad).all()
+                  and (s.sphere_origin.grad != 0).any()),
+             "[finals] the eager stress step gave no finite gradient")
+    for scene, cfg in ((fifty, soft), (stress, stress_cfg)):
+        step, bins = BN.bench_fwd_bwd_soft(scene, cfg, ortho)
+        _require(S._use_stored_finals(bins, 1, True),
+                 f"[finals] the bench's {S._finals_slots(bins, 1, True)}-slot step "
+                 "does not take the stored regime")
+        counted("bench", step)
+    target = torch.zeros((h, w, 4), dtype=torch.float32, device=dev)
+    for label, cfg, brute in (("K 96 / 136", stress_cfg, False),
+                              ("K 32 / 64", soft, True)):
+        bins = S._bin_soft(stress.pack(), cfg.tau_edge, ortho, height=h, width=w,
+                           k=cfg.cull_k, shadows=True, shadow_k=cfg.shadow_cull_k)
+        _require(bool(bins.overflow) == brute and S._use_stored_finals(bins, 1, True),
+                 f"[finals] stress at {label}: overflow {bool(bins.overflow)}, "
+                 f"{S._finals_slots(bins, 1, True)} slots")
+        opt_e, opt_j = adam(1e-3), adam(1e-3)
+        step_e = make_train_step(ortho, cfg, opt_e)
+        step_j = make_train_step(ortho, cfg, opt_j, jit=True)
+        state_e = init_train_state(stress, opt_e)
+        state_j = init_train_state(stress, opt_j)
+        # Adam moves a parameter whose gradient sums near zero by a step that
+        # B5's atomic order can change in its last bits, and at 1,300
+        # primitives some do: each leaf's error is read against its largest
+        # magnitude, as phase 17 reads the fit's (an element's own relative
+        # error read up to 1.07e-6 here)
+        lerr = serr = eerr = 0.0
+        for i in range(2):  # the capture, then a replay
+            if i:
+                _copy_train_state(state_e, state_j)
+            state_e, le = step_e(state_e, target)
+            state_j, lj = counted("compiled", lambda: step_j(state_j, target))
+            le, lj = le.item(), lj.item()
+            lerr = max(lerr, abs(lj - le) / abs(le))
+            for k, v in scene_leaves(state_e.scene).items():
+                d = (scene_leaves(state_j.scene)[k] - v).abs()
+                serr = max(serr, (d.max() / v.abs().max().clamp_min(1e-30)).item())
+                eerr = max(eerr, (d / v.abs().clamp_min(1e-30)).max().item())
+        print(f"[finals] the compiled stress step at {label} ({'brute' if brute else 'tiled'} "
+              f"branch, {S._finals_slots(bins, 1, True)} slots), 2 steps in lockstep "
+              f"with the eager step: largest relative difference of the loss "
+              f"{lerr:.2e}, of the scene {serr:.2e} normalised by each leaf (bar "
+              f"1e-6; {eerr:.2e} relative to each element)")
+        _require(lerr <= 1e-6 and serr <= 1e-6,
+                 f"[finals] compiled stress step at {label}: {lerr}, {serr}")
+    print(f"[finals] launches with a finals block (B4, B5) by path: {paths}; all "
+          f"B4 / B5 launches of the phase's paths: {launches}")
+    _require(all(a >= 1 and b >= 1 for a, b in paths.values()) and len(paths) == 3,
+             f"[finals] a path did not launch B4 and B5 with a finals block: {paths}")
+
+    # ---- B4's block against the plain block; B5 reading it -----------------
+    try:
+        for label, scene, cfg in (("train1080", headline, soft),
+                                  ("stress 1080p", stress, stress_cfg)):
+            regime(0)
+            ops = _soft_operands(scene, ortho, cfg)
+            kc = ops[4]
+            block = S.finals_block(kc, dev).fill_(float("nan"))
+            S.soft_tiled_fwd(*ops[:4], cfg=kc, finals=block)
+            with torch.no_grad():
+                img, want = S._soft_tiled_plain(*ops[:4], cfg=kc, want_finals=True)
+            names = [n for n, _ in S.finals_layout(kc)]
+            written = ~want.isnan()
+            _require(torch.equal(block[:, :, :13].isnan(), want[:, :, :13].isnan()),
+                     f"[finals] {label}: B4 wrote other slots than the plain block")
+            lv_differ = int((block[:, :, 13:].isnan() != want[:, :, 13:].isnan()).sum())
+            _require(lv_differ <= 1e-3 * int(written[:, :, 0].sum()),
+                     f"[finals] {label}: {lv_differ} logvis slots differ in coverage")
+            worst = (0.0, None)
+            worst_vis, vis_tight = 0.0, 1.0
+            for i, name in enumerate(names):
+                mask = written[:, :, i] & ~block[:, :, i].isnan()
+                a, b = block[:, :, i][mask], want[:, :, i][mask]
+                if name == "bacc" or name.startswith("logvis"):
+                    a, b = a.exp(), b.exp()
+                _require(bool(torch.isfinite(a).all()), f"[finals] {label} {name}: non-finite")
+                err = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                if name.startswith("logvis"):
+                    worst_vis = max(worst_vis, err)
+                    vis_tight = min(vis_tight, ((a - b).abs() <= 1e-4).float().mean().item())
+                else:
+                    worst = max(worst, (err, name), key=lambda t: t[0])
+            print(f"[finals] {label}: B4's block vs the plain block, {len(names)} rows "
+                  f"on {int(written[:, :, 0].sum())} written pixel slots: largest "
+                  f"normalised error {worst[0]:.2e} (row {worst[1]}, bacc through exp; "
+                  f"bar 1e-4), the visibilities exp(logvis) {worst_vis:.2e} (bar "
+                  f"5e-3), {vis_tight:.6f} of them within 1e-4 (bar 0.999); logvis "
+                  f"slots whose coverage differs at the float32 edge {lv_differ}")
+            _require(worst[0] <= 1e-4 and worst_vis <= 5e-3 and vis_tight >= 0.999,
+                     f"[finals] {label}: block row error {worst}, {worst_vis}, {vis_tight}")
+            del img, want
+            g = torch.zeros((h, w, 4), dtype=torch.float32, device=dev)
+            frame = S.soft_tiled_fwd(*ops[:4], cfg=kc)
+            g[..., :3] = 2.0 * frame[..., :3] / (h * w * 3)
+            g_dense = torch.full_like(g, 1e-6)
+            fresh = S.finals_block(kc, dev)
+            S.soft_tiled_fwd(*ops[:4], cfg=kc, finals=fresh)
+            for cname, gc in (("the loss's", g), ("a dense", g_dense)):
+                stored = S.soft_tiled_bwd(*ops[:4], gc, cfg=kc, finals=fresh)
+                from_nan = S.soft_tiled_bwd(*ops[:4], gc, cfg=kc, finals=block)
+                recompute = S.soft_tiled_bwd(*ops[:4], gc, cfg=kc)
+                e_rec = e_nan = 0.0
+                for name, a, b, c in zip(_SOFT_OPERANDS, stored, from_nan, recompute):
+                    _require(bool(torch.isfinite(a).all() and torch.isfinite(b).all()),
+                             f"[finals] {label} {name}: non-finite gradient")
+                    scale = c.abs().max().clamp_min(1e-30)
+                    e_rec = max(e_rec, ((a - c).abs().max() / scale).item())
+                    e_nan = max(e_nan, ((b - a).abs().max() / scale).item())
+                print(f"[finals] {label}, {cname} cotangent: B5 reading the block vs "
+                      f"B5 recomputing {e_rec:.2e} (bar 1e-5), a NaN-prefilled block "
+                      f"vs an unfilled one {e_nan:.2e} (bar 1e-6), normalised")
+                _require(e_rec <= 1e-5 and e_nan <= 1e-6,
+                         f"[finals] {label} {cname}: {e_rec}, {e_nan}")
+            zeros = S.soft_tiled_bwd(*ops[:4], torch.zeros_like(g), cfg=kc, finals=block)
+            _require(all(bool((z == 0).all()) for z in zeros),
+                     f"[finals] {label}: an all-zero cotangent gave non-zero gradients")
+            del ops, block, fresh, g, g_dense, frame
+            torch.cuda.empty_cache()
+
+        # ---- phase 7's cases and probes, the regime forced -------------------
+        worst, worst_r, n = 0.0, 0.0, 0
+        for scene_name in ("test", "scene1"):
+            scene = (T.random_scene(5, 3, seed=4, bounds=(250.0, 120.0), device=dev)
+                     if scene_name == "test" else T.create_scene1(device=dev))
+            for cam_kind in ("ortho", "pinhole"):
+                cam = (ortho if cam_kind == "ortho"
+                       else T.pinhole_camera(**SOFT_PINHOLE, device=dev))
+                atol = 1e-3 if cam_kind == "ortho" else 2e-3
+                for shading, shadows in SOFT_MODES:
+                    cfg = _soft_cfg(T, SOFT_W, SOFT_H, shading, shadows)
+                    label = f"[finals] {scene_name} {cam_kind} {shading} shadows={shadows}"
+                    regime(0)
+                    gk = _leaf_grads(S.render_soft_tiled, scene, cam, cfg, _mean_sq)
+                    gt = _leaf_grads(_twin_render, scene, cam, cfg, _mean_sq)
+                    regime(1 << 30)
+                    gr = _leaf_grads(S.render_soft_tiled, scene, cam, cfg, _mean_sq)
+                    worst = max(worst, _compare_grads(label, gk, gt, atol))
+                    # two runs of B5 through the gather's autograd: the atomics'
+                    # order shows in a leaf summed near zero (phase 12), so
+                    # phase 7's bar; the operands above are held within 1e-5
+                    worst_r = max(worst_r, _compare_grads(
+                        label + " vs recompute", gk, gr, atol, lost_floor=1e-3))
+                    n += 1
+        print(f"[finals] {n} cases of phase 7 in the stored regime: leaf gradients "
+              f"vs the twin's, normalised max err {worst:.2e}, vs the recompute "
+              f"regime's {worst_r:.2e} (bars 1e-3, pinhole 2e-3)")
+        regime(0)
+        scene = T.create_scene1(device=dev)
+        cfg = _soft_cfg(T, SOFT_W, SOFT_H, "phong", True)
+        rng = np.random.default_rng(11)
+        err = 0.0
+        for pi in range(16):
+            yy, xx = int(rng.integers(20, SOFT_H - 20)), int(rng.integers(40, SOFT_W - 40))
+            rows = [_leaf_grads(fn, scene, ortho, cfg,
+                                lambda im, yy=yy, xx=xx, c=pi % 3: im[yy, xx, c] / 255.0)
+                    for fn in (S.render_soft_tiled, _twin_render)]
+            for k in rows[0]:
+                err = max(err, (rows[0][k] - rows[1][k]).abs().max().item())
+        print(f"[finals] 16 pixel-gradient rows, scene 1 phong+shadows 256x128, stored "
+              f"regime: kernel vs twin max-abs {err:.3e} (bar 1e-4)")
+        _require(err <= 1e-4, f"[finals] pixel-gradient rows {err}")
+    finally:
+        regime(threshold)
+    print(f"[finals] phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return launches, paths
 
 
 if __name__ == "__main__":

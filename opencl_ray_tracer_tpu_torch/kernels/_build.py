@@ -101,9 +101,9 @@ def load_library() -> ctypes.CDLL:
         lib.octrt_fwd_tiled.restype = i
         lib.octrt_fwd_tiled.argtypes = [ptr] * 10 + [i] * 13 + [ptr, i, ptr]
         lib.octrt_soft_tiled_fwd.restype = i
-        lib.octrt_soft_tiled_fwd.argtypes = [ptr] * 11 + [i] * 12 + [ptr, i, ptr]
+        lib.octrt_soft_tiled_fwd.argtypes = [ptr] * 12 + [i] * 12 + [ptr, i, ptr]
         lib.octrt_soft_tiled_bwd.restype = i
-        lib.octrt_soft_tiled_bwd.argtypes = [ptr] * 19 + [i] * 12 + [ptr]
+        lib.octrt_soft_tiled_bwd.argtypes = [ptr] * 20 + [i] * 12 + [ptr]
         lib.octrt_fwd_brute.restype = i
         lib.octrt_fwd_brute.argtypes = [ptr] * 8 + [i] * 10 + [ptr, i, ptr]
         lib.octrt_soft_brute_fwd.restype = i

@@ -26,6 +26,25 @@
 // Atomics make the order of those sums vary from run to run: gradients
 // agree with the twin to float32 rounding, not bit for bit.
 //
+// The stored-finals regime (the JAX package's save_finals / res_tiles,
+// chosen by the bins' slot count in kernels/soft_tiled.py): the forward also
+// writes each in-frame pixel's finals (and a covered pixel's per-light
+// log-visibility) into a block laid out patch-major, (tile, patch, row, 32
+// lanes), so that a warp stores and loads a row as one 128-byte transaction;
+// the backward's pass 1 is then a load of 13 + L floats (6 for per-primitive
+// shading) where it was a walk over every candidate and occluder row. Only
+// a pixel that nothing covers still walks its occluders in the backward,
+// which its gradient needs (pixel_bwd). What it changes in the bound: not
+// the operations (the bound charges the backward one forward a pixel in
+// either regime, and the tests' forward is still done inside their
+// reverse), only the bytes: the forward writes, and the backward reads for
+// each pixel with a cotangent, 4 B a row (utils/profiling.tiled_soft_bounds).
+// On an H100 the stored pair took less device time than the recomputing
+// pair at every configuration measured (40 to 592 slots): B5 0.088 against
+// 0.118 ms on the 1080p train step's tables, 1.52 against 2.12 at stress
+// 1080p, with B4 at most 0.02 ms slower (scripts/torch_kernel_times.py
+// --kernel finals, NVIDIA H100 80GB HBM3 at 700 W).
+//
 // What bounds them on this card: FP32 ALU work and the special functions
 // (expf/logf/sqrtf, about ten per candidate and pixel in the forward and
 // three times that in the backward, none of them fast-math) - the tables
@@ -133,6 +152,9 @@ struct Args {
   int nl, shading, shadows, projective;
   const int* run_if;  // null: always run; else run only if *run_if == want
   int want;           // (lax.cond on the card: the untaken branch returns)
+  // null, or the finals block (n_tiles, TILE_PATCHES, fin_rows, 32) of the
+  // stored-finals regime: the forward writes it, the backward reads it
+  float* finals;
 };
 
 using BlockRed = BlockRedT<THREADS, RED_W>;
@@ -140,6 +162,14 @@ using BlockRed = BlockRedT<THREADS, RED_W>;
 __device__ __forceinline__ bool tile_empty(const Args& a, int tile) {
   const int* cnt = a.counts + (size_t)tile * (2 + 2 * a.nl);
   return __ldg(cnt) + __ldg(cnt + 1) == 0;
+}
+
+// The first row of the finals block for `lane` of patch `entry` (tile *
+// TILE_PATCHES + patch); its rows are 32 floats apart.
+__device__ __forceinline__ size_t fin_slot(const Args& a, int entry, int lane) {
+  const bool agg = is_aggregate(a.shading, a.shadows != 0);
+  const int nlv = agg && a.shadows ? a.nl : 0;
+  return (size_t)entry * fin_rows(agg, nlv) * 32 + lane;
 }
 
 __device__ __forceinline__ Tabs tabs_of(const Args& a, int tile) {
@@ -183,15 +213,25 @@ __global__ void __launch_bounds__(THREADS, FWD_BLOCKS) soft_fwd_kernel(
     if (U.is_group(unit)) {
       const int tile = U.group_tile(unit);
       const Tabs T = tabs_of(a, tile);
+      const int patch = U.group_patch(unit) + warp;
       int xi, yi;
-      patch_pixel(a, tile, U.group_patch(unit) + warp, lane, xi, yi);
+      patch_pixel(a, tile, patch, lane, xi, yi);
       if (xi < a.width && yi < a.height) {
         Ctx c;
         ctx_make<PROJ>(c, a.params, tau_d, tau_e, (float)xi, (float)yi, nl);
         Fin f;
         stream_finals<PROJ>(c, T, agg, a.shading, f);
         float rgb[3];
-        pixel_finish<PROJ>(c, T, f, a.shading, a.shadows != 0, rgb);
+        if (a.finals == nullptr) {
+          pixel_finish<PROJ>(c, T, f, a.shading, a.shadows != 0, rgb);
+        } else {  // the stored-finals regime: the pixel's finals
+          const bool sh = agg && a.shadows != 0;
+          float lv[MAX_L] = {0.f, 0.f, 0.f, 0.f};
+          pixel_finish<PROJ>(c, T, f, a.shading, a.shadows != 0, rgb,
+                             sh ? lv : nullptr);
+          fin_store(a.finals + fin_slot(a, tile * TILE_PATCHES + patch, lane), 32,
+                    f, agg, sh ? nl : 0, lv);
+        }
         out[(size_t)yi * a.width + xi] = make_float4(rgb[0], rgb[1], rgb[2], 255.0f);
       }
     } else {
@@ -338,8 +378,12 @@ __global__ void __launch_bounds__(THREADS, BWD_BLOCKS) soft_bwd_kernel(
     ctx_make<PROJ>(c, a.params, tau_d, tau_e, (float)xi, (float)yi, nl);
     CtxGrad gc;
     zero_ctx_grad(gc);
+    // the stored-finals regime: an active pixel reads its finals (written
+    // by the forward for every in-frame pixel of a non-empty tile)
+    const float* fin = a.finals != nullptr && active
+                           ? a.finals + fin_slot(a, entry, lane) : nullptr;
     pixel_bwd<PROJ>(c, T, a.shading, a.shadows != 0, gout, active, red, Dt,
-                    gc);
+                    gc, fin, 32);
     if (active) ctx_bwd<PROJ>(c, gc, tau_d, dprm, dtau);
   }
 
@@ -381,20 +425,24 @@ bool bad_args(int n_tiles, int nl, int shading) {
 }  // namespace
 
 // tiles: 2 + n_tiles ints; it comes back as the list of tile_list.cuh
-// (the number of non-empty tiles, a zero, the tiles). run_if: null, or an int
-// on the card; then the kernel runs only if it equals want, and a skipped
-// launch writes neither out nor tiles.
+// (the number of non-empty tiles, a zero, the tiles). finals: null, or the
+// block (n_tiles, 256, fin_rows, 32) that the forward fills for every
+// in-frame pixel of a non-empty tile (no other slot is written). run_if:
+// null, or an int on the card; then the kernel runs only if it equals want,
+// and a skipped launch writes neither out, tiles nor finals.
 extern "C" int octrt_soft_tiled_fwd(
     const float* params, const float* taus, const int* counts,
     const float* tri, const float* tri_alb, const float* sph,
     const float* sph_alb, const float* tsh, const float* ssh, float* out,
-    int* tiles, int height, int width, int ntx, int n_tiles, int k_tri,
-    int k_sph, int sh_tri_stride, int sh_sph_stride, int nl, int shading,
-    int shadows, int projective, const int* run_if, int want, void* stream) {
+    int* tiles, float* finals, int height, int width, int ntx, int n_tiles,
+    int k_tri, int k_sph, int sh_tri_stride, int sh_sph_stride, int nl,
+    int shading, int shadows, int projective, const int* run_if, int want,
+    void* stream) {
   if (bad_args(n_tiles, nl, shading)) return (int)cudaErrorInvalidValue;
   const Args a{params, taus, counts, tri, tri_alb, sph, sph_alb, tsh, ssh,
                height, width, ntx, n_tiles, k_tri, k_sph, sh_tri_stride,
-               sh_sph_stride, nl, shading, shadows, projective, run_if, want};
+               sh_sph_stride, nl, shading, shadows, projective, run_if, want,
+               finals};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   float4* o = reinterpret_cast<float4*>(out);
   // one light is the common scene: the kernel is also built for exactly one
@@ -408,20 +456,23 @@ extern "C" int octrt_soft_tiled_fwd(
 
 // The six table gradients, d_par (21 + 7L) and d_tau (2) must be zero; live
 // holds 2 + 256 * n_tiles ints and comes back as the count of entries, the
-// pixel kernel's counter and the entries (see live_patches_kernel).
+// pixel kernel's counter and the entries (see live_patches_kernel). finals:
+// null (recompute), or the block the forward wrote for these inputs (the
+// stored-finals regime; read only at the active pixels of live patches).
 extern "C" int octrt_soft_tiled_bwd(
     const float* params, const float* taus, const int* counts,
     const float* tri, const float* tri_alb, const float* sph,
     const float* sph_alb, const float* tsh, const float* ssh, const float* g,
-    float* d_tri, float* d_tri_alb, float* d_sph, float* d_sph_alb,
-    float* d_tsh, float* d_ssh, float* d_par, float* d_tau, int* live,
-    int height, int width, int ntx, int n_tiles, int k_tri, int k_sph,
-    int sh_tri_stride, int sh_sph_stride, int nl, int shading, int shadows,
-    int projective, void* stream) {
+    const float* finals, float* d_tri, float* d_tri_alb, float* d_sph,
+    float* d_sph_alb, float* d_tsh, float* d_ssh, float* d_par, float* d_tau,
+    int* live, int height, int width, int ntx, int n_tiles, int k_tri,
+    int k_sph, int sh_tri_stride, int sh_sph_stride, int nl, int shading,
+    int shadows, int projective, void* stream) {
   if (bad_args(n_tiles, nl, shading)) return (int)cudaErrorInvalidValue;
   const Args a{params, taus, counts, tri, tri_alb, sph, sph_alb, tsh, ssh,
                height, width, ntx, n_tiles, k_tri, k_sph, sh_tri_stride,
-               sh_sph_stride, nl, shading, shadows, projective};
+               sh_sph_stride, nl, shading, shadows, projective, nullptr, 0,
+               const_cast<float*>(finals)};
   const DTabs D{d_tri, d_tri_alb, d_sph, d_sph_alb, d_tsh, d_ssh};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const float4* g4 = reinterpret_cast<const float4*>(g);

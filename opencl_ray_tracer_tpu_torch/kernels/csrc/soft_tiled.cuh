@@ -1016,6 +1016,58 @@ OCTRT_FN bool is_aggregate(int shading, bool shadows) {
   return shading == SHADE_PHONG || (shadows && shading == SHADE_LAMBERT);
 }
 
+// ---- the finals block of the stored-finals regime --------------------------
+// One pixel's rows of it (the layout, and each row's name, are written down
+// once, beside _FINALS_MIN_SLOTS in kernels/soft_tiled.py): aggregate shading
+// [m, z, st, s[0..5], sn[0..2], bacc, logvis[0..nlv-1]], per-primitive
+// shading [m, z, s[0..2], bacc]. p points at the pixel's first row, the rows
+// `stride` floats apart (on the card: the 32 pixels of a patch, a row each).
+// The logvis rows of a pixel that nothing covers are neither written nor
+// read: the forward does not walk its occluders (pixel_finish), and the
+// backward walks them itself where it reads such a pixel (pixel_bwd).
+OCTRT_FN int fin_rows(bool agg, int nlv) { return agg ? 13 + nlv : 6; }
+
+// 1 - w_bg is not exactly 0: the pixel's value depends on its shading.
+OCTRT_FN bool fin_covered(const Fin& f) { return 1.0f - expf(f.bacc) != 0.0f; }
+
+OCTRT_FN void fin_store(float* p, int stride, const Fin& f, bool agg, int nlv,
+                        const float* logvis) {
+  p[0] = f.m;
+  p[stride] = f.z;
+  if (!agg) {
+    for (int a = 0; a < 3; ++a) p[(2 + a) * stride] = f.s[a];
+    p[5 * stride] = f.bacc;
+    return;
+  }
+  p[2 * stride] = f.st;
+  for (int a = 0; a < 6; ++a) p[(3 + a) * stride] = f.s[a];
+  for (int q = 0; q < 3; ++q) p[(9 + q) * stride] = f.sn[q];
+  p[12 * stride] = f.bacc;
+  if (nlv == 0 || !fin_covered(f)) return;
+  for (int l = 0; l < nlv; ++l) p[(13 + l) * stride] = logvis[l];
+}
+
+// Returns true where it loaded the log-visibilities (nlv > 0 and the pixel
+// covered).
+OCTRT_FN bool fin_load(const float* p, int stride, Fin& f, bool agg, int nlv,
+                       float* logvis) {
+  fin_init(f);
+  f.m = OCTRT_LDG(p);
+  f.z = OCTRT_LDG(p + stride);
+  if (!agg) {
+    for (int a = 0; a < 3; ++a) f.s[a] = OCTRT_LDG(p + (2 + a) * stride);
+    f.bacc = OCTRT_LDG(p + 5 * stride);
+    return false;
+  }
+  f.st = OCTRT_LDG(p + 2 * stride);
+  for (int a = 0; a < 6; ++a) f.s[a] = OCTRT_LDG(p + (3 + a) * stride);
+  for (int q = 0; q < 3; ++q) f.sn[q] = OCTRT_LDG(p + (9 + q) * stride);
+  f.bacc = OCTRT_LDG(p + 12 * stride);
+  if (nlv == 0 || !fin_covered(f)) return false;
+  for (int l = 0; l < nlv; ++l) logvis[l] = OCTRT_LDG(p + (13 + l) * stride);
+  return true;
+}
+
 // Per-primitive shading (legacy, lambert without shadows): the pixel's rgb
 // from the streaming finals, and the finals' cotangents from gout.
 OCTRT_FN void nonagg_finish(const Fin& f, int shading, float out[3]) {
@@ -1084,23 +1136,26 @@ OCTRT_FN void cand_bwd(const Ctx& c, const Fin& f, const Cot& cot, bool agg,
 // aggregate shading, the occluder loops) from the finals f -> rgb (0..255).
 // A pixel that nothing covers (1 - w_bg is exactly 0) is exactly 0 whatever
 // its shading and shadows are (0 times a finite colour): it takes no
-// geometry, shading or occluder walk.
+// geometry, shading or occluder walk. logvis_out (or null): the
+// log-visibilities of a covered pixel, for the finals block.
 template <bool PROJ>
 OCTRT_FN void pixel_finish(const Ctx& c, const Tabs& T, const Fin& f,
-                           int shading, bool shadows, float out[3]) {
+                           int shading, bool shadows, float out[3],
+                           float* logvis_out = nullptr) {
   const bool agg = is_aggregate(shading, shadows);
   if (!agg) {
     nonagg_finish(f, shading, out);
     return;
   }
   out[0] = out[1] = out[2] = 0.0f;
-  if (1.0f - expf(f.bacc) == 0.0f) return;
+  if (!fin_covered(f)) return;
   Geom G;
   geom_fwd(f, c, G);
   float logvis[MAX_L] = {0.f, 0.f, 0.f, 0.f};
   if (shadows) {
     for (int l = 0; l < c.nl; ++l) {
       logvis[l] = occ_logvis(c, T, l, G.so[l], G.sd[l], G.dist[l]);
+      if (logvis_out != nullptr) logvis_out[l] = logvis[l];
     }
   }
   shade_agg_fwd(G, c, logvis, shading, shadows, out);
@@ -1115,7 +1170,14 @@ OCTRT_FN void pixel_finish(const Ctx& c, const Tabs& T, const Fin& f,
 //     of v[q] over those threads, q < N; all of them call it together.
 // Threads with active == false (outside the frame, or with a zero
 // cotangent: every gradient is linear in gout) only walk the loops and hand
-// zeros to `red`. A row whose gradient is zero in every thread is not
+// zeros to `red`. fin: null, or the pixel's rows of the finals block (rows
+// fin_stride floats apart) that the forward wrote: the stored-finals regime,
+// which reads the finals there in place of the streaming pass, and the
+// log-visibilities of a covered pixel in place of its occluder walks. A
+// pixel that nothing covers still walks its occluders: its value is 0, but
+// d out / d w_bg there is the shaded colour (the clip's tie rule passes it
+// half), which depends on each light's visibility, and w_bg on every
+// candidate's coverage. An inactive thread reads nothing. A row whose gradient is zero in every thread is not
 // summed at all, and a light's occluder reverse is skipped where no
 // thread's d logvis is non-zero (every occluder gradient is linear in it).
 // Row gradients are added into the d_* tables (laid out like the tables),
@@ -1127,7 +1189,8 @@ struct DTabs {
 template <bool PROJ, class Red>
 OCTRT_FN void pixel_bwd(const Ctx& c, const Tabs& T, int shading,
                         bool shadows, const float gout[3], bool active,
-                        Red& red, const DTabs& D, CtxGrad& gc) {
+                        Red& red, const DTabs& D, CtxGrad& gc,
+                        const float* fin = nullptr, int fin_stride = 0) {
   const bool agg = is_aggregate(shading, shadows);
   Fin f;
   Cot cot;
@@ -1142,10 +1205,16 @@ OCTRT_FN void pixel_bwd(const Ctx& c, const Tabs& T, int shading,
     for (int q = 0; q < 3; ++q) g_so[l][q] = g_sd[l][q] = 0.0f;
   }
   if (active) {
-    stream_finals<PROJ>(c, T, agg, shading, f);
+    bool have_logvis = false;
+    if (fin != nullptr) {
+      have_logvis = fin_load(fin, fin_stride, f, agg, agg && shadows ? c.nl : 0,
+                             logvis);
+    } else {
+      stream_finals<PROJ>(c, T, agg, shading, f);
+    }
     if (agg) {
       geom_fwd(f, c, G);
-      if (shadows) {
+      if (shadows && !have_logvis) {
         for (int l = 0; l < c.nl; ++l) {
           logvis[l] = occ_logvis(c, T, l, G.so[l], G.sd[l], G.dist[l]);
         }

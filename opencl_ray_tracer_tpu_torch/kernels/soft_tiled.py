@@ -20,10 +20,14 @@ then hand-written CUDA kernels for the forward (B4) and backward (B5).
    per-tile gradient tables back onto the scene, camera and lights.
 3. KERNELS, behind one torch.autograd.Function (`SoftTiledFunction`): on
    CUDA tensors the forward launches kernels/csrc/soft_tiled.cu's forward
-   and the backward its backward (which recomputes the forward per pixel,
-   and only where the cotangent is non-zero: `_live_patches`);
-   on CPU tensors both run `_soft_tiled_plain`, the same function in
-   vectorised torch, whose autograd is the backward's plain version.
+   and the backward its backward (which works only where the cotangent is
+   non-zero: `_live_patches`); on CPU tensors both run `_soft_tiled_plain`,
+   the same function in vectorised torch, whose autograd is the backward's
+   plain version. Two regimes, chosen as the JAX package chooses them, by
+   the bins' static slot count (`_use_stored_finals`): the backward
+   recomputes each pixel's streaming finals, or (stored finals, from
+   `_FINALS_MIN_SLOTS` slots on) the forward also writes them into a block
+   (`finals_block`, `_finals_layout`) that the backward reads.
 """
 
 from __future__ import annotations
@@ -113,9 +117,12 @@ SOFT_CULL_SIGMAS = 16.0
 TILE_PATCHES = (TILE_H // PATCH_H) * (TILE_W // PATCH_W)
 
 # Launches of the CUDA kernels in this process; `soft_tiled_fwd` /
-# `soft_tiled_bwd` add one per launch and nowhere else.
+# `soft_tiled_bwd` add one per launch and nowhere else, and one more to the
+# FINALS count where the launch writes / reads a finals block.
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
+FWD_FINALS_LAUNCHES = 0
+BWD_FINALS_LAUNCHES = 0
 
 # Elements per (tile batch x candidate x pixel) temporary of the plain twin.
 _PLAIN_MAX_ELEMS = 1 << 22
@@ -327,6 +334,94 @@ def soft_bins_for_config(packed, camera: Camera, config: RenderConfig) -> SoftBi
                     "shadow_cull_k=%d", k, shadow_k)
         bins = make(k, shadow_k)
     return bins
+
+
+# ---------------------------------------------------------------------------
+# The stored-finals regime: B4 also writes each pixel's streaming finals into
+# a block, and B5 reads them there in place of its recompute pass (the
+# primary stream and every light's occluder walk). The JAX package's
+# `save_finals` / `res_tiles` (soft_tiled.py:1208-1233), chosen as it
+# chooses: by the frame's static candidate slot count.
+# ---------------------------------------------------------------------------
+
+# Slot count k_tri + k_sph, plus L (k_sh_tri + k_sh_sph) with shadows, from
+# which the stored regime is taken (JAX's `_FINALS_MIN_SLOTS`, 128 there: a
+# v5e measurement). On an NVIDIA H100 80GB HBM3 at 700 W the stored regime's
+# B4 + B5 took less device time than the recompute regime's at every
+# configuration measured, from 40 slots (scene 1 at 640x480, lambert) to 592
+# (scene 3): 0.120 against 0.140 ms at 40, 0.151 against 0.177 at 64
+# (train1080), 2.306 against 2.894 at 432 (stress 1080p), with the loss's
+# cotangent; also with a dense one (scripts/torch_kernel_times.py --kernel
+# finals, PERF.md). No crossover was found; below 40 slots nothing was
+# measured, so the recompute regime keeps those.
+_FINALS_MIN_SLOTS = 40
+
+# The block is (n_tiles, TILE_PATCHES, R, 32) float32, patch-major: tile,
+# then its 8 x 4 patch (row-major over the tile's 16 x 16 patches), then the
+# row, then the patch's 32 pixels (lane 8 * (y % 4) + x % 8), so that a
+# warp's store or load of one row is one 128-byte transaction. Its rows are
+# the kernels' `Fin` (soft_tiled.cuh) and, with shadows, each light's
+# log-visibility; each is given here as (name, the row of the JAX package's
+# (n_tiles, R, TILE_PIX) block that holds the same quantity):
+#   aggregate shading (phong, lambert + shadows), 13 + L rows:
+#     m 0, z 1, st 2, s8[0..5] 3-8 (albedo r, g, b and the ortho triangle
+#     normal), snx 11, sny 12, snz 13, bacc 14, logvis[l] 15 + l; JAX's s8
+#     rows 9 and 10 sum the albedo table's two zero columns, and its block
+#     pads to 8 rows: neither is stored here;
+#   per-primitive shading (legacy, lambert without shadows), 6 rows:
+#     m 0, z 1, sr 2, sg 3, sb 4, bacc 5; lambert's colour sums are stored
+#     before the x 255 of the finish (JAX's rows hold them after it).
+# Only the slots of in-frame pixels of non-empty tiles are written, and of
+# those the logvis rows only where something covers the pixel (1 - w_bg !=
+# 0): B4 walks no occluder of an uncovered pixel, and B5 walks them itself
+# where it reads one (the pixel's value is 0, but its gradient reaches the
+# coverages through w_bg times the shaded colour, which depends on each
+# light's visibility). B5 reads no other slot (its work list holds only
+# patches of non-empty tiles).
+def _finals_layout(aggregate: bool, n_shadow_lights: int):
+    if not aggregate:
+        return (("m", 0), ("z", 1), ("sr", 2), ("sg", 3), ("sb", 4), ("bacc", 5))
+    return ((("m", 0), ("z", 1), ("st", 2))
+            + tuple((f"s8[{a}]", 3 + a) for a in range(6))
+            + (("snx", 11), ("sny", 12), ("snz", 13), ("bacc", 14))
+            + tuple((f"logvis[{li}]", 15 + li) for li in range(n_shadow_lights)))
+
+
+def _is_aggregate(shading: str, shadows: bool) -> bool:
+    return shading == "phong" or (shadows and shading == "lambert")
+
+
+def finals_layout(cfg):
+    """The rows of a frame's finals block (see `_finals_layout`)."""
+    return _finals_layout(_is_aggregate(cfg["shading"], cfg["shadows"]),
+                          cfg["n_lights"] if cfg["shadows"] else 0)
+
+
+def _finals_slots(bins: SoftBins, n_lights: int, shadows: bool) -> int:
+    slots = bins.k_tri + bins.k_sph
+    if shadows:
+        slots += n_lights * (bins.k_sh_tri + bins.k_sh_sph)
+    return slots
+
+
+def _use_stored_finals(bins: SoftBins, n_lights: int, shadows: bool) -> bool:
+    return _finals_slots(bins, n_lights, shadows) >= _FINALS_MIN_SLOTS
+
+
+def finals_block(cfg, device) -> torch.Tensor:
+    """An unfilled finals block for the frame of `cfg`, which B4 writes."""
+    return torch.empty((cfg["nty"] * cfg["ntx"], TILE_PATCHES,
+                        len(finals_layout(cfg)), 32),
+                       dtype=torch.float32, device=device)
+
+
+def _check_finals(finals, cfg, dev):
+    if not cfg.get("stored_finals", False):
+        raise ValueError("a finals block was given where the slot count "
+                         "calls for the recompute regime")
+    _check("finals", finals, torch.float32,
+           (cfg["nty"] * cfg["ntx"], TILE_PATCHES, len(finals_layout(cfg)), 32),
+           dev)
 
 
 # ---------------------------------------------------------------------------
@@ -615,10 +710,13 @@ def _processed(cnt, k, dev):
     return (torch.arange(k, device=dev)[None, :] < n[:, None])[..., None]
 
 
-def _candidates(tri_t, tri_alb, sph_t, sph_alb, cnt, ctx, projective):
-    """Candidate planes of a tile batch: t, cov, logit, albedo columns,
-    explicit normals (zero planes where the normal rides the albedo table)
-    and the processed-slot mask, tris then spheres along dim 1."""
+def _candidates(tri_t, tri_alb, sph_t, sph_alb, cnt, ctx, projective,
+                m_in=None):
+    """Candidate planes of a tile batch, tris then spheres along dim 1: t,
+    cov, explicit normals (zero planes where the normal rides the albedo
+    table), albedo columns, the weights e = exp(logit - m), the background's
+    log sum and the softmin's m. `m_in` (m, valid): m from a finals block
+    where valid, in place of the maximum logit."""
     dev = tri_t.device
     t1, c1, n1 = _tri_test(tri_t, ctx, projective)
     t2, c2, n2 = _sph_test(sph_t, ctx, projective)
@@ -633,10 +731,12 @@ def _candidates(tri_t, tri_alb, sph_t, sph_alb, cnt, ctx, projective):
     logit = _rank(t, cov, ctx)
     with torch.no_grad():  # outputs do not depend on m: its gradient is 0
         m = torch.where(proc, logit, float("-inf")).amax(1, keepdim=True)
+        if m_in is not None:
+            m = torch.where(m_in[1], m_in[0], m)
     e = torch.where(proc, torch.exp(logit - m), torch.zeros_like(logit))
     bacc = torch.sum(torch.where(proc, _log_unocc(cov), torch.zeros_like(cov)),
                      1, keepdim=True)
-    return t, cov, n, alb, e, bacc
+    return t, cov, n, alb, e, bacc, m
 
 
 def _sum(a):
@@ -654,8 +754,14 @@ def _occ_logvis(tab, n_rows, so, sd, dist, ctx, test):
     return _sum(torch.where(proc, _log_unocc(occ), torch.zeros_like(occ)))
 
 
-def _tile_batch(params, taus, tabs, cnt, x, y, *, cfg):
-    """(nb, 1, P) r, g, b planes of one batch of non-empty tiles."""
+def _tile_batch(params, taus, tabs, cnt, x, y, *, cfg, stored=None,
+                want_finals=False):
+    """(nb, 1, P) r, g, b planes of one batch of non-empty tiles, and with
+    `want_finals` the rows of their finals block (`finals_layout`) as
+    planes. `stored` (rows, valid): B5's stored regime, where valid the
+    finals take their values from the block's rows and their gradients from
+    the stream recomputed here; the log-visibilities too, but at the pixels
+    that something covers only (see `_finals_layout`)."""
     tri_t, tri_alb, sph_t, sph_alb, tsh, ssh = tabs
     projective, shading = cfg["projective"], cfg["shading"]
     n_lights = cfg["n_lights"]
@@ -663,17 +769,30 @@ def _tile_batch(params, taus, tabs, cnt, x, y, *, cfg):
     ctx = _ctx_make(pv, taus[0], taus[1], x, y, projective=projective,
                     n_lights=n_lights)
     o, d = ctx["o"], ctx["d"]
-    t, cov, n, alb, e, bacc = _candidates(tri_t, tri_alb, sph_t, sph_alb, cnt,
-                                          ctx, projective)
-    z = _sum(e)
+    rows_in, valid = stored if stored is not None else (None, None)
+
+    def fin(i, rec, where=None):
+        # the block's value exactly (rec - rec.detach() is exactly 0), the
+        # recomputed stream's gradient
+        if rows_in is None:
+            return rec
+        return (torch.where(valid if where is None else where, rows_in[i],
+                            rec.detach()) + (rec - rec.detach()))
+
+    t, cov, n, alb, e, bacc, m = _candidates(
+        tri_t, tri_alb, sph_t, sph_alb, cnt, ctx, projective,
+        None if rows_in is None else (rows_in[0], valid))
+    z = fin(1, _sum(e))
     zinv = 1.0 / tmax(z, 1e-20)
-    w_bg = torch.exp(bacc)
-    aggregate = shading == "phong" or (cfg["shadows"] and shading == "lambert")
+    aggregate = _is_aggregate(shading, cfg["shadows"])
     if not aggregate:
+        bacc = fin(5, bacc)
+        w_bg = torch.exp(bacc)
         a = [alb[:, :, q:q + 1] for q in range(6)]
         if shading == "legacy":
             st = e * (255.0 - t * (255.0 / LEGACY_FOG_MAX))
-            s = [_sum(a[q] * st) for q in range(3)]
+            s = [fin(2 + q, _sum(a[q] * st)) for q in range(3)]
+            sums = s
         else:  # lambert, no shadows
             p = tuple(o[q] + t * d[q] for q in range(3))
             # ortho triangle normals live in the albedo table; elsewhere
@@ -689,16 +808,22 @@ def _tile_batch(params, taus, tabs, cnt, x, y, *, cfg):
                 ew = e * (lint * ndotl)
                 for q in range(3):
                     acc[q] = acc[q] + lc[q] * _sum(a[q] * ew)
-            s = [acc[q] * 255.0 for q in range(3)]
+            sums = [fin(2 + q, acc[q]) for q in range(3)]
+            s = [sums[q] * 255.0 for q in range(3)]
         rgb = [(1.0 - w_bg) * s[q] * zinv for q in range(3)]
         if shading != "legacy":
             rgb = [tclip(c_, 0.0, 255.0) for c_ in rgb]
-        return rgb
+        return (rgb, [m, z] + sums + [bacc]) if want_finals else rgb
 
     # aggregate: softmax-expected hit attributes, then one shading per pixel
-    s8 = [_sum(alb[:, :, q:q + 1] * e) for q in range(6)]
-    sn = [_sum(e * n[q]) for q in range(3)]
-    t_hat = _sum(e * t) * zinv
+    bacc = fin(12, bacc)
+    w_bg = torch.exp(bacc)
+    lv_valid = None if rows_in is None else valid & (1.0 - w_bg != 0.0)
+    st = fin(2, _sum(e * t))
+    s8 = [fin(3 + q, _sum(alb[:, :, q:q + 1] * e)) for q in range(6)]
+    sn = [fin(9 + q, _sum(e * n[q])) for q in range(3)]
+    rows = [m, z, st] + s8 + sn + [bacc]
+    t_hat = st * zinv
     nrm = [(s8[3 + q] + sn[q]) * zinv for q in range(3)]
     ninv = 1.0 / torch.sqrt(tmax(nrm[0] * nrm[0] + nrm[1] * nrm[1]
                                  + nrm[2] * nrm[2], 1e-20))
@@ -718,12 +843,13 @@ def _tile_batch(params, taus, tabs, cnt, x, y, *, cfg):
         sd = [tl[q] / dist for q in range(3)]
         if cfg["shadows"]:
             so = [p[q] + SHADOW_OFFSET * nrm[q] for q in range(3)]
-            logvis = (
+            logvis = fin(13 + li, (
                 _occ_logvis(tsh[:, li * sh_tri:(li + 1) * sh_tri],
                             cnt[:, 2 + 2 * li], so, sd, dist, ctx, _tri_sh_test)
                 + _occ_logvis(ssh[:, li * sh_sph:(li + 1) * sh_sph],
                               cnt[:, 3 + 2 * li], so, sd, dist, ctx,
-                              _sph_sh_test))
+                              _sph_sh_test)), lv_valid)
+            rows.append(logvis)
             vis = torch.exp(logvis)
         else:
             vis = 1.0
@@ -740,21 +866,46 @@ def _tile_batch(params, taus, tabs, cnt, x, y, *, cfg):
                   * lint * vis * (ndotl > 0.0))
             for q in range(3):
                 spec[q] = spec[q] + ws * lc[q]
-    return [tclip((1.0 - w_bg) * (alb3[q] * (ctx["ambient"] + diff[q]) + spec[q])
-                  * 255.0, 0.0, 255.0) for q in range(3)]
+    rgb = [tclip((1.0 - w_bg) * (alb3[q] * (ctx["ambient"] + diff[q]) + spec[q])
+                 * 255.0, 0.0, 255.0) for q in range(3)]
+    return (rgb, rows) if want_finals else rgb
 
 
-def _soft_tiled_plain(params, taus, tables, counts, *, cfg):
+def _planes_to_block(planes):
+    """(nb, R, TILE_PIX) tile-major rows -> (nb, TILE_PATCHES, R, 32) of the
+    finals block's patch-major layout."""
+    nb, r = planes.shape[:2]
+    return planes.reshape(nb, r, TILE_H // PATCH_H, PATCH_H, TILE_W // PATCH_W,
+                          PATCH_W).permute(0, 2, 4, 1, 3, 5).reshape(
+                              nb, TILE_PATCHES, r, PATCH_H * PATCH_W)
+
+
+def _block_to_planes(block):
+    """The inverse of `_planes_to_block`."""
+    nb, _, r, _ = block.shape
+    return block.reshape(nb, TILE_H // PATCH_H, TILE_W // PATCH_W, r, PATCH_H,
+                         PATCH_W).permute(0, 3, 1, 4, 2, 5).reshape(nb, r, TILE_PIX)
+
+
+def _soft_tiled_plain(params, taus, tables, counts, *, cfg, want_finals=False,
+                      finals=None):
     """The tiled soft forward as vectorised torch; differentiable in params,
     taus and the six tables. Tiles are processed in batches that bound each
     temporary to _PLAIN_MAX_ELEMS elements. Returns (H, W, 4) float32;
-    empty tiles hold the background (0, 0, 0, 255)."""
+    empty tiles hold the background (0, 0, 0, 255). `want_finals`: also the
+    finals block B4 writes, NaN in the slots it does not write (outside the
+    frame, in empty tiles, and the logvis rows of a pixel that nothing
+    covers). `finals`: a
+    block to read as B5's stored regime reads it (see `_tile_batch`)."""
     tri_t, tri_alb, sph_t, sph_alb, tsh_t, ssh_t = tables
     dev = params.device
     nty, ntx = cfg["nty"], cfg["ntx"]
     n_tiles = nty * ntx
     out = torch.zeros((n_tiles, TILE_PIX, 4), dtype=torch.float32, device=dev)
     out[..., 3] = 255.0
+    if want_finals:
+        block = torch.full((n_tiles, TILE_PATCHES, len(finals_layout(cfg)),
+                            PATCH_H * PATCH_W), float("nan"), device=dev)
     lane = torch.arange(TILE_PIX, device=dev)
     lx = (lane % TILE_W).to(torch.float32)
     lrow = (lane // TILE_W).to(torch.float32)
@@ -768,15 +919,32 @@ def _soft_tiled_plain(params, taus, tables, counts, *, cfg):
         tx = tb - ty * ntx
         x = ((tx * TILE_W).to(torch.float32)[:, None] + lx)[:, None, :]
         y = ((ty * TILE_H).to(torch.float32)[:, None] + lrow)[:, None, :]
+        in_frame = (x < cfg["width"]) & (y < cfg["height"])
+        stored = None
+        if finals is not None:
+            planes = _block_to_planes(finals[tb])
+            stored = ([planes[:, i:i + 1] for i in range(planes.shape[1])],
+                      in_frame)
         tabs = (tri_t[tb], tri_alb[tb], sph_t[tb], sph_alb[tb],
                 tsh_t[0:1] if shared_sh else tsh_t[tb],
                 ssh_t[0:1] if shared_sh else ssh_t[tb])
-        rgb = _tile_batch(params, taus, tabs, counts[tb].long(), x, y, cfg=cfg)
+        rgb = _tile_batch(params, taus, tabs, counts[tb].long(), x, y, cfg=cfg,
+                          stored=stored, want_finals=want_finals)
+        if want_finals:
+            rgb, rows = rgb
+            nan = torch.full((), float("nan"), device=dev)
+            planes = torch.where(in_frame, torch.cat(rows, 1), nan)
+            if len(rows) > 13:  # no logvis row where nothing covers the pixel
+                covered = 1.0 - torch.exp(planes[:, 12:13]) != 0.0
+                planes = torch.cat([planes[:, :13], torch.where(
+                    covered, planes[:, 13:], nan)], 1)
+            block = block.index_copy(0, tb, _planes_to_block(planes))
         res = torch.cat([c_.reshape(tb.shape[0], TILE_PIX, 1) for c_ in rgb]
                         + [torch.full((tb.shape[0], TILE_PIX, 1), 255.0,
                                       device=dev)], -1)
         out = out.index_copy(0, tb, res)
-    return _untile(out, cfg["height"], cfg["width"], nty, ntx)
+    img = _untile(out, cfg["height"], cfg["width"], nty, ntx)
+    return (img, block) if want_finals else img
 
 
 # ---------------------------------------------------------------------------
@@ -822,37 +990,46 @@ def _launch_args(params, taus, tables, counts, cfg):
 
 
 def soft_tiled_fwd(params, taus, tables, counts, *, cfg, run_if=None,
-                   want: int = 0) -> torch.Tensor:
+                   want: int = 0, finals=None) -> torch.Tensor:
     """B4, the tiled soft forward -> (H, W, 4) float32. CUDA tensors launch
     kernels/csrc/soft_tiled.cu (built on first use) or raise; CPU tensors
     run `_soft_tiled_plain` without autograd. `run_if` (one int32 on the
     device, or None) is the device-side branch of `lax.cond`: the kernel
     does its work only where *run_if == want, else its frame is zeros (the
-    twin: a torch.where)."""
+    twin: a torch.where). `finals` (`finals_block`, only where cfg's
+    "stored_finals" is set): the kernel also writes the frame's streaming
+    finals there, for B5's stored regime; a skipped launch writes none."""
     dev = params.device
     _check_run_if(run_if, dev)
+    if finals is not None:
+        _check_finals(finals, cfg, dev)
     if dev.type == "cpu":
         with torch.no_grad():
-            return _select_branch(
-                _soft_tiled_plain(params, taus, tables, counts, cfg=cfg),
-                run_if, want)
+            img = _soft_tiled_plain(params, taus, tables, counts, cfg=cfg,
+                                    want_finals=finals is not None)
+            if finals is not None:
+                img, block = img
+                finals.copy_(block)
+            return _select_branch(img, run_if, want)
     if dev.type != "cuda":
         raise ValueError(f"soft_tiled_fwd runs on cuda or cpu tensors, got {dev}")
     return _soft_tiled_fwd_cuda(params, taus, tables, counts, cfg, run_if,
-                                want)[0]
+                                want, finals)[0]
 
 
 def _soft_tiled_fwd_cuda(params, taus, tables, counts, cfg, run_if=None,
-                         want=0):
+                         want=0, finals=None):
     """Launch B4 on CUDA tensors -> (frame, tiles). `tiles` is the int32
     list of non-empty tiles that the kernel's blocks build from `counts`
     (kernels/csrc/tile_list.cuh): tiles[0] their number, tiles[2 : 2 +
     tiles[0]] the tiles in ascending order (`fwd_tiled._live_tiles` is its
     plain version), then the empty ones. With `run_if`, both start as
-    zeros, which a skipped launch leaves."""
-    global FWD_LAUNCHES
+    zeros, which a skipped launch leaves. `finals`: see `soft_tiled_fwd`."""
+    global FWD_LAUNCHES, FWD_FINALS_LAUNCHES
     dev = params.device
     _check_inputs(params, taus, tables, counts, cfg)
+    if finals is not None:
+        _check_finals(finals, cfg, dev)
     from opencl_ray_tracer_tpu_torch.kernels._build import load_library
 
     lib = load_library()
@@ -863,11 +1040,12 @@ def _soft_tiled_fwd_cuda(params, taus, tables, counts, cfg, run_if=None,
     p = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.octrt_soft_tiled_fwd(*ptrs, p(out), p(tiles), *ints,
+        rc = lib.octrt_soft_tiled_fwd(*ptrs, p(out), p(tiles), p(finals), *ints,
                                       p(run_if), int(want),
                                       ctypes.c_void_p(stream))
     _raise_on(rc, "soft_tiled forward")
     FWD_LAUNCHES += 1
+    FWD_FINALS_LAUNCHES += finals is not None
     return out, tiles
 
 
@@ -904,20 +1082,25 @@ def _zero_grads(inputs):
             for t, start in zip(inputs, starts)]
 
 
-def soft_tiled_bwd(params, taus, tables, counts, g, *, cfg):
+def soft_tiled_bwd(params, taus, tables, counts, g, *, cfg, finals=None):
     """B5, the tiled soft backward: pixel cotangents g (H, W, 4) -> gradients
     of (params, taus, *tables). CUDA tensors launch the CUDA backward (it
     works only on the patches of non-empty tiles where g is non-zero,
     recomputes the forward per pixel there and sums over pixels with
     atomics, so sums vary in their last bits from run to run); CPU tensors
-    take autograd of `_soft_tiled_plain`."""
+    take autograd of `_soft_tiled_plain`. `finals`, the block that B4 wrote
+    for these inputs (only where cfg's "stored_finals" is set): the stored
+    regime, which reads each pixel's finals and log-visibilities there and
+    does not recompute them."""
     dev = params.device
     inputs = (params, taus) + tuple(tables)
+    if finals is not None:
+        _check_finals(finals, cfg, dev)
     if dev.type == "cpu":
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(True) for t in inputs]
             out = _soft_tiled_plain(leaves[0], leaves[1], leaves[2:], counts,
-                                    cfg=cfg)
+                                    cfg=cfg, finals=finals)
             if not out.requires_grad:  # no candidate in any tile
                 return tuple(torch.zeros_like(t) for t in inputs)
             grads = torch.autograd.grad(out, leaves, g, allow_unused=True)
@@ -925,17 +1108,20 @@ def soft_tiled_bwd(params, taus, tables, counts, g, *, cfg):
                      for t, gr in zip(inputs, grads))
     if dev.type != "cuda":
         raise ValueError(f"soft_tiled_bwd runs on cuda or cpu tensors, got {dev}")
-    return _soft_tiled_bwd_cuda(params, taus, tables, counts, g, cfg)[0]
+    return _soft_tiled_bwd_cuda(params, taus, tables, counts, g, cfg,
+                                finals)[0]
 
 
-def _soft_tiled_bwd_cuda(params, taus, tables, counts, g, cfg):
+def _soft_tiled_bwd_cuda(params, taus, tables, counts, g, cfg, finals=None):
     """Launch B5 on CUDA tensors -> (the eight gradients, live). `live` is
     the kernel's int32 work list as it leaves it: live[0] the number of
     entries, live[2 : 2 + live[0]] the entries in no order
-    (`_live_patches` is its plain version)."""
-    global BWD_LAUNCHES
+    (`_live_patches` is its plain version). `finals`: see `soft_tiled_bwd`."""
+    global BWD_LAUNCHES, BWD_FINALS_LAUNCHES
     dev = params.device
     _check_inputs(params, taus, tables, counts, cfg)
+    if finals is not None:
+        _check_finals(finals, cfg, dev)
     g = g.to(torch.float32).contiguous()
     _check("g", g, torch.float32, (cfg["height"], cfg["width"], 4), dev)
     from opencl_ray_tracer_tpu_torch.kernels._build import load_library
@@ -945,38 +1131,47 @@ def _soft_tiled_bwd_cuda(params, taus, tables, counts, g, cfg):
     live = torch.empty(2 + TILE_PATCHES * cfg["nty"] * cfg["ntx"],
                        dtype=torch.int32, device=dev)
     ptrs, ints = _launch_args(params, taus, tables, counts, cfg)
-    p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    p = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.octrt_soft_tiled_bwd(*ptrs, p(g), *(p(t) for t in d_tables),
+        rc = lib.octrt_soft_tiled_bwd(*ptrs, p(g), p(finals),
+                                      *(p(t) for t in d_tables),
                                       p(d_par), p(d_tau), p(live), *ints,
                                       ctypes.c_void_p(stream))
     _raise_on(rc, "soft_tiled backward")
     BWD_LAUNCHES += 1
+    BWD_FINALS_LAUNCHES += finals is not None
     return (d_par, d_tau) + tuple(d_tables), live
 
 
 class SoftTiledFunction(torch.autograd.Function):
     """(params, taus, tri_t, tri_alb, sph_t, sph_alb, tsh_t, ssh_t) + the
     non-differentiable counts and cfg -> (H, W, 4) float image. Forward is
-    B4 and backward B5 on CUDA tensors; the plain twin on CPU tensors. With
-    `run_if` the forward is a branch of `lax.cond` (see `soft_tiled_fwd`);
-    the backward needs no flag: the branch not taken gets a zero cotangent,
-    on which B5 returns exact zeros."""
+    B4 and backward B5 on CUDA tensors; the plain twin on CPU tensors. Where
+    cfg's "stored_finals" is set and a gradient is wanted, the forward
+    writes a finals block that the backward reads (the JAX custom_vjp's
+    `save_finals`); an inference forward stays lean. With `run_if` the
+    forward is a branch of `lax.cond` (see `soft_tiled_fwd`); the backward
+    needs no flag: the branch not taken gets a zero cotangent, on which B5
+    returns exact zeros and reads no pixel of the block."""
 
     @staticmethod
     def forward(ctx, params, taus, tri_t, tri_alb, sph_t, sph_alb, tsh_t,
                 ssh_t, counts, cfg, run_if=None, want=0):
         tables = (tri_t, tri_alb, sph_t, sph_alb, tsh_t, ssh_t)
-        ctx.save_for_backward(params, taus, *tables, counts)
+        finals = None
+        if cfg.get("stored_finals", False) and any(ctx.needs_input_grad[:8]):
+            finals = finals_block(cfg, params.device)
+        ctx.save_for_backward(params, taus, *tables, counts, finals)
         ctx.cfg = cfg
         return soft_tiled_fwd(params, taus, tables, counts, cfg=cfg,
-                              run_if=run_if, want=want)
+                              run_if=run_if, want=want, finals=finals)
 
     @staticmethod
     def backward(ctx, g):
-        params, taus, *tables, counts = ctx.saved_tensors
-        grads = soft_tiled_bwd(params, taus, tables, counts, g, cfg=ctx.cfg)
+        params, taus, *tables, counts, finals = ctx.saved_tensors
+        grads = soft_tiled_bwd(params, taus, tables, counts, g, cfg=ctx.cfg,
+                               finals=finals)
         return tuple(grads) + (None, None, None, None)
 
 
@@ -985,7 +1180,8 @@ def soft_kernel_inputs(packed, camera: Camera, config: RenderConfig,
     """(params, taus, tables, counts, cfg) of a frame; params and tables
     carry autograd history back to the packed scene and the camera. `bins`
     None bins through `soft_bins_for_config`, the opt-in escalating helper
-    (not the JAX package's semantics: see `render_soft_tiled`)."""
+    (not the JAX package's semantics: see `render_soft_tiled`). cfg's
+    "stored_finals" is the regime that these bins' slot count calls for."""
     if bins is None:
         bins = soft_bins_for_config(packed, camera, config)
     if bins.projective != camera.normalize:
@@ -994,10 +1190,12 @@ def soft_kernel_inputs(packed, camera: Camera, config: RenderConfig,
     tables = _gather_soft_tables(packed, camera, config.tau_edge, bins)
     params = _camera_params(camera, packed.lights).contiguous()
     taus = device_const([config.tau_depth, config.tau_edge], dev)
-    cfg = dict(n_lights=packed.lights.position.shape[0], shading=config.shading,
+    n_lights = packed.lights.position.shape[0]
+    cfg = dict(n_lights=n_lights, shading=config.shading,
                shadows=config.shadows, projective=bins.projective,
                nty=bins.nty, ntx=bins.ntx, height=config.height,
-               width=config.width)
+               width=config.width,
+               stored_finals=_use_stored_finals(bins, n_lights, config.shadows))
     return params, taus, tables, bins.counts, cfg
 
 
@@ -1021,9 +1219,11 @@ def _soft_operands(brute: bool, packed, camera: Camera, tau_d, tau_e,
     if brute:
         return ([params, taus] + arrays,
                 _static_cfg(packed, shading, shadows, camera.normalize))
-    cfg = dict(n_lights=packed.lights.position.shape[0], shading=shading,
-               shadows=shadows, projective=bins.projective, nty=bins.nty,
-               ntx=bins.ntx, height=height, width=width)
+    n_lights = packed.lights.position.shape[0]
+    cfg = dict(n_lights=n_lights, shading=shading, shadows=shadows,
+               projective=bins.projective, nty=bins.nty, ntx=bins.ntx,
+               height=height, width=width,
+               stored_finals=_use_stored_finals(bins, n_lights, shadows))
     return [params, taus] + arrays, cfg
 
 
@@ -1045,7 +1245,18 @@ class _SoftCoreFunction(torch.autograd.Function):
     eager path does: the same flag chooses both conds, so a backward branch
     runs only where its forward branch ran. (Recomputing cost a replay of
     the 1080p train step 179 more device operations and about 0.3 ms more
-    device time on an H100: scripts/torch_replay_times.py.)"""
+    device time on an H100: scripts/torch_replay_times.py.)
+
+    Where the bins' slot count calls for the stored-finals regime
+    (`_use_stored_finals`) and a gradient is wanted, the finals block is
+    allocated before the forward cond, not inside a branch (a branch's
+    outputs are copied out of it, and the brute branch would have to fill a
+    block of up to hundreds of MB): the tiled forward branch writes it and
+    the tiled backward branch reads it; the brute branches never touch it.
+    Under `run_if` (the warm-up and eager calls on the card) both branches
+    launch: where the brute branch is taken, B4 returns without writing the
+    block and B5 gets a zero cotangent, so its work list is empty and it
+    reads no pixel of the block."""
 
     @staticmethod
     def forward(ctx, frame, spec, *leaves):
@@ -1054,6 +1265,13 @@ class _SoftCoreFunction(torch.autograd.Function):
         bins = _bin_soft(packed, tau_e, camera, height=height, width=width,
                          k=k, shadows=shadows, shadow_k=shadow_k)
         preps = {}
+        n_lights = packed.lights.position.shape[0]
+        finals = None
+        if (_use_stored_finals(bins, n_lights, shadows)
+                and any(ctx.needs_input_grad[2:])):
+            finals = finals_block(dict(nty=bins.nty, ntx=bins.ntx,
+                                       shading=shading, shadows=shadows,
+                                       n_lights=n_lights), packed.device)
 
         def prepare(brute):
             with torch.enable_grad():
@@ -1066,7 +1284,7 @@ class _SoftCoreFunction(torch.autograd.Function):
         def tiled_fwd(run_if=None):
             (params, taus, *tables), cfg = prepare(False)
             return soft_tiled_fwd(params, taus, tables, bins.counts, cfg=cfg,
-                                  run_if=run_if, want=0)
+                                  run_if=run_if, want=0, finals=finals)
 
         def brute_fwd(run_if=None):
             inputs, cfg = prepare(True)
@@ -1074,18 +1292,19 @@ class _SoftCoreFunction(torch.autograd.Function):
                                   cfg=cfg, run_if=run_if, want=1)
 
         img = cond(bins.overflow, brute_fwd, tiled_fwd)
-        ctx.frame, ctx.bins, ctx.preps = frame, bins, preps
+        ctx.frame, ctx.bins, ctx.preps, ctx.finals = frame, bins, preps, finals
         return img
 
     @staticmethod
     def backward(ctx, g):
-        frame, bins, preps = ctx.frame, ctx.bins, ctx.preps
+        frame, bins, preps, finals = ctx.frame, ctx.bins, ctx.preps, ctx.finals
         height, width = frame[:2]
 
         def branch(brute):
             def bwd(run_if=None):
                 # with run_if (an eager call on the card) the branch not
                 # taken gets a zero cotangent, on which B5 / B7 return zeros
+                # (and B5 reads no pixel of a finals block B4 did not write)
                 g_ = _select_branch(g, run_if, int(brute))
                 lv, inputs, cfg = preps[brute]
                 detached = [t.detach() for t in inputs]
@@ -1095,7 +1314,7 @@ class _SoftCoreFunction(torch.autograd.Function):
                 else:
                     grads = soft_tiled_bwd(detached[0], detached[1],
                                            detached[2:], bins.counts, g_,
-                                           cfg=cfg)
+                                           cfg=cfg, finals=finals)
                 used = [(t, d) for t, d in zip(inputs, grads) if t.requires_grad]
                 pulled = torch.autograd.grad([t for t, _ in used], lv,
                                              [d for _, d in used],
@@ -1105,7 +1324,7 @@ class _SoftCoreFunction(torch.autograd.Function):
             return bwd
 
         grads = cond(bins.overflow, branch(True), branch(False))
-        ctx.preps = None
+        ctx.preps = ctx.finals = None
         return (None, None) + grads
 
 

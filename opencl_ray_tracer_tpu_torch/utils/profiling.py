@@ -176,7 +176,16 @@ def tiled_soft_bounds(scene, cam, cfg, operands, g):
     writes the frame. B5 reads the cotangent in the non-empty tiles only
     (an empty tile's gradient is zero whatever g holds there), the real
     rows of the tiles that hold a non-zero cotangent, and writes every
-    gradient table, params and taus row once."""
+    gradient table, params and taus row once.
+
+    In the stored-finals regime (the operands' cfg "stored_finals") the two
+    functions are the same, and so is their work: the count above charges
+    B5 one forward a pixel, which the block provides in place of B5's own
+    first pass, while the primary tests' and the occluder tests' forward
+    still has to be done inside their reverse. Only bytes are added: B4
+    writes, and B5 reads for each pixel with a cotangent, the block's rows
+    of the pixel (`soft_tiled.finals_layout`, 4 B each; the logvis rows
+    only where the pixel is covered)."""
     from opencl_ray_tracer_tpu_torch.kernels import soft_tiled as S
 
     params, taus, tables, counts, kc = operands
@@ -216,6 +225,12 @@ def tiled_soft_bounds(scene, cam, cfg, operands, g):
     bytes_b4 = small + row_bytes(nonempty) + h * w * 16
     bytes_b5 = (small + int(live.sum()) * 16 + row_bytes(cot > 0)
                 + nbytes(params, taus, *tables))
+    if kc.get("stored_finals", False):
+        layout = [name for name, _ in S.finals_layout(kc)]
+        n_lv = sum(name.startswith("logvis") for name in layout)
+        n_base = len(layout) - n_lv
+        bytes_b4 += 4 * int((live * n_base + covered * n_lv).sum())
+        bytes_b5 += 4 * int((cot * n_base + both * n_lv).sum())
     return (bound(ops_b4, bytes_b4) + (ops_b4,),
             bound(ops_b5, bytes_b5) + (ops_b5,),
             int(live.sum()), int(covered.sum()), int(cot.sum()))

@@ -6,7 +6,7 @@ the brute hard kernel B3 (`brute_kernel`) and the brute soft forward and
 backward B6 / B7 (`soft_brute_fwd`, `soft_brute_bwd`), for whichever
 `opencl_ray_tracer_tpu_torch` is first on PYTHONPATH:
 
-    PYTHONPATH=. python scripts/torch_kernel_times.py [--check] [--kernel B1|B4|B5|B3|B6|B7]
+    PYTHONPATH=. python scripts/torch_kernel_times.py [--check] [--kernel B1|B4|B5|B3|B6|B7|finals]
 
 (`--kernel B6` and `--kernel B7` both run the brute soft pair: they share
 their inputs.) Each row holds `ms`, back to back per launch (CUDA events
@@ -35,6 +35,19 @@ headline frame, legacy and phong + hard shadows, ortho and pinhole; scene 3
 at 640x480, phong + shadows. B6 / B7 inputs: the 1080p headline scene with
 the cotangent of mean(img^2), 1e-6 on every pixel and zeros; scene 3 at
 256x128 (B7, all three) and 640x480 (B6).
+
+`--kernel finals` times B4 and B5 in both regimes of the tiled soft pair,
+forced through `soft_tiled._FINALS_MIN_SLOTS`: recompute (B4 lean, B5
+recomputing each pixel's finals) and stored finals (B4 writing the finals
+block, B5 reading it), each with its bound, on the 1080p headline scene's
+train tables (ortho and pinhole), 50 spheres + 4 cubes at 1080p (the bench's
+`fwd+bwd 50 + 4` row), the stress scene at 1080p (K 96 / 136, the bench's
+`fwd+bwd stress` row), scene 3 at 640x480, and scene 1 at 640x480 in phong
++ soft shadows and in lambert without shadows (`cli fit`'s frame); B5 with
+the loss's cotangent
+(zero where nothing covers) and a dense one (1e-6 everywhere). A `pair` row
+a case and cotangent sums B4 + B5 per regime and says which is faster: the
+data behind the threshold.
 
 `--check` also holds each kernel against its plain twin: B1/B2 on the
 inputs above (packed words within 1 per byte, float within 0.5/255, and the
@@ -244,6 +257,78 @@ def b5_rows(dev, check):
             say(**row)
 
 
+# ---- B4 + B5 in both regimes -------------------------------------------------
+
+def finals_rows(dev, check):
+    from opencl_ray_tracer_tpu_torch.utils import profiling as P
+
+    ortho, pin, head, scene3 = scenes(dev)
+    fifty = T.random_scene(50, 4, seed=1, bounds=(1910.0, 1070.0), device=dev)
+    stress = T.random_scene(100, 100, seed=0, bounds=(1910.0, 1070.0), device=dev)
+    scene1 = T.create_scene1(device=dev)
+    cases = [("train1080 ortho", head, ortho, soft_cfg(1920, 1080)),
+             ("train1080 pinhole", head, pin, soft_cfg(1920, 1080)),
+             ("50+4 1080p", fifty, ortho, soft_cfg(1920, 1080)),
+             ("stress 1080p", stress, ortho,
+              soft_cfg(1920, 1080).replace(cull_k=96, shadow_cull_k=136)),
+             ("scene3 640x480", scene3, ortho, soft_cfg(640, 480)),
+             ("scene1 640x480", scene1, ortho, soft_cfg(640, 480)),
+             ("fit640 scene1 lambert", scene1, ortho,
+              soft_cfg(640, 480).replace(shading="lambert", shadows=False))]
+    threshold = S._FINALS_MIN_SLOTS
+    try:
+        for name, scene, cam, cfg in cases:
+            ops = {}
+            for regime, slots in (("recompute", 1 << 30), ("stored", 0)):
+                S._FINALS_MIN_SLOTS = slots
+                with torch.no_grad():
+                    ops[regime] = S.soft_kernel_inputs(scene.pack(), cam, cfg)
+            params, taus, tables, counts, kc = ops["stored"]
+            bins = S.soft_bins_for_config(scene.pack(), cam, cfg)
+            n_slots = S._finals_slots(bins, kc["n_lights"], kc["shadows"])
+            block = S.finals_block(kc, dev)
+            with torch.no_grad():
+                img = S.soft_tiled_fwd(params, taus, tables, counts, cfg=kc)
+            gs = {"loss": loss_cotangent(img, 1.0 / 255.0),
+                  "dense": torch.full_like(img, 1e-6)}
+            shape = dict(case=name, slots=n_slots, gate_at_threshold=n_slots >= threshold,
+                         nonempty_tiles=int(((counts[:, 0] + counts[:, 1]) > 0).sum()),
+                         block_mb=block.numel() * 4 / 2 ** 20)
+            fwd_ms = {}
+            for regime in ("recompute", "stored"):
+                kc_r = ops[regime][4]
+                fin = block if regime == "stored" else None
+                fn = lambda: S.soft_tiled_fwd(params, taus, tables, counts, cfg=kc_r,  # noqa: E731
+                                              finals=fin)
+                b4 = P.tiled_soft_bounds(scene, cam, cfg, ops[regime], gs["loss"])[0]
+                row = timed(fn, 20)
+                fwd_ms[regime] = row["device_ms"]
+                say(kernel="B4", regime=regime, **shape, **row, bound_ms=b4[0],
+                    bound_by=b4[1])
+            with torch.no_grad():  # the block the stored B5 reads
+                S.soft_tiled_fwd(params, taus, tables, counts, cfg=kc, finals=block)
+            for cname, g in gs.items():
+                pair = {}
+                got = {}
+                for regime in ("recompute", "stored"):
+                    kc_r = ops[regime][4]
+                    fin = block if regime == "stored" else None
+                    fn = lambda: S.soft_tiled_bwd(params, taus, tables, counts, g,  # noqa: E731
+                                                  cfg=kc_r, finals=fin)
+                    b5 = P.tiled_soft_bounds(scene, cam, cfg, ops[regime], g)[1]
+                    row = timed(fn, 20)
+                    pair[regime] = fwd_ms[regime] + row["device_ms"]
+                    got[regime] = fn()
+                    say(kernel="B5", regime=regime, cotangent=cname, **shape, **row,
+                        bound_ms=b5[0], bound_by=b5[1])
+                say(pair="B4+B5 device_ms", cotangent=cname, **shape, **pair,
+                    faster=min(pair, key=pair.get),
+                    stored_vs_recompute_grad_err=grad_err(got["stored"],
+                                                          got["recompute"]))
+    finally:
+        S._FINALS_MIN_SLOTS = threshold
+
+
 # ---- B3 ---------------------------------------------------------------------
 
 def b3_rows(dev, check):
@@ -344,8 +429,8 @@ def brute_soft_rows(dev, check):
 def main():
     check = "--check" in sys.argv
     only = sys.argv[sys.argv.index("--kernel") + 1] if "--kernel" in sys.argv else None
-    if only not in (None, "B1", "B2", "B4", "B5", "B3", "B6", "B7"):
-        sys.exit(f"--kernel takes B1, B4, B5, B3, B6 or B7, got {only}")
+    if only not in (None, "B1", "B2", "B4", "B5", "B3", "B6", "B7", "finals"):
+        sys.exit(f"--kernel takes B1, B4, B5, B3, B6, B7 or finals, got {only}")
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -364,6 +449,8 @@ def main():
         b3_rows(dev, check)
     if only in (None, "B6", "B7"):
         brute_soft_rows(dev, check)
+    if only == "finals":
+        finals_rows(dev, check)
 
 
 if __name__ == "__main__":

@@ -492,6 +492,208 @@ def test_soft_tiled_bwd_cotangents(cuda_device, scene_name, shading, shadows,
         assert (a - b).abs().max().item() <= 1e-3 * scale + 1e-12, name
 
 
+# ---- the stored-finals regime of B4 and B5 ---------------------------------
+# Bars: B4's block against the plain block row by row on every slot the plain
+# block writes (in-frame pixels of non-empty tiles), each row normalised by
+# its largest magnitude within 1e-4 (2e-3 pinhole), bacc and the logvis rows
+# through exp, the visibilities 99.9% within 1e-4 and all within 5e-3 (a
+# shadow ray starts at the hit point, which each side gives to its last
+# bits, and a grazing occluder's sigmoids magnify that: chip_smoke.py phase
+# 18), on the pixels both sides cover; NaN exactly where the plain block is, but in
+# the logvis rows, which both write for covered pixels only (1 - exp(bacc) !=
+# 0: torch's exp and the card's expf may decide a pixel at that float32 edge
+# differently, at most 1e-3 of the written pixels); B5 reading the block
+# within 1e-5 of B5 recomputing (JAX's bar between its two regimes) and
+# within phase 7's 1e-3 (2e-3 pinhole) of the plain backward; the gradients
+# of a NaN-prefilled block finite and within 1e-6 of an unfilled one's (the
+# atomics' order); exact zeros for an all-zero cotangent.
+
+FINALS_CASES = [("test", "ortho", "phong", True), ("test", "ortho", "lambert", False),
+                ("test", "ortho", "legacy", False), ("test", "pinhole", "phong", True),
+                ("three_lights", "ortho", "lambert", True), ("scene3", "ortho", "phong", True)]
+
+
+def _finals_operands(device, scene_name, cam_kind, shading, shadows):
+    S, scene, cam, cfg = _soft_case(device, scene_name, cam_kind, shading, shadows)
+    cfg = cfg.replace(width=250, height=123)
+    with torch.no_grad():
+        params, taus, tables, counts, kc = S.soft_kernel_inputs(scene.pack(), cam, cfg)
+    return S, (params, taus, tables, counts), dict(kc, stored_finals=True)
+
+
+def _norm_err(a, b):
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("scene_name,cam_kind,shading,shadows", FINALS_CASES)
+def test_soft_tiled_fwd_finals_block(cuda_device, scene_name, cam_kind, shading,
+                                     shadows):
+    S, ops, kc = _finals_operands(cuda_device, scene_name, cam_kind, shading, shadows)
+    block = S.finals_block(kc, cuda_device).fill_(float("nan"))
+    before = (S.FWD_LAUNCHES, S.FWD_FINALS_LAUNCHES)
+    with torch.no_grad():
+        img = S.soft_tiled_fwd(*ops, cfg=kc, finals=block)
+        lean = S.soft_tiled_fwd(*ops, cfg=kc)
+        want_img, want = S._soft_tiled_plain(*ops, cfg=kc, want_finals=True)
+    torch.cuda.synchronize()
+    assert (S.FWD_LAUNCHES, S.FWD_FINALS_LAUNCHES) == (before[0] + 2, before[1] + 1)
+    assert torch.equal(img, lean)
+    assert (img - want_img).abs().max().item() < 0.05
+    names = [n for n, _ in S.finals_layout(kc)]
+    n_base = min(len(names), 13)
+    written = ~want.isnan()
+    assert torch.equal(block[:, :, :n_base].isnan(), want[:, :, :n_base].isnan())
+    lv_differ = int((block[:, :, n_base:].isnan() != want[:, :, n_base:].isnan()).sum())
+    assert lv_differ <= 1e-3 * int(written[:, :, 0].sum()), lv_differ
+    assert not bool((~block[:, :, n_base:].isnan() & ~written[:, :, :1]).any())
+    bar = 2e-3 if cam_kind == "pinhole" else 1e-4
+    for i, name in enumerate(names):
+        mask = written[:, :, i] & ~block[:, :, i].isnan()
+        a, b = block[:, :, i][mask], want[:, :, i][mask]
+        if name == "bacc" or name.startswith("logvis"):
+            a, b = a.exp(), b.exp()
+        assert torch.isfinite(a).all(), name
+        if name.startswith("logvis"):
+            assert _norm_err(a, b) <= 5e-3, (name, _norm_err(a, b))
+            assert ((a - b).abs() <= 1e-4).float().mean().item() >= 0.999, name
+        else:
+            assert _norm_err(a, b) <= bar, (name, _norm_err(a, b))
+
+
+@pytest.mark.parametrize("scene_name,cam_kind,shading,shadows", FINALS_CASES)
+def test_soft_tiled_bwd_reads_the_block(cuda_device, scene_name, cam_kind, shading,
+                                        shadows):
+    S, ops, kc = _finals_operands(cuda_device, scene_name, cam_kind, shading, shadows)
+    h, w = kc["height"], kc["width"]
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    g = torch.randn((h, w, 4), generator=gen).to(cuda_device)
+    g[::5, ::3, :3] = 0.0
+    nan_block = S.finals_block(kc, cuda_device).fill_(float("nan"))
+    block = S.finals_block(kc, cuda_device)
+    with torch.no_grad():
+        S.soft_tiled_fwd(*ops, cfg=kc, finals=nan_block)
+        S.soft_tiled_fwd(*ops, cfg=kc, finals=block)
+    before = (S.BWD_LAUNCHES, S.BWD_FINALS_LAUNCHES)
+    stored = S.soft_tiled_bwd(*ops, g, cfg=kc, finals=block)
+    from_nan = S.soft_tiled_bwd(*ops, g, cfg=kc, finals=nan_block)
+    zeros = S.soft_tiled_bwd(*ops, torch.zeros_like(g), cfg=kc, finals=nan_block)
+    recompute = S.soft_tiled_bwd(*ops, g, cfg=kc)
+    torch.cuda.synchronize()
+    assert (S.BWD_LAUNCHES, S.BWD_FINALS_LAUNCHES) == (before[0] + 4, before[1] + 3)
+    assert all(bool((z == 0).all()) for z in zeros)
+    params, taus, tables, counts = ops
+    leaves = [t.detach().requires_grad_(True) for t in (params, taus) + tuple(tables)]
+    out = S._soft_tiled_plain(leaves[0], leaves[1], leaves[2:], counts, cfg=kc)
+    plain = torch.autograd.grad(out, leaves, g, allow_unused=True)
+    bar = 2e-3 if cam_kind == "pinhole" else 1e-3
+    for name, a, b, c, d in zip(("params", "taus", "tri_t", "tri_alb", "sph_t",
+                                 "sph_alb", "tsh_t", "ssh_t"),
+                                stored, from_nan, recompute, plain):
+        d = torch.zeros_like(a) if d is None else d
+        assert torch.isfinite(a).all() and torch.isfinite(b).all(), name
+        if not bool((c != 0).any()):
+            assert not bool((a != 0).any()) and not bool((b != 0).any()), name
+            continue
+        assert _norm_err(b, a) <= 1e-6, (name, _norm_err(b, a))
+        assert _norm_err(a, c) <= 1e-5, (name, _norm_err(a, c))
+        assert _norm_err(a, d) <= bar, (name, _norm_err(a, d))
+
+
+@pytest.mark.parametrize("k", [40, 32])
+def test_soft_core_stored_finals_branches(cuda_device, monkeypatch, k):
+    """`_soft_tiled_core` eagerly on the card (its conds run both branches
+    with `run_if`) on the 40-sphere pile, in the stored regime with the block
+    prefilled with NaN: at K 40 the tiled branch is taken, at K 32 the brute
+    one, where B4 skips and B5 gets a zero cotangent and reads no pixel of
+    the unwritten block. Image identical to the recompute regime's, leaf
+    gradients finite and within phase 7's 1e-3 normalised of its (two runs
+    of B5 or B7 through the gather's autograd: the atomics' order shows in
+    a leaf summed near zero)."""
+    from opencl_ray_tracer_tpu_torch.kernels import soft_tiled as S
+    from opencl_ray_tracer_tpu_torch.parallel.train import (
+        scene_leaves,
+        trainable_scene,
+    )
+
+    real = S.finals_block
+    monkeypatch.setattr(S, "finals_block",
+                        lambda cfg, dev: real(cfg, dev).fill_(float("nan")))
+    cam = T.legacy_ortho_camera(device=cuda_device)
+
+    def run(slots):
+        monkeypatch.setattr(S, "_FINALS_MIN_SLOTS", slots)
+        s = trainable_scene(T.random_scene(40, 0, seed=9, bounds=(60.0, 40.0),
+                                           device=cuda_device))
+        leaves = scene_leaves(s)
+        img = S._soft_tiled_core(s.pack(), cam, 1.0, 0.5, SOFT_H, SOFT_W,
+                                 "phong", True, k, 64)
+        grads = torch.autograd.grad((img[..., :3] ** 2).mean(),
+                                    list(leaves.values()), allow_unused=True)
+        return img.detach(), [torch.zeros_like(v) if g is None else g
+                              for v, g in zip(leaves.values(), grads)]
+
+    img_r, g_r = run(1 << 30)
+    before = (S.FWD_FINALS_LAUNCHES, S.BWD_FINALS_LAUNCHES)
+    img_s, g_s = run(0)
+    torch.cuda.synchronize()
+    assert (S.FWD_FINALS_LAUNCHES - before[0], S.BWD_FINALS_LAUNCHES - before[1]) == (1, 1)
+    assert torch.equal(img_s, img_r)
+    for a, b in zip(g_s, g_r):
+        assert torch.isfinite(a).all()
+        if b.numel():
+            assert _norm_err(a, b) <= 1e-3
+
+
+def test_jit_train_step_stored_finals_matches_eager(cuda_device, monkeypatch):
+    """The compiled step in the stored-finals regime (forced through the
+    threshold): two make_train_step(jit=True) steps at 256x128 against the
+    eager step from the same state, loss and every leaf within 1e-6, with B4
+    writing and B5 reading a finals block on both paths."""
+    from opencl_ray_tracer_tpu_torch.kernels import soft_tiled as S
+    from opencl_ray_tracer_tpu_torch.parallel import (
+        adam,
+        init_train_state,
+        make_train_step,
+    )
+    from opencl_ray_tracer_tpu_torch.parallel.train import scene_leaves
+
+    monkeypatch.setattr(S, "_FINALS_MIN_SLOTS", 0)
+    cfg = T.RenderConfig(width=SOFT_W, height=SOFT_H, shading="phong",
+                         shadows=True, soft=True, framebuffer_dtype="float",
+                         tau_depth=1.0, tau_edge=0.5)
+    cam = T.legacy_ortho_camera(device=cuda_device)
+    scene = T.random_scene(5, 3, seed=4, bounds=(250.0, 120.0), device=cuda_device)
+    target = torch.zeros((SOFT_H, SOFT_W, 4), device=cuda_device)
+    opt_e, opt_j = adam(1e-2), adam(1e-2)
+    step_e = make_train_step(cam, cfg, opt_e)
+    step_j = make_train_step(cam, cfg, opt_j, jit=True)
+    se, sj = init_train_state(scene, opt_e), init_train_state(scene, opt_j)
+    for i in range(2):
+        if i:
+            with torch.no_grad():
+                for a, b in zip(scene_leaves(se.scene).values(),
+                                scene_leaves(sj.scene).values()):
+                    b.copy_(a)
+                    for k, v in sj.opt_state.state[b].items():
+                        v.copy_(se.opt_state.state[a][k])
+        before = (S.FWD_FINALS_LAUNCHES, S.BWD_FINALS_LAUNCHES)
+        se, le = step_e(se, target)
+        torch.cuda.synchronize()
+        assert (S.FWD_FINALS_LAUNCHES - before[0],
+                S.BWD_FINALS_LAUNCHES - before[1]) == (1, 1)
+        before = (S.FWD_FINALS_LAUNCHES, S.BWD_FINALS_LAUNCHES)
+        sj, lj = step_j(sj, target)
+        torch.cuda.synchronize()
+        if i == 0:  # the warm-up and the capture (a replay calls no wrapper)
+            assert S.FWD_FINALS_LAUNCHES - before[0] >= 1
+            assert S.BWD_FINALS_LAUNCHES - before[1] >= 1
+        assert abs(lj.item() - le.item()) <= 1e-6 * abs(le.item())
+        for k, v in scene_leaves(se.scene).items():
+            rel = ((scene_leaves(sj.scene)[k] - v).abs()
+                   / v.abs().clamp_min(1e-30)).max().item()
+            assert rel <= 1e-6, (i, k, rel)
+
+
 # ---- the brute kernels B3 (hard), B6 and B7 (soft) -------------------------
 # Bars (chip_smoke.py phases 10, 11): B3 float frames within 0.5/255 of the
 # twin on every pixel, truncated int frames within 1 and identical on

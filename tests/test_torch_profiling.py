@@ -164,6 +164,41 @@ def test_tiled_soft_bounds_hand_count(scene, shadows):
     assert b5[0] == pytest.approx(max(_ops_ms(ops_b5), _bytes_ms(bytes_b5)))
 
 
+@pytest.mark.parametrize("shadows", [False, True])
+def test_tiled_soft_bounds_stored_finals_hand_count(scene, monkeypatch, shadows):
+    """The stored-finals regime, forced through the threshold: the same
+    operations as the recompute regime (the count charges B5 one forward a
+    pixel either way); B4 also writes the block's rows of every pixel (6
+    for lambert; 13 for lambert + soft shadows, and the light's logvis row
+    of each covered pixel), B5 reads those of its two pixels."""
+    from opencl_ray_tracer_tpu_torch.kernels import soft_tiled as S
+
+    cam = T.legacy_ortho_camera(device=CPU)
+    cfg = _soft_cfg(shadows)
+    g = _cotangent()
+    with torch.no_grad():
+        operands = S.soft_kernel_inputs(scene.pack(), cam, cfg)
+    assert not operands[4]["stored_finals"]
+    recompute = P.tiled_soft_bounds(scene, cam, cfg, operands, g)
+    monkeypatch.setattr(S, "_FINALS_MIN_SLOTS", 0)
+    with torch.no_grad():
+        operands = S.soft_kernel_inputs(scene.pack(), cam, cfg)
+    params, taus, tables, counts, kc = operands
+    assert kc["stored_finals"]
+    n_cov = int(P.soft_covered(scene.pack(), cam, 0.5, H, W).sum())
+    n_base, n_lv = (13, 1) if shadows else (6, 0)
+    rows = 96 + (64 if shadows else 0)
+    small = 4 * params.numel() + 4 * 2 + 4 * counts.numel()
+    bytes_b4 = small + rows + N_PIX * 16 + 4 * (N_PIX * n_base + n_cov * n_lv)
+    bytes_b5 = (small + N_PIX * 16 + rows + P.nbytes(params, taus, *tables)
+                + 4 * (2 * n_base + 1 * n_lv))
+    b4, b5, live, cov, cot = P.tiled_soft_bounds(scene, cam, cfg, operands, g)
+    assert (live, cov, cot) == (N_PIX, n_cov, 2)
+    assert b4[2] == recompute[0][2] and b5[2] == recompute[1][2]
+    assert b4[0] == pytest.approx(max(_ops_ms(b4[2]), _bytes_ms(bytes_b4)))
+    assert b5[0] == pytest.approx(max(_ops_ms(b5[2]), _bytes_ms(bytes_b5)))
+
+
 def test_brute_soft_bounds_hand_count(scene):
     cam = T.legacy_ortho_camera(device=CPU)
     cfg = _soft_cfg(True)
