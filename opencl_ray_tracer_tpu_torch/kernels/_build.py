@@ -18,6 +18,8 @@ import shutil
 import subprocess
 import time
 
+from opencl_ray_tracer_tpu_torch.utils import tracing
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "build")
@@ -35,7 +37,6 @@ NVCC_FLAGS = (
 
 _LIB = None
 BUILD_LOG = ""       # nvcc/ptxas output of the build this process ran
-BUILD_SECONDS = None  # wall time of that build (None: loaded a prior build)
 
 
 def find_nvcc() -> str:
@@ -69,8 +70,10 @@ def _run_all(cmds):
 
 
 def build() -> str:
-    """Compile the library unless a build of these sources exists."""
-    global BUILD_LOG, BUILD_SECONDS
+    """Compile the library unless a build of these sources exists; the
+    build's wall time adds to the counter `kernels.build_s`
+    (`utils.tracing`)."""
+    global BUILD_LOG
     path = library_path()
     if os.path.exists(path):
         return path
@@ -87,7 +90,7 @@ def build() -> str:
     for o in objs:
         os.remove(o)
     os.replace(tmp, path)
-    BUILD_SECONDS = time.perf_counter() - t0
+    tracing.count("kernels.build_s", time.perf_counter() - t0)
     BUILD_LOG = log
     return path
 
@@ -111,7 +114,7 @@ def load_library() -> ctypes.CDLL:
         lib.octrt_soft_brute_bwd.restype = i
         lib.octrt_soft_brute_bwd.argtypes = [ptr] * 16 + [i] * 10 + [ptr]
         lib.octrt_cond_handles.restype = i
-        lib.octrt_cond_handles.argtypes = [ptr, ptr, ptr]
+        lib.octrt_cond_handles.argtypes = [ptr, ptr, ptr, ptr]
         lib.octrt_cond_begin_body.restype = i
         lib.octrt_cond_begin_body.argtypes = [ctypes.c_ulonglong, ptr, ptr]
         lib.octrt_cond_end_body.restype = i

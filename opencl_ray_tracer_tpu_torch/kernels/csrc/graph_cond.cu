@@ -19,18 +19,22 @@
 // Steps 2-4 run once for the false branch, then for the true one.
 //
 // What bounds it: one launch of one thread a replay, and the two nodes; no
-// data moves.
+// data moves but the counter's one add.
 
 #include <cuda_runtime.h>
 
 namespace {
 
+// `taken_count`, where not null, counts the launches that took the true
+// branch (the cond's device counter, utils/tracing.py): one thread, so a
+// plain add.
 __global__ void set_branches(cudaGraphConditionalHandle on_true,
                              cudaGraphConditionalHandle on_false,
-                             const bool* pred) {
+                             const bool* pred, long long* taken_count) {
   const unsigned int taken = *pred ? 1u : 0u;
   cudaGraphSetConditional(on_true, taken);
   cudaGraphSetConditional(on_false, 1u - taken);
+  if (taken_count != nullptr) *taken_count += taken;
 }
 
 // The graph `s` captures into and its current dependencies; an error where
@@ -50,9 +54,10 @@ cudaError_t capture_of(cudaStream_t s, cudaGraph_t* graph,
 extern "C" {
 
 // handles[0] = pred, handles[1] = !pred at every launch of the graph that
-// `stream` captures into; pred is one bool on the card.
+// `stream` captures into; pred is one bool on the card. `taken_count` (an
+// int64 on the card, or null) gains pred at every launch.
 int octrt_cond_handles(const void* pred, unsigned long long* handles,
-                       void* stream) {
+                       void* stream, void* taken_count) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaGraph_t graph;
   cudaError_t e = capture_of(s, &graph, nullptr, nullptr);
@@ -62,7 +67,8 @@ int octrt_cond_handles(const void* pred, unsigned long long* handles,
     e = cudaGraphConditionalHandleCreate(&h[i], graph, 0, 0);
     if (e != cudaSuccess) return e;
   }
-  set_branches<<<1, 1, 0, s>>>(h[0], h[1], static_cast<const bool*>(pred));
+  set_branches<<<1, 1, 0, s>>>(h[0], h[1], static_cast<const bool*>(pred),
+                               static_cast<long long*>(taken_count));
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   handles[0] = h[0];

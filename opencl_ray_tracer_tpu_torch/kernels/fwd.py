@@ -31,12 +31,9 @@ from opencl_ray_tracer_tpu_torch.camera import Camera
 from opencl_ray_tracer_tpu_torch.config import RenderConfig
 from opencl_ray_tracer_tpu_torch.ops.intersect import EPSILON, MISS_T
 from opencl_ray_tracer_tpu_torch.ops.shading import LEGACY_FOG_MAX
+from opencl_ray_tracer_tpu_torch.utils import tracing
 
 PRIM_CHUNK = 128  # the plain twin walks the padded primitives in these chunks
-
-# Launches of the CUDA brute kernel in this process; `brute_kernel` adds one
-# per launch and nowhere else.
-BRUTE_LAUNCHES = 0
 
 # Elements per (pixel batch x chunk) temporary of the plain twin.
 _PLAIN_MAX_ELEMS = 1 << 23
@@ -439,7 +436,6 @@ def brute_kernel(params, tri_geo, tri_attr, sph_geo, sph_attr, tri_coef,
     (9, Tp) and sph_coef (10, Sp), else None. n_tris / n_spheres are the
     real primitive counts: the CUDA kernel stops there (no padded primitive
     can win a hit or block a shadow ray), the twin walks the padding."""
-    global BRUTE_LAUNCHES
     args = (params, tri_geo, tri_attr, sph_geo, sph_attr, tri_coef, sph_coef)
     kw = dict(height=height, width=width, n_tris=n_tris, n_spheres=n_spheres,
               shading=shading, shadows=shadows, normalize_dir=normalize_dir)
@@ -487,7 +483,7 @@ def brute_kernel(params, tri_geo, tri_attr, sph_geo, sph_attr, tri_coef,
             f"fwd_brute kernel launch failed: {lib.octrt_cuda_error_string(rc).decode()}"
             f" (cudaError {rc})"
         )
-    BRUTE_LAUNCHES += 1
+    tracing.count("launch.B3")
     return out
 
 

@@ -68,6 +68,7 @@ from opencl_ray_tracer_tpu_torch.ops.shading import (
     pack_framebuffer_words,
 )
 from opencl_ray_tracer_tpu_torch.runtime.graph import cond, device_const
+from opencl_ray_tracer_tpu_torch.utils import tracing
 from opencl_ray_tracer_tpu_torch.utils.log import log_warning
 
 TILE_H = 64
@@ -79,10 +80,6 @@ CHUNK = 8                        # candidate-list granularity (K rounding)
 # normal and requires t > 1e-3. The frustum test's equivalent is a distance
 # margin on the (normalised) occluder-plane test; side planes use exact >= 0.
 _SH_PLANE_EPS = 1e-2
-
-# Launches of the CUDA kernel in this process; `tiled_kernel` adds one per
-# launch and nowhere else.
-KERNEL_LAUNCHES = 0
 
 # Elements per temporary of the plain twin (tile batch x chunk x pixels):
 # 64 MB of float32, small on the card, a few at a time on the CPU.
@@ -972,7 +969,6 @@ def _tiled_kernel_cuda(params, counts, tri_coef_t, tri_attr_t, sph_coef_t,
     number, tiles[2 : 2 + tiles[0]] the tiles in ascending order
     (`_live_tiles` is its plain version), then the empty ones. With
     `run_if`, both start as zeros, which a skipped launch leaves."""
-    global KERNEL_LAUNCHES
     from opencl_ray_tracer_tpu_torch.kernels._build import load_library
 
     lib = load_library()
@@ -1001,7 +997,7 @@ def _tiled_kernel_cuda(params, counts, tri_coef_t, tri_attr_t, sph_coef_t,
             f"fwd_tiled kernel launch failed: {lib.octrt_cuda_error_string(rc).decode()}"
             f" (cudaError {rc})"
         )
-    KERNEL_LAUNCHES += 1
+    tracing.count("launch.B1")
     return out, tiles
 
 
@@ -1014,48 +1010,50 @@ def kernel_inputs(packed, camera: Camera, bins: TileBins, *, height: int,
                   out_format: str = "int"):
     """Per-frame coefficient gather + params: the (args, kwargs) that
     `tiled_kernel` (and `_tiled_kernel_plain`) take for this frame. "int"
-    frames use the kernel's float output, truncated afterwards."""
-    projective = camera.normalize
-    if bins.projective != projective:
-        raise ValueError(
-            "TileBins/camera mismatch: pinhole cameras need bins computed "
-            "with bin_scene(..., camera=camera)"
+    frames use the kernel's float output, truncated afterwards. The span
+    `frame.gather` (`utils.tracing`)."""
+    with tracing.span("frame.gather"):
+        projective = camera.normalize
+        if bins.projective != projective:
+            raise ValueError(
+                "TileBins/camera mismatch: pinhole cameras need bins computed "
+                "with bin_scene(..., camera=camera)"
+            )
+        n_tiles = bins.nty * bins.ntx
+        dev = packed.device
+        if projective:
+            tri_coef, sph_coef = _prep_projective_coefs(packed, camera)
+            null_tri, null_sph = _NULL_TRI_PROJ, _NULL_SPH_PROJ
+        else:
+            tri_coef, sph_coef = _prep_affine_coefs(packed, camera)
+            null_tri, null_sph = _NULL_TRI, _NULL_SPH
+
+        def table(k, coef, idx, valid, null):
+            if k:
+                return _gather_coefs(coef, idx, valid, null)
+            row = device_const(np.pad(null, (0, 16 - null.shape[0])), dev)
+            return row.expand(n_tiles, CHUNK, 16).contiguous()
+
+        args = (
+            _camera_params(camera, packed.lights).contiguous(),
+            bins.counts.contiguous(),
+            table(bins.k_tri, tri_coef, bins.t_idx, bins.t_valid, null_tri),
+            bins.tri_attr_t.contiguous(),
+            table(bins.k_sph, sph_coef, bins.s_idx, bins.s_valid, null_sph),
+            bins.sph_attr_t.contiguous(),
+            bins.tri_sh_t.contiguous(),
+            bins.sph_sh_t.contiguous(),
         )
-    n_tiles = bins.nty * bins.ntx
-    dev = packed.device
-    if projective:
-        tri_coef, sph_coef = _prep_projective_coefs(packed, camera)
-        null_tri, null_sph = _NULL_TRI_PROJ, _NULL_SPH_PROJ
-    else:
-        tri_coef, sph_coef = _prep_affine_coefs(packed, camera)
-        null_tri, null_sph = _NULL_TRI, _NULL_SPH
-
-    def table(k, coef, idx, valid, null):
-        if k:
-            return _gather_coefs(coef, idx, valid, null)
-        row = device_const(np.pad(null, (0, 16 - null.shape[0])), dev)
-        return row.expand(n_tiles, CHUNK, 16).contiguous()
-
-    args = (
-        _camera_params(camera, packed.lights).contiguous(),
-        bins.counts.contiguous(),
-        table(bins.k_tri, tri_coef, bins.t_idx, bins.t_valid, null_tri),
-        bins.tri_attr_t.contiguous(),
-        table(bins.k_sph, sph_coef, bins.s_idx, bins.s_valid, null_sph),
-        bins.sph_attr_t.contiguous(),
-        bins.tri_sh_t.contiguous(),
-        bins.sph_sh_t.contiguous(),
-    )
-    kw = dict(height=height, width=width, ntx=bins.ntx, shading=shading,
-              shadows=shadows, projective=projective,
-              out_format="packed" if out_format == "packed" else "float")
-    return args, kw
+        kw = dict(height=height, width=width, ntx=bins.ntx, shading=shading,
+                  shadows=shadows, projective=projective,
+                  out_format="packed" if out_format == "packed" else "float")
+        return args, kw
 
 
 def bin_for_config(packed, camera: Camera, config: RenderConfig) -> TileBins:
     """`bin_scene` at the config's K caps, re-binning with both caps doubled
     while any tile overflows, up to the primitive count (where no list can
-    overflow)."""
+    overflow). The span `frame.bin` (`utils.tracing`)."""
     k, shadow_k = config.cull_k, config.shadow_cull_k
 
     def make(k_, sk_):
@@ -1064,19 +1062,27 @@ def bin_for_config(packed, camera: Camera, config: RenderConfig) -> TileBins:
             shadows=config.shadows, shadow_k=sk_, camera=camera,
         )
 
-    bins = make(k, shadow_k)
-    k_max = _round_up(max(packed.n_tris, packed.n_spheres, 1), CHUNK)
-    while bool(bins.overflow):
-        if k >= k_max and shadow_k >= k_max:
-            raise RuntimeError("tile candidate overflow at the full K")
-        k = max(k, min(2 * k, k_max))
-        shadow_k = max(shadow_k, min(2 * shadow_k, k_max))
-        log_warning(
-            "tile candidate overflow: re-binning with cull_k=%d "
-            "shadow_cull_k=%d", k, shadow_k,
-        )
+    with tracing.span("frame.bin"):
         bins = make(k, shadow_k)
-    return bins
+        k_max = _round_up(max(packed.n_tris, packed.n_spheres, 1), CHUNK)
+        while _overflow_on_host(bins):
+            if k >= k_max and shadow_k >= k_max:
+                raise RuntimeError("tile candidate overflow at the full K")
+            k = max(k, min(2 * k, k_max))
+            shadow_k = max(shadow_k, min(2 * shadow_k, k_max))
+            log_warning(
+                "tile candidate overflow: re-binning with cull_k=%d "
+                "shadow_cull_k=%d", k, shadow_k,
+            )
+            bins = make(k, shadow_k)
+        return bins
+
+
+def _overflow_on_host(bins: TileBins) -> bool:
+    """The bins' overflow flag read on the host, which waits for the card
+    to finish the binning: the span `frame.bin.host_read`."""
+    with tracing.span("frame.bin.host_read"):
+        return bool(bins.overflow)
 
 
 def render_tiled(scene, camera: Camera, config: RenderConfig) -> torch.Tensor:

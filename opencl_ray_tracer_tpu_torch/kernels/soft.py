@@ -60,17 +60,13 @@ from opencl_ray_tracer_tpu_torch.kernels.fwd import (
 from opencl_ray_tracer_tpu_torch.ops.intersect import EPSILON
 from opencl_ray_tracer_tpu_torch.ops.shading import LEGACY_FOG_MAX
 from opencl_ray_tracer_tpu_torch.runtime.graph import device_scalar
+from opencl_ray_tracer_tpu_torch.utils import tracing
 
 NEG_BIG = -1e30
 CK = 128         # the plain twin walks the padded primitives in these chunks
 MAX_LIGHTS = 4   # the CUDA kernels keep per-light state in registers
 # The CUDA kernels give each warp a patch of PATCH_W x PATCH_H pixels.
 PATCH_W, PATCH_H = 8, 4
-
-# Launches of the CUDA brute soft kernels in this process; `soft_brute_fwd` /
-# `soft_brute_bwd` add one per launch and nowhere else.
-SOFT_BRUTE_FWD_LAUNCHES = 0
-SOFT_BRUTE_BWD_LAUNCHES = 0
 
 # Pixels per batch of the plain twin on the CPU (a (batch, CK) temporary is
 # 2 MB) and on a card (16 MB). Under autograd each batch is checkpointed, so
@@ -468,7 +464,6 @@ def soft_brute_fwd(params, taus, tri_geo, tri_alb, sph_geo, sph_alb, *,
     device, or None) is the device-side branch of `lax.cond`: the kernels do
     their work only where *run_if == want, else the frame is zeros (the
     twin: a torch.where)."""
-    global SOFT_BRUTE_FWD_LAUNCHES
     inputs = (params, taus, tri_geo, tri_alb, sph_geo, sph_alb)
     dev = params.device
     _check_run_if(run_if, dev)
@@ -493,7 +488,7 @@ def soft_brute_fwd(params, taus, tri_geo, tri_alb, sph_geo, sph_alb, *,
             *_brute_ints(tri_geo, sph_geo, height, width, cfg), p(run_if),
             int(want), ctypes.c_void_p(stream))
     _raise_on(rc, "soft_brute forward")
-    SOFT_BRUTE_FWD_LAUNCHES += 1
+    tracing.count("launch.B6")
     return out
 
 
@@ -524,7 +519,6 @@ def _soft_brute_bwd_cuda(inputs, g, height, width, cfg):
     kernel's int32 work list as it leaves it: live[0] the number of patches
     of g that hold a non-zero cotangent, live[2 : 2 + live[0]] those patches
     in no order (`_live_patches` is its plain version)."""
-    global SOFT_BRUTE_BWD_LAUNCHES
     params, _, tri_geo, _, sph_geo, _ = inputs
     dev = params.device
     _check_brute(*inputs, height, width, cfg)
@@ -551,7 +545,7 @@ def _soft_brute_bwd_cuda(inputs, g, height, width, cfg):
             *_brute_ints(tri_geo, sph_geo, height, width, cfg),
             ctypes.c_void_p(stream))
     _raise_on(rc, "soft_brute backward")
-    SOFT_BRUTE_BWD_LAUNCHES += 1
+    tracing.count("launch.B7")
     return tuple(grads), live
 
 

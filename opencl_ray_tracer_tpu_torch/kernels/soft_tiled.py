@@ -103,6 +103,7 @@ from opencl_ray_tracer_tpu_torch.runtime.graph import (
     device_const,
     device_scalar,
 )
+from opencl_ray_tracer_tpu_torch.utils import tracing
 from opencl_ray_tracer_tpu_torch.utils.log import log_warning
 
 # Candidate-list granularity: K caps round to it, and a tile's candidates
@@ -115,14 +116,6 @@ SOFT_CULL_SIGMAS = 16.0
 
 # Patches (8 x 4 pixels, one warp of the backward each) in a tile.
 TILE_PATCHES = (TILE_H // PATCH_H) * (TILE_W // PATCH_W)
-
-# Launches of the CUDA kernels in this process; `soft_tiled_fwd` /
-# `soft_tiled_bwd` add one per launch and nowhere else, and one more to the
-# FINALS count where the launch writes / reads a finals block.
-FWD_LAUNCHES = 0
-BWD_LAUNCHES = 0
-FWD_FINALS_LAUNCHES = 0
-BWD_FINALS_LAUNCHES = 0
 
 # Elements per (tile batch x candidate x pixel) temporary of the plain twin.
 _PLAIN_MAX_ELEMS = 1 << 22
@@ -1025,7 +1018,6 @@ def _soft_tiled_fwd_cuda(params, taus, tables, counts, cfg, run_if=None,
     tiles[0]] the tiles in ascending order (`fwd_tiled._live_tiles` is its
     plain version), then the empty ones. With `run_if`, both start as
     zeros, which a skipped launch leaves. `finals`: see `soft_tiled_fwd`."""
-    global FWD_LAUNCHES, FWD_FINALS_LAUNCHES
     dev = params.device
     _check_inputs(params, taus, tables, counts, cfg)
     if finals is not None:
@@ -1044,8 +1036,9 @@ def _soft_tiled_fwd_cuda(params, taus, tables, counts, cfg, run_if=None,
                                       p(run_if), int(want),
                                       ctypes.c_void_p(stream))
     _raise_on(rc, "soft_tiled forward")
-    FWD_LAUNCHES += 1
-    FWD_FINALS_LAUNCHES += finals is not None
+    tracing.count("launch.B4")
+    if finals is not None:
+        tracing.count("launch.B4_finals")
     return out, tiles
 
 
@@ -1117,7 +1110,6 @@ def _soft_tiled_bwd_cuda(params, taus, tables, counts, g, cfg, finals=None):
     the kernel's int32 work list as it leaves it: live[0] the number of
     entries, live[2 : 2 + live[0]] the entries in no order
     (`_live_patches` is its plain version). `finals`: see `soft_tiled_bwd`."""
-    global BWD_LAUNCHES, BWD_FINALS_LAUNCHES
     dev = params.device
     _check_inputs(params, taus, tables, counts, cfg)
     if finals is not None:
@@ -1139,8 +1131,9 @@ def _soft_tiled_bwd_cuda(params, taus, tables, counts, g, cfg, finals=None):
                                       p(d_par), p(d_tau), p(live), *ints,
                                       ctypes.c_void_p(stream))
     _raise_on(rc, "soft_tiled backward")
-    BWD_LAUNCHES += 1
-    BWD_FINALS_LAUNCHES += finals is not None
+    tracing.count("launch.B5")
+    if finals is not None:
+        tracing.count("launch.B5_finals")
     return (d_par, d_tau) + tuple(d_tables), live
 
 
@@ -1291,7 +1284,7 @@ class _SoftCoreFunction(torch.autograd.Function):
             return soft_brute_fwd(*inputs, height=height, width=width,
                                   cfg=cfg, run_if=run_if, want=1)
 
-        img = cond(bins.overflow, brute_fwd, tiled_fwd)
+        img = cond(bins.overflow, brute_fwd, tiled_fwd, site="soft_tiled.fwd")
         ctx.frame, ctx.bins, ctx.preps, ctx.finals = frame, bins, preps, finals
         return img
 

@@ -37,6 +37,7 @@ same order, so the captured all-reduces meet.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
@@ -55,6 +56,10 @@ from opencl_ray_tracer_tpu_torch.parallel.mesh import (
 )
 from opencl_ray_tracer_tpu_torch.runtime import graph
 from opencl_ray_tracer_tpu_torch.scene.scene import Lights, Scene
+from opencl_ray_tracer_tpu_torch.utils import tracing
+
+# the train step's capture, as `runtime.graph` names its replays
+_STEP_NAME = "train step"
 
 _SCENE_KEYS = ("sphere_origin", "sphere_radius", "sphere_colour", "tri_verts",
                "tri_colour")
@@ -102,9 +107,14 @@ def adam(learning_rate: float) -> Callable:
 
 def init_train_state(scene, optimizer: Callable) -> TrainState:
     """`optimizer` builds the optimizer from a list of parameters (e.g.
-    `adam(lr)`)."""
+    `adam(lr)`); its seconds add to the counter `train.optimizer_s`
+    (`utils.tracing`: Adam's first construction in a process imports
+    torch._dynamo)."""
     scene = trainable_scene(scene)
-    return TrainState(scene, optimizer(list(scene_leaves(scene).values())), 0)
+    t0 = time.perf_counter()
+    opt = optimizer(list(scene_leaves(scene).values()))
+    tracing.count("train.optimizer_s", time.perf_counter() - t0)
+    return TrainState(scene, opt, 0)
 
 
 def _all_reduce(mesh: Mesh, loss: torch.Tensor, grads):
@@ -286,13 +296,13 @@ def _jit_step(camera: Camera, config: RenderConfig, param_filter,
             with torch.cuda.device(buf.device):
                 keep = _snapshot(opt)
                 graph_, loss = graph.capture(lambda: body(state, buf),
-                                             name="train step")
+                                             name=_STEP_NAME)
                 _restore(opt, keep)
             entry = graphs[id(opt)] = (opt, graph_, buf, loss)
         _, graph_, buf, loss = entry
         with torch.cuda.device(buf.device):
             buf.copy_(target)
-            graph_.replay()
+            graph.replay(graph_, _STEP_NAME)
         return state._replace(step=state.step + 1), loss
 
     return step

@@ -28,11 +28,14 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import time
 import weakref
-from typing import Any, Callable, Dict, Iterable, Tuple
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+
+from opencl_ray_tracer_tpu_torch.utils import tracing
 
 _CONSTS: Dict[tuple, torch.Tensor] = {}
 
@@ -126,6 +129,7 @@ def _same_tree(a, b):
 # ---------------------------------------------------------------------------
 
 _CAPTURES: list = []  # the _Bodies of the capture under way
+_WARMING = 0  # depth of captures warming up: their conds make their counters
 _BODY_STREAMS: Dict[torch.device, torch.cuda.ExternalStream] = {}
 
 
@@ -189,7 +193,7 @@ class _Bodies:
 
 
 def cond(pred: torch.Tensor, true_fn: Callable, false_fn: Callable,
-         operands: tuple = ()):
+         operands: tuple = (), *, site: Optional[str] = None):
     """The port's `jax.lax.cond`: `true_fn(*operands)` where the one bool in
     `pred` is set, else `false_fn(*operands)`. Both branches return the same
     structure of tensors (tuples, lists, dicts, NamedTuples, dataclasses)
@@ -218,17 +222,26 @@ def cond(pred: torch.Tensor, true_fn: Callable, false_fn: Callable,
 
     A branch returns tensors it computes: one that shares its storage with
     an operand is copied first, so that the true branch's copy never writes
-    into an operand."""
+    into an operand.
+
+    `site` names the cond for the device counter `cond.<site>.brute`
+    (`utils.tracing`): each replay of a graph that holds the cond adds 1
+    there where `pred` is set, in the kernel that sets the branches, with
+    no node of its own. The counter's slot is made by the warm-up of
+    `capture` (a fill captured with the graph would clear it at every
+    replay); an uncaptured cond counts nothing."""
     if not (isinstance(pred, torch.Tensor) and pred.dtype == torch.bool
             and pred.numel() == 1):
         raise TypeError(f"cond: pred must be one bool tensor, got {pred!r}")
     pred = pred.reshape(())
     with torch.no_grad():
         if pred.is_cuda and torch.cuda.is_current_stream_capturing():
-            return _cond_nodes(pred, true_fn, false_fn, operands)
+            return _cond_nodes(pred, true_fn, false_fn, operands, site)
         flag = None
         if pred.is_cuda:
             _body_stream(pred.device)
+            if site is not None and _WARMING:
+                tracing.device_counter(_counter_name(site), pred.device)
             flag = pred.to(torch.int32)
         a = true_fn(*operands, run_if=flag)
         b = false_fn(*operands, run_if=flag)
@@ -237,7 +250,11 @@ def cond(pred: torch.Tensor, true_fn: Callable, false_fn: Callable,
                                       for x, y in zip(la, lb)]))
 
 
-def _cond_nodes(pred, true_fn, false_fn, operands):
+def _counter_name(site: str) -> str:
+    return f"cond.{site}.brute"
+
+
+def _cond_nodes(pred, true_fn, false_fn, operands, site):
     """`cond` under a capture: two IF nodes (see `cond`)."""
     if not _CAPTURES:
         raise RuntimeError("cond: a conditional node needs a capture begun by "
@@ -249,13 +266,22 @@ def _cond_nodes(pred, true_fn, false_fn, operands):
     if pred.device != bodies.device:
         raise ValueError(f"cond: pred on {pred.device}, the capture on "
                          f"{bodies.device}")
+    slot = None
+    if site is not None:
+        slot = tracing.device_counter(_counter_name(site), pred.device, make=False)
+        if slot is None:
+            raise RuntimeError(f"cond: the site {site!r} has no counter on "
+                               f"{pred.device}: capture through "
+                               f"runtime.graph.capture with a warm-up")
     lib = _library()
     body = bodies.open()
     main = ctypes.c_void_p(torch.cuda.current_stream(pred.device).cuda_stream)
     body_ptr = ctypes.c_void_p(body.cuda_stream)
     handles = (ctypes.c_ulonglong * 2)()
-    _check_rc(lib, lib.octrt_cond_handles(ctypes.c_void_p(pred.data_ptr()),
-                                          handles, main), "placing its handles")
+    _check_rc(lib, lib.octrt_cond_handles(
+        ctypes.c_void_p(pred.data_ptr()), handles, main,
+        ctypes.c_void_p(None if slot is None else slot.data_ptr())),
+        "placing its handles")
     operand_leaves: list = []
     _flatten(operands, operand_leaves)
     storages = {t.untyped_storage().data_ptr() for t in operand_leaves}
@@ -298,12 +324,19 @@ def capture(fn: Callable[[], Any], *, warmup: int = 2,
     kernel library, `device_const`s, cuBLAS and cuSOLVER handles, exists
     before the capture); the capture places each `cond` as conditional
     nodes. A capture that fails raises a RuntimeError that carries CUDA's
-    message."""
+    message. Its seconds, warm-up and capture, add to the counter
+    `graph.capture_s` (`utils.tracing`)."""
+    t0 = time.perf_counter()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
+    global _WARMING
     with torch.cuda.stream(side):
-        for _ in range(warmup):
-            fn()
+        _WARMING += 1
+        try:
+            for _ in range(warmup):
+                fn()
+        finally:
+            _WARMING -= 1
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     bodies = _Bodies(torch.device("cuda", torch.cuda.current_device()))
@@ -320,7 +353,16 @@ def capture(fn: Callable[[], Any], *, warmup: int = 2,
         # the bodies' memory lives as long as the graph (and is left to the
         # process's end where the graph is)
         weakref.finalize(graph, bodies.release).atexit = False
+    tracing.count("graph.capture_s", time.perf_counter() - t0)
     return graph, out
+
+
+def replay(graph: torch.cuda.CUDAGraph, name: str) -> None:
+    """`graph.replay()` inside the span `graph.replay`, counted under
+    `graph.replays.<name>` (`utils.tracing`)."""
+    tracing.count("graph.replays." + name)
+    with tracing.span("graph.replay"):
+        graph.replay()
 
 
 @dataclasses.dataclass
@@ -338,6 +380,9 @@ class Compiled:
         self.static = tuple(static)
         self.graphs: Dict[tuple, _Captured] = {}
         self.__doc__ = getattr(fn, "__doc__", None)
+        # a functools.partial is named by its function
+        self.name = getattr(fn, "__name__", None) or getattr(
+            getattr(fn, "func", None), "__name__", "")
 
     def __call__(self, *args, **kwargs):
         st = {k: kwargs.pop(k) for k in self.static if k in kwargs}
@@ -359,7 +404,7 @@ class Compiled:
                 with torch.no_grad():
                     for buf, t in zip(entry.inputs, leaves):
                         buf.copy_(t)
-            entry.graph.replay()
+            replay(entry.graph, self.name)
         return entry.outputs
 
     def _capture(self, spec, st, leaves) -> _Captured:
@@ -367,7 +412,7 @@ class Compiled:
             bufs = [t.detach().clone() for t in leaves]
         args, kwargs = _unflatten(spec, iter(bufs))
         graph, out = capture(lambda: self.fn(*args, **kwargs, **st),
-                             name=getattr(self.fn, "__name__", ""))
+                             name=self.name)
         return _Captured(graph, bufs, out)
 
 

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from opencl_ray_tracer_tpu_torch.runtime.graph import device_const
+from opencl_ray_tracer_tpu_torch.utils import tracing
 
 
 def _round_up(x: int, m: int) -> int:
@@ -129,42 +130,44 @@ class Scene:
         return self.num_triangles // 12
 
     def pack(self, lane: int = 128) -> "PackedScene":
-        """Transpose + pad to the kernel layout (differentiable)."""
-        s = self.num_spheres
-        t = self.num_triangles
-        sp = max(_round_up(max(s, 1), lane), lane)
-        tp = max(_round_up(max(t, 1), lane), lane)
-        dev = self.device
+        """Transpose + pad to the kernel layout (differentiable); the span
+        `frame.pack` (`utils.tracing`)."""
+        with tracing.span("frame.pack"):
+            s = self.num_spheres
+            t = self.num_triangles
+            sp = max(_round_up(max(s, 1), lane), lane)
+            tp = max(_round_up(max(t, 1), lane), lane)
+            dev = self.device
 
-        def pad(x, n, fill):
-            # the fill is a per-device constant: no host copy per call
-            tail = device_const(fill, dev).expand((n - x.shape[0],) + x.shape[1:])
-            return torch.cat([x, tail], dim=0)
+            def pad(x, n, fill):
+                # the fill is a per-device constant: no host copy per call
+                tail = device_const(fill, dev).expand((n - x.shape[0],) + x.shape[1:])
+                return torch.cat([x, tail], dim=0)
 
-        # Spheres: far-away zero-radius padding that can never win
-        # (distSq > 0 => miss; and t=1e9 > the 300000 sentinel regardless).
-        so = pad(self.sphere_origin, sp, [0.0, 0.0, 1e9])
-        sr = pad(self.sphere_radius, sp, 0.0)
-        sc = pad(self.sphere_colour, sp, 0.0)
-        # Triangles: zero padding => degenerate (det == 0) => guaranteed miss.
-        tv = pad(self.tri_verts, tp, 0.0)
-        tc = pad(self.tri_colour, tp, 0.0)
+            # Spheres: far-away zero-radius padding that can never win
+            # (distSq > 0 => miss; and t=1e9 > the 300000 sentinel regardless).
+            so = pad(self.sphere_origin, sp, [0.0, 0.0, 1e9])
+            sr = pad(self.sphere_radius, sp, 0.0)
+            sc = pad(self.sphere_colour, sp, 0.0)
+            # Triangles: zero padding => degenerate (det == 0) => guaranteed miss.
+            tv = pad(self.tri_verts, tp, 0.0)
+            tc = pad(self.tri_colour, tp, 0.0)
 
-        v0 = tv[:, 0, :]
-        e1 = tv[:, 1, :] - v0
-        e2 = tv[:, 2, :] - v0
-        return PackedScene(
-            sph_origin=so.T.contiguous(),          # (3, Sp)
-            sph_radius=sr[None, :].contiguous(),   # (1, Sp)
-            sph_colour=sc.T.contiguous(),          # (4, Sp)
-            tri_v0=v0.T.contiguous(),              # (3, Tp)
-            tri_e1=e1.T.contiguous(),              # (3, Tp)
-            tri_e2=e2.T.contiguous(),              # (3, Tp)
-            tri_colour=tc.T.contiguous(),          # (4, Tp)
-            lights=self.lights,
-            n_spheres=s,
-            n_tris=t,
-        )
+            v0 = tv[:, 0, :]
+            e1 = tv[:, 1, :] - v0
+            e2 = tv[:, 2, :] - v0
+            return PackedScene(
+                sph_origin=so.T.contiguous(),          # (3, Sp)
+                sph_radius=sr[None, :].contiguous(),   # (1, Sp)
+                sph_colour=sc.T.contiguous(),          # (4, Sp)
+                tri_v0=v0.T.contiguous(),              # (3, Tp)
+                tri_e1=e1.T.contiguous(),              # (3, Tp)
+                tri_e2=e2.T.contiguous(),              # (3, Tp)
+                tri_colour=tc.T.contiguous(),          # (4, Tp)
+                lights=self.lights,
+                n_spheres=s,
+                n_tris=t,
+            )
 
 
 @dataclasses.dataclass

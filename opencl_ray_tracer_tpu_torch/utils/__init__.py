@@ -25,6 +25,7 @@ from opencl_ray_tracer_tpu_torch.utils import (
     platform_info,
     profiling,
     rng,
+    tracing,
 )
 
 __all__ = [
@@ -49,4 +50,5 @@ __all__ = [
     "platform_info",
     "profiling",
     "rng",
+    "tracing",
 ]

@@ -1,7 +1,7 @@
 """Profiling and speed of light on one NVIDIA H100 — the counterpart of the
 JAX package's utils/profiling.py (whose v5e VPU estimates do not carry
-over): torch.profiler traces, annotated ranges, the device's busy time per
-call, and the least time the card could take for each kernel's work.
+over): the device's busy time per call, and the least time the card could
+take for each kernel's work (spans and counters: `utils.tracing`).
 
 A bound is the larger of two times: the operations that this run's data
 needs over the card's peak float32 rate, and the bytes that the function
@@ -12,15 +12,11 @@ call the kernels' plain twins.
 
 from __future__ import annotations
 
-import contextlib
-import os
 import re
 import time
-from typing import Iterator, Optional
+from typing import Optional
 
 import torch
-
-from opencl_ray_tracer_tpu_torch.utils.log import log_info
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside the
 # tensor cores, and device memory.
@@ -311,29 +307,6 @@ def sol_fraction(device_ms: float, bound_ms: float, bound_by: str) -> dict:
     bound / measured}."""
     return {"bound": bound_by, "ideal_ms": bound_ms,
             "achieved_fraction": bound_ms / device_ms if device_ms > 0 else 0.0}
-
-
-@contextlib.contextmanager
-def trace(dump_dir: str) -> Iterator[torch.profiler.profile]:
-    """Capture a torch.profiler trace (host and, on a card, device
-    activity) around a region and write it as a Chrome trace into
-    dump_dir."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(dump_dir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield prof
-    path = os.path.join(dump_dir, "trace.json")
-    prof.export_chrome_trace(path)
-    log_info("profiler trace written to %s", path)
-
-
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Named range in profiler timelines."""
-    with torch.profiler.record_function(name):
-        yield
 
 
 def device_kind() -> Optional[str]:

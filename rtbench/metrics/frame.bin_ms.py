@@ -1,0 +1,16 @@
+"""Host time a frame in binning (`kernels.fwd_tiled.bin_for_config`, re-bins
+included: the program's span frame.bin, its self time, so without the host
+read), in the traced stretch, which the profiler slows (`utils.tracing`, on
+the host's clock)."""
+
+
+def read(run):
+    try:
+        from opencl_ray_tracer_tpu_torch.utils import tracing
+    except ImportError:  # a program without its recorder
+        return None
+    t = run.trace
+    if not t or not t["units"]:
+        return None
+    s = run.memo("program_snapshot", tracing.snapshot)["spans"].get("frame.bin")
+    return None if s is None else 1e3 * s["self_s"] / t["units"]

@@ -24,6 +24,7 @@ from opencl_ray_tracer_tpu_torch.kernels import (
 )
 from opencl_ray_tracer_tpu_torch.ref import render_reference
 from opencl_ray_tracer_tpu_torch.scene import scene_from_arrays, scene_to_arrays
+from opencl_ray_tracer_tpu_torch.utils import tracing
 
 torch.set_num_threads(2)
 
@@ -61,9 +62,9 @@ def _both(scenes, name, cam_kind, w=W, h=H, **cfg):
     jc, tc = _cameras(cam_kind, w, h)
     kw = dict(width=w, height=h, **cfg)
     want = np.asarray(j_render_pallas(js, jc, J.RenderConfig(**kw), interpret=True))
-    before = fwd.BRUTE_LAUNCHES
+    before = tracing.counter("launch.B3")
     got = render_pallas(ts, tc, T.RenderConfig(**kw))
-    assert fwd.BRUTE_LAUNCHES == before  # CPU: the twin, no launch
+    assert tracing.counter("launch.B3") == before  # CPU: the twin, no launch
     return got.numpy(), want
 
 

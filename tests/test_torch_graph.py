@@ -51,6 +51,7 @@ from opencl_ray_tracer_tpu_torch.parallel import (
 from opencl_ray_tracer_tpu_torch.parallel.train import scene_leaves
 from opencl_ray_tracer_tpu_torch.runtime import graph
 from opencl_ray_tracer_tpu_torch.scene import scene_from_arrays, scene_to_arrays
+from opencl_ray_tracer_tpu_torch.utils import tracing
 
 torch.set_num_threads(2)
 
@@ -90,11 +91,11 @@ def test_render_tiled_jit_matches_jax_cond(case):
     tbins = fwd_tiled.bin_fixed(tp, tc, tcfg)
     assert bool(tbins.overflow) == bool(jbins.overflow) == (case == "pile")
 
-    before = (fwd_tiled.KERNEL_LAUNCHES, fwd.BRUTE_LAUNCHES)
+    before = (tracing.counter("launch.B1"), tracing.counter("launch.B3"))
     got = fwd_tiled._render_tiled_jit(tp, tc, tbins, height=HH, width=HW,
                                       shading=shading, shadows=shadows,
                                       out_format="packed")
-    assert (fwd_tiled.KERNEL_LAUNCHES, fwd.BRUTE_LAUNCHES) == before  # twins
+    assert (tracing.counter("launch.B1"), tracing.counter("launch.B3")) == before  # twins
     assert got.shape == want.shape == (HH, HW) and got.dtype == torch.int32
     same = (got.numpy() == want).mean()
     assert same >= 0.999, f"only {same:.4%} of the words identical"
@@ -169,10 +170,10 @@ def test_soft_tiled_core_matches_jax(case):
     assert bool(tbins.overflow) == bool(jbins.overflow) == (case == "pile")
 
     want = np.asarray(jst.render_soft_tiled(js, jc, jcfg, interpret=True))
-    before = (soft_tiled.FWD_LAUNCHES, soft.SOFT_BRUTE_FWD_LAUNCHES)
+    before = (tracing.counter("launch.B4"), tracing.counter("launch.B6"))
     with torch.no_grad():
         got = _core(ts, tcfg, tc).numpy()
-    assert (soft_tiled.FWD_LAUNCHES, soft.SOFT_BRUTE_FWD_LAUNCHES) == before
+    assert (tracing.counter("launch.B4"), tracing.counter("launch.B6")) == before
     assert got.shape == want.shape == (SH, SW, 4)
     assert (want[..., :3] > 1.0).any(), "the camera sees nothing"
     err = np.abs(got - want).max()

@@ -18,7 +18,7 @@ import torch
 
 import opencl_ray_tracer_tpu_torch as T
 from opencl_ray_tracer_tpu_torch.kernels import fwd_tiled
-from opencl_ray_tracer_tpu_torch.utils import unpack_words
+from opencl_ray_tracer_tpu_torch.utils import tracing, unpack_words
 
 torch.set_num_threads(2)
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -67,10 +67,10 @@ def _inputs(device, scene_num, cam_kind, shading, shadows, fmt):
 def test_kernel_matches_twin(cuda_device, scene_num, cam_kind, shading,
                              shadows, fmt):
     args, kw = _inputs(cuda_device, scene_num, cam_kind, shading, shadows, fmt)
-    before = fwd_tiled.KERNEL_LAUNCHES
+    before = tracing.counter("launch.B1")
     got = fwd_tiled.tiled_kernel(*args, **kw)
     torch.cuda.synchronize()
-    assert fwd_tiled.KERNEL_LAUNCHES == before + 1
+    assert tracing.counter("launch.B1") == before + 1
     want = fwd_tiled._tiled_kernel_plain(*args, **kw)
     assert got.shape == want.shape and got.dtype == want.dtype
     if fmt == "packed":
@@ -349,14 +349,15 @@ def test_soft_kernels_match_twin(cuda_device, scene_name, cam_kind, shading,
                                  shadows):
     S, scene, cam, cfg = _soft_case(cuda_device, scene_name, cam_kind,
                                     shading, shadows)
-    before = (S.FWD_LAUNCHES, S.BWD_LAUNCHES)
+    before = (tracing.counter("launch.B4"), tracing.counter("launch.B5"))
     with torch.no_grad():
         got = S.render_soft_tiled(scene, cam, cfg)
         want = _twin(scene, cam, cfg)
     assert (got - want).abs().max().item() < 0.05
     gk = _soft_grads(S.render_soft_tiled, scene, cam, cfg)
     gt = _soft_grads(_twin, scene, cam, cfg)
-    assert S.FWD_LAUNCHES > before[0] and S.BWD_LAUNCHES > before[1]
+    assert (tracing.counter("launch.B4") > before[0]
+            and tracing.counter("launch.B5") > before[1])
     atol = 1e-3 if cam_kind == "ortho" else 2e-3
     for k, w in gt.items():
         g = gk[k]
@@ -423,10 +424,10 @@ def test_soft_tiled_fwd_tile_list(cuda_device, scene_name, kind, shading, shadow
                                     tri_verts=scene.tri_verts + shift)
     with torch.no_grad():
         params, taus, tables, counts, kc = S.soft_kernel_inputs(scene.pack(), cam, cfg)
-        before = S.FWD_LAUNCHES
+        before = tracing.counter("launch.B4")
         got, tiles = S._soft_tiled_fwd_cuda(params, taus, tables, counts, kc)
         torch.cuda.synchronize()
-        assert S.FWD_LAUNCHES == before + 1
+        assert tracing.counter("launch.B4") == before + 1
         _assert_list(tiles, counts)
         if kind == "empty":
             bg = torch.tensor([0.0, 0.0, 0.0, 255.0], device=cuda_device)
@@ -466,11 +467,11 @@ def test_soft_tiled_bwd_cotangents(cuda_device, scene_name, shading, shadows,
         g[40:44, 96:104, :3] = 0.5
     elif cotangent == "dense":
         g[..., :3] = 1e-3
-    before = S.BWD_LAUNCHES
+    before = tracing.counter("launch.B5")
     inputs = (params, taus) + tuple(tables)
     got, live = S._soft_tiled_bwd_cuda(params, taus, tables, counts, g, kc)
     torch.cuda.synchronize()
-    assert S.BWD_LAUNCHES == before + 1
+    assert tracing.counter("launch.B5") == before + 1
     want_live = S._live_patches(g, counts, cfg=kc)
     assert live[0].item() == want_live.numel()
     assert torch.equal(live[2:2 + want_live.numel()].sort().values.long(), want_live)
@@ -530,13 +531,13 @@ def test_soft_tiled_fwd_finals_block(cuda_device, scene_name, cam_kind, shading,
                                      shadows):
     S, ops, kc = _finals_operands(cuda_device, scene_name, cam_kind, shading, shadows)
     block = S.finals_block(kc, cuda_device).fill_(float("nan"))
-    before = (S.FWD_LAUNCHES, S.FWD_FINALS_LAUNCHES)
+    before = (tracing.counter("launch.B4"), tracing.counter("launch.B4_finals"))
     with torch.no_grad():
         img = S.soft_tiled_fwd(*ops, cfg=kc, finals=block)
         lean = S.soft_tiled_fwd(*ops, cfg=kc)
         want_img, want = S._soft_tiled_plain(*ops, cfg=kc, want_finals=True)
     torch.cuda.synchronize()
-    assert (S.FWD_LAUNCHES, S.FWD_FINALS_LAUNCHES) == (before[0] + 2, before[1] + 1)
+    assert (tracing.counter("launch.B4"), tracing.counter("launch.B4_finals")) == (before[0] + 2, before[1] + 1)
     assert torch.equal(img, lean)
     assert (img - want_img).abs().max().item() < 0.05
     names = [n for n, _ in S.finals_layout(kc)]
@@ -573,13 +574,13 @@ def test_soft_tiled_bwd_reads_the_block(cuda_device, scene_name, cam_kind, shadi
     with torch.no_grad():
         S.soft_tiled_fwd(*ops, cfg=kc, finals=nan_block)
         S.soft_tiled_fwd(*ops, cfg=kc, finals=block)
-    before = (S.BWD_LAUNCHES, S.BWD_FINALS_LAUNCHES)
+    before = (tracing.counter("launch.B5"), tracing.counter("launch.B5_finals"))
     stored = S.soft_tiled_bwd(*ops, g, cfg=kc, finals=block)
     from_nan = S.soft_tiled_bwd(*ops, g, cfg=kc, finals=nan_block)
     zeros = S.soft_tiled_bwd(*ops, torch.zeros_like(g), cfg=kc, finals=nan_block)
     recompute = S.soft_tiled_bwd(*ops, g, cfg=kc)
     torch.cuda.synchronize()
-    assert (S.BWD_LAUNCHES, S.BWD_FINALS_LAUNCHES) == (before[0] + 4, before[1] + 3)
+    assert (tracing.counter("launch.B5"), tracing.counter("launch.B5_finals")) == (before[0] + 4, before[1] + 3)
     assert all(bool((z == 0).all()) for z in zeros)
     params, taus, tables, counts = ops
     leaves = [t.detach().requires_grad_(True) for t in (params, taus) + tuple(tables)]
@@ -633,10 +634,10 @@ def test_soft_core_stored_finals_branches(cuda_device, monkeypatch, k):
                               for v, g in zip(leaves.values(), grads)]
 
     img_r, g_r = run(1 << 30)
-    before = (S.FWD_FINALS_LAUNCHES, S.BWD_FINALS_LAUNCHES)
+    before = (tracing.counter("launch.B4_finals"), tracing.counter("launch.B5_finals"))
     img_s, g_s = run(0)
     torch.cuda.synchronize()
-    assert (S.FWD_FINALS_LAUNCHES - before[0], S.BWD_FINALS_LAUNCHES - before[1]) == (1, 1)
+    assert (tracing.counter("launch.B4_finals") - before[0], tracing.counter("launch.B5_finals") - before[1]) == (1, 1)
     assert torch.equal(img_s, img_r)
     for a, b in zip(g_s, g_r):
         assert torch.isfinite(a).all()
@@ -676,17 +677,17 @@ def test_jit_train_step_stored_finals_matches_eager(cuda_device, monkeypatch):
                     b.copy_(a)
                     for k, v in sj.opt_state.state[b].items():
                         v.copy_(se.opt_state.state[a][k])
-        before = (S.FWD_FINALS_LAUNCHES, S.BWD_FINALS_LAUNCHES)
+        before = (tracing.counter("launch.B4_finals"), tracing.counter("launch.B5_finals"))
         se, le = step_e(se, target)
         torch.cuda.synchronize()
-        assert (S.FWD_FINALS_LAUNCHES - before[0],
-                S.BWD_FINALS_LAUNCHES - before[1]) == (1, 1)
-        before = (S.FWD_FINALS_LAUNCHES, S.BWD_FINALS_LAUNCHES)
+        assert (tracing.counter("launch.B4_finals") - before[0],
+                tracing.counter("launch.B5_finals") - before[1]) == (1, 1)
+        before = (tracing.counter("launch.B4_finals"), tracing.counter("launch.B5_finals"))
         sj, lj = step_j(sj, target)
         torch.cuda.synchronize()
         if i == 0:  # the warm-up and the capture (a replay calls no wrapper)
-            assert S.FWD_FINALS_LAUNCHES - before[0] >= 1
-            assert S.BWD_FINALS_LAUNCHES - before[1] >= 1
+            assert tracing.counter("launch.B4_finals") - before[0] >= 1
+            assert tracing.counter("launch.B5_finals") - before[1] >= 1
         assert abs(lj.item() - le.item()) <= 1e-6 * abs(le.item())
         for k, v in scene_leaves(se.scene).items():
             rel = ((scene_leaves(sj.scene)[k] - v).abs()
@@ -723,10 +724,10 @@ def test_brute_kernel_matches_twin(cuda_device, scene_num, cam_kind, shading,
     cfg = T.RenderConfig(width=W, height=H, shading=shading, shadows=shadows,
                          framebuffer_dtype="float")
     args, kw = fwd.brute_kernel_inputs(scene.pack(), cam, cfg)
-    before = fwd.BRUTE_LAUNCHES
+    before = tracing.counter("launch.B3")
     got = fwd.brute_kernel(*args, **kw)
     torch.cuda.synchronize()
-    assert fwd.BRUTE_LAUNCHES == before + 1
+    assert tracing.counter("launch.B3") == before + 1
     want = fwd._brute_kernel_plain(*args, **kw)
     assert got.shape == want.shape == (H, W, 4)
     assert (got - want).abs().max().item() < 0.5
@@ -833,7 +834,7 @@ def test_soft_brute_kernels_match_twin(cuda_device, scene_name, cam_kind,
     inputs += [a.contiguous() for a in soft._prep_soft_arrays(packed)]
     kw = dict(height=SOFT_H, width=SOFT_W,
               cfg=soft._static_cfg(packed, shading, shadows, cam.normalize))
-    before = (soft.SOFT_BRUTE_FWD_LAUNCHES, soft.SOFT_BRUTE_BWD_LAUNCHES)
+    before = (tracing.counter("launch.B6"), tracing.counter("launch.B7"))
     got = soft.soft_brute_fwd(*inputs, **kw)
     with torch.no_grad():
         want = soft._soft_brute_plain(*inputs, **kw)
@@ -841,7 +842,7 @@ def test_soft_brute_kernels_match_twin(cuda_device, scene_name, cam_kind,
     g = _cotangent(cotangent, want)
     gk, live = soft._soft_brute_bwd_cuda(inputs, g, SOFT_H, SOFT_W, kw["cfg"])
     torch.cuda.synchronize()
-    assert (soft.SOFT_BRUTE_FWD_LAUNCHES, soft.SOFT_BRUTE_BWD_LAUNCHES) == (
+    assert (tracing.counter("launch.B6"), tracing.counter("launch.B7")) == (
         before[0] + 1, before[1] + 1)
     # the list of live patches that the card built, against its plain version
     want_live = soft._live_patches(g)
@@ -925,11 +926,11 @@ def test_run_if_runs_or_skips_the_kernel(cuda_device, kernel):
         if kernel == "B1":
             args, kw = _inputs(cuda_device, 1, "ortho", "phong", True, "packed")
             call = lambda **b: fwd_tiled.tiled_kernel(*args, **kw, **b)  # noqa: E731
-            mod, name = fwd_tiled, "KERNEL_LAUNCHES"
+            launches = "launch.B1"
         else:
             args, kw = fwd.brute_kernel_inputs(packed, cam, cfg)
             call = lambda **b: fwd.brute_kernel(*args, **kw, **b)  # noqa: E731
-            mod, name = fwd, "BRUTE_LAUNCHES"
+            launches = "launch.B3"
     else:
         cfg = T.RenderConfig(width=SOFT_W, height=SOFT_H, shading="phong",
                              shadows=True, soft=True, framebuffer_dtype="float",
@@ -938,7 +939,7 @@ def test_run_if_runs_or_skips_the_kernel(cuda_device, kernel):
             params, taus, tables, counts, kc = S.soft_kernel_inputs(packed, cam, cfg)
             call = lambda **b: S.soft_tiled_fwd(  # noqa: E731
                 params, taus, tables, counts, cfg=kc, **b)
-            mod, name = S, "FWD_LAUNCHES"
+            launches = "launch.B4"
         else:
             inputs = [soft._camera_params(cam, packed.lights).contiguous(),
                       torch.tensor([1.0, 0.5], device=cuda_device)]
@@ -946,15 +947,15 @@ def test_run_if_runs_or_skips_the_kernel(cuda_device, kernel):
             kw = dict(height=SOFT_H, width=SOFT_W,
                       cfg=soft._static_cfg(packed, "phong", True, False))
             call = lambda **b: soft.soft_brute_fwd(*inputs, **kw, **b)  # noqa: E731
-            mod, name = soft, "SOFT_BRUTE_FWD_LAUNCHES"
+            launches = "launch.B6"
     with torch.no_grad():
         want = call()
         for flag, wanted in ((0, 0), (1, 1), (1, 0), (0, 1)):
-            before = getattr(mod, name)
+            before = tracing.counter(launches)
             got = call(run_if=torch.tensor(flag, dtype=torch.int32,
                                            device=cuda_device), want=wanted)
             torch.cuda.synchronize()
-            assert getattr(mod, name) == before + 1
+            assert tracing.counter(launches) == before + 1
             if flag == wanted:
                 assert torch.equal(got, want), (flag, wanted)
             else:
@@ -998,7 +999,10 @@ def _branch_case(case):
     """One compiled case of `test_replay_runs_only_the_branch_taken`, in
     this process: (kernels its replay ran, kernels of the branch taken,
     kernels of the other branch) from a profiler trace of one replay, after
-    checking the replay's result against the eager call's."""
+    checking the replay's result against the eager call's, and the card's
+    counter of the soft forward's cond (`cond.soft_tiled.fwd.brute`, the
+    one cond that names a site) against the replays that took the brute
+    branch."""
     from opencl_ray_tracer_tpu_torch.kernels import fwd
     from opencl_ray_tracer_tpu_torch.models.renderer import render_jit
     from opencl_ray_tracer_tpu_torch.ops.shading import pack_framebuffer_words
@@ -1030,6 +1034,7 @@ def _branch_case(case):
         assert torch.equal(got, want)
         seen = kernels_in(trace_ops(lambda: fn(scene, cam)))
         taken, other = ({"B3"}, {"B1/B2"}) if brute else ({"B1/B2"}, {"B3"})
+        sites, name = (), "render_tiled_fixed"
     else:
         w, h = 128, 64
         if brute:
@@ -1052,6 +1057,11 @@ def _branch_case(case):
         seen = kernels_in(trace_ops(lambda: step_j(sj, target)))
         taken, other = ({"B6", "B7"}, {"B4", "B5"}) if brute \
             else ({"B4", "B5"}, {"B6", "B7"})
+        sites, name = ("soft_tiled.fwd",), "train step"
+    replays = 3  # the first call's, then trace_ops's two
+    assert tracing.counter(f"graph.replays.{name}") == replays
+    counts = {site: tracing.counter(f"cond.{site}.brute") for site in sites}
+    assert counts == dict.fromkeys(sites, replays if brute else 0), counts
     return sorted(seen), sorted(taken), sorted(other)
 
 

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from opencl_ray_tracer_tpu_torch.kernels import fwd_tiled
+from opencl_ray_tracer_tpu_torch.utils import tracing
 
 torch.set_num_threads(2)
 
@@ -105,10 +106,10 @@ def test_kernel_wrapper_device_policy():
     args, kw = fwd_tiled.kernel_inputs(
         packed, legacy_ortho_camera(device=cpu), bins, height=64, width=128,
         shading="phong", shadows=True, out_format="packed")
-    before = fwd_tiled.KERNEL_LAUNCHES
+    before = tracing.counter("launch.B1")
     out = fwd_tiled.tiled_kernel(*args, **kw)
     assert out.shape == (64, 128) and out.dtype == torch.int32
-    assert fwd_tiled.KERNEL_LAUNCHES == before
+    assert tracing.counter("launch.B1") == before
     meta = [a.to("meta") for a in args]
     with pytest.raises(ValueError, match="cuda or cpu"):
         fwd_tiled.tiled_kernel(*meta, **kw)
@@ -121,14 +122,14 @@ def test_kernel_wrapper_device_policy():
     params, taus, tables, counts, kc = soft_tiled.soft_kernel_inputs(
         packed, legacy_ortho_camera(device=cpu), scfg)
     tables = tuple(t.detach() for t in tables)
-    before = (soft_tiled.FWD_LAUNCHES, soft_tiled.BWD_LAUNCHES)
+    before = (tracing.counter("launch.B4"), tracing.counter("launch.B5"))
     img = soft_tiled.soft_tiled_fwd(params.detach(), taus, tables, counts, cfg=kc)
     assert img.shape == (64, 128, 4) and img.dtype == torch.float32
     grads = soft_tiled.soft_tiled_bwd(params.detach(), taus, tables, counts,
                                       torch.ones_like(img), cfg=kc)
     assert [tuple(g.shape) for g in grads] == [
         tuple(t.shape) for t in (params, taus) + tables]
-    assert (soft_tiled.FWD_LAUNCHES, soft_tiled.BWD_LAUNCHES) == before
+    assert (tracing.counter("launch.B4"), tracing.counter("launch.B5")) == before
     to_meta = lambda ts: tuple(t.to("meta") for t in ts)  # noqa: E731
     with pytest.raises(ValueError, match="cuda or cpu"):
         soft_tiled.soft_tiled_fwd(params.to("meta"), taus.to("meta"),
@@ -155,10 +156,10 @@ def test_brute_wrappers_device_policy():
     cfg = RenderConfig(width=64, height=32, shading="phong", shadows=True,
                        framebuffer_dtype="float")
     args, kw = fwd.brute_kernel_inputs(packed, cam, cfg)
-    before = fwd.BRUTE_LAUNCHES
+    before = tracing.counter("launch.B3")
     out = fwd.brute_kernel(*args, **kw)
     assert out.shape == (32, 64, 4) and out.dtype == torch.float32
-    assert fwd.BRUTE_LAUNCHES == before
+    assert tracing.counter("launch.B3") == before
     with pytest.raises(ValueError, match="cuda or cpu"):
         fwd.brute_kernel(*(a.to("meta") for a in args), **kw)
     with pytest.raises(ValueError, match="shading"):
@@ -168,12 +169,12 @@ def test_brute_wrappers_device_policy():
     inputs += list(soft._prep_soft_arrays(packed))
     skw = dict(height=32, width=64,
                cfg=soft._static_cfg(packed, "phong", True, False))
-    before = (soft.SOFT_BRUTE_FWD_LAUNCHES, soft.SOFT_BRUTE_BWD_LAUNCHES)
+    before = (tracing.counter("launch.B6"), tracing.counter("launch.B7"))
     img = soft.soft_brute_fwd(*inputs, **skw)
     assert img.shape == (32, 64, 4) and img.dtype == torch.float32
     grads = soft.soft_brute_bwd(*inputs, torch.ones_like(img), **skw)
     assert [tuple(g.shape) for g in grads] == [tuple(t.shape) for t in inputs]
-    assert (soft.SOFT_BRUTE_FWD_LAUNCHES, soft.SOFT_BRUTE_BWD_LAUNCHES) == before
+    assert (tracing.counter("launch.B6"), tracing.counter("launch.B7")) == before
     meta = [t.to("meta") for t in inputs]
     with pytest.raises(ValueError, match="cuda or cpu"):
         soft.soft_brute_fwd(*meta, **skw)

@@ -16,6 +16,7 @@ from opencl_ray_tracer_tpu_torch.kernels import fwd, fwd_tiled
 from opencl_ray_tracer_tpu_torch.kernels import soft as B
 from opencl_ray_tracer_tpu_torch.ref import render_reference
 from opencl_ray_tracer_tpu_torch.utils import profiling as P
+from opencl_ray_tracer_tpu_torch.utils import tracing
 
 torch.set_num_threads(2)
 
@@ -228,12 +229,19 @@ def test_rays_and_sol_fraction():
 
 
 def test_trace_and_annotate_write_a_chrome_trace(tmp_path):
-    with P.trace(str(tmp_path / "tr")):
-        with P.annotate("octrt_probe"):
+    """A span of the port's recorder opened inside a torch profiler shows in
+    the profiler's Chrome trace under the program's prefix, as a host
+    operation: not a user annotation, which the profiler would mirror on
+    the device's timeline."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with tracing.span("probe"):
             torch.ones(8).sum()
-    with open(tmp_path / "tr" / "trace.json") as f:
-        names = {e.get("name") for e in json.load(f)["traceEvents"]}
-    assert "octrt_probe" in names
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        cats = {e.get("name"): e.get("cat") for e in json.load(f)["traceEvents"]}
+    assert cats[tracing.PREFIX + "probe"] == "cpu_op"
     assert P.device_kind() is None  # no card here
 
 

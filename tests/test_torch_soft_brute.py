@@ -24,6 +24,7 @@ from opencl_ray_tracer_tpu_torch.kernels import soft as S
 from opencl_ray_tracer_tpu_torch.kernels.soft_tiled import render_soft_tiled
 from opencl_ray_tracer_tpu_torch.parallel.train import scene_leaves, trainable_scene
 from opencl_ray_tracer_tpu_torch.scene import scene_from_arrays, scene_to_arrays
+from opencl_ray_tracer_tpu_torch.utils import tracing
 
 torch.set_num_threads(2)
 
@@ -74,9 +75,9 @@ def test_soft_render_core_matches_jax(scenes, cam_kind, shading, shadows):
     nd = cam_kind == "pinhole"
     want = np.asarray(_jax_core(js.pack(), jc, jnp.float32(1.0),
                                 jnp.float32(0.5), shading, shadows, nd))
-    before = (S.SOFT_BRUTE_FWD_LAUNCHES, S.SOFT_BRUTE_BWD_LAUNCHES)
+    before = (tracing.counter("launch.B6"), tracing.counter("launch.B7"))
     got = S._soft_render_core(ts.pack(), tc, 1.0, 0.5, H, W, shading, shadows, nd)
-    assert (S.SOFT_BRUTE_FWD_LAUNCHES, S.SOFT_BRUTE_BWD_LAUNCHES) == before
+    assert (tracing.counter("launch.B6"), tracing.counter("launch.B7")) == before
     got = got.numpy()
     assert got.shape == want.shape == (H, W, 4) and np.isfinite(got).all()
     if shading != "legacy":

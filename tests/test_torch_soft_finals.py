@@ -32,6 +32,7 @@ import opencl_ray_tracer_tpu_torch as T
 from opencl_ray_tracer_tpu.kernels import soft_tiled as jst
 from opencl_ray_tracer_tpu_torch.kernels import soft_tiled as S
 from opencl_ray_tracer_tpu_torch.scene import scene_from_arrays, scene_to_arrays
+from opencl_ray_tracer_tpu_torch.utils import tracing
 
 torch.set_num_threads(2)
 
@@ -117,9 +118,9 @@ def test_stored_finals_grads_match_jax(scenes, monkeypatch, shading, shadows,
     _force(monkeypatch, False)
     recompute = _leaf_grads_torch(arrays, tc, tcfg)
     _force(monkeypatch, True, jax_too=True)
-    fwd_before = S.FWD_FINALS_LAUNCHES
+    fwd_before = tracing.counter("launch.B4_finals")
     stored = _leaf_grads_torch(arrays, tc, tcfg)
-    assert S.FWD_FINALS_LAUNCHES == fwd_before  # CPU: the twin
+    assert tracing.counter("launch.B4_finals") == fwd_before  # CPU: the twin
     _close(stored, recompute, 1e-5, "stored vs recompute")
     want = _leaf_grads_jax(js, jc, jcfg)
     _close(stored, want, 2e-3 if cam_kind == "pinhole" else 1e-3,

@@ -20,6 +20,7 @@ import opencl_ray_tracer_tpu_torch as T
 from opencl_ray_tracer_tpu.kernels import soft_tiled as jst
 from opencl_ray_tracer_tpu_torch.kernels import soft_tiled as S
 from opencl_ray_tracer_tpu_torch.scene import scene_from_arrays, scene_to_arrays
+from opencl_ray_tracer_tpu_torch.utils import tracing
 
 torch.set_num_threads(2)
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -97,9 +98,9 @@ def test_render_soft_tiled_matches_jax(scenes, cam_kind, shading, shadows):
     jc, tc = _cameras(cam_kind)
     jcfg, tcfg = _cfgs(shading, shadows)
     want = np.asarray(jst.render_soft_tiled(js, jc, jcfg, interpret=True))
-    before = (S.FWD_LAUNCHES, S.BWD_LAUNCHES)
+    before = (tracing.counter("launch.B4"), tracing.counter("launch.B5"))
     got = S.render_soft_tiled(ts, tc, tcfg)
-    assert (S.FWD_LAUNCHES, S.BWD_LAUNCHES) == before  # CPU: the twin
+    assert (tracing.counter("launch.B4"), tracing.counter("launch.B5")) == before  # CPU: the twin
     got = got.detach().numpy()
     assert got.shape == want.shape == (H, W, 4)
     if shading != "legacy":
@@ -177,7 +178,7 @@ def test_overflow_escalates_k():
     tiled40 = np.asarray(jst.render_soft_tiled(
         jp, cam_j, jcfg.replace(cull_k=40), interpret=True))
     assert (np.abs(want - tiled40).max(-1) > 1e-4).mean() > 0.01
-    before = (S.FWD_LAUNCHES, S.BWD_LAUNCHES)
+    before = (tracing.counter("launch.B4"), tracing.counter("launch.B5"))
     for render in (S.render_soft_tiled, render_soft_pallas):
         with torch.no_grad():
             got = render(tp, cam_t, tcfg).numpy()
@@ -186,7 +187,7 @@ def test_overflow_escalates_k():
     with torch.no_grad():
         got40 = S.render_soft_tiled(tp, cam_t, tcfg.replace(cull_k=40)).numpy()
     assert np.abs(got40 - tiled40).max() < 0.05
-    assert (S.FWD_LAUNCHES, S.BWD_LAUNCHES) == before  # CPU: the twins
+    assert (tracing.counter("launch.B4"), tracing.counter("launch.B5")) == before  # CPU: the twins
 
     want_g = _leaf_grads_jax(jp, cam_j, jcfg)
     got_g = _leaf_grads_torch(arrays, cam_t, tcfg)
