@@ -18,9 +18,11 @@ forms (CUDA graphs) — through the entry points a user calls, and fails
 5. the main path at full size: the bench headline frame (10 spheres +
    1 cube, 1920x1080, phong + hard shadows, packed words, legacy ortho
    camera) through models.renderer.render(backend="pallas"), and the
-   640x480 scene-1 frame of the JAX package's entry(); launch counts, a
-   check against the twin and the oracle, and CUDA-event timings of the
-   kernel, its twin and the whole frame;
+   640x480 scene-1 frame of the JAX package's entry(), each three times
+   (eager, captured and replayed, replayed: the same frame bit for bit);
+   launch and replay counts, the replayed frame against the twin, B1 on
+   the same bins and the oracle, and CUDA-event timings of the kernel, its
+   twin and the whole frame;
 6. where the time goes: the frame's stages timed back to back in one loop
    (they add up to the frame), and a device trace of 20 frames for kernels
    per frame and the device's busy share; then B1/B2 on the inputs of
@@ -127,7 +129,8 @@ forms (CUDA graphs) — through the entry points a user calls, and fails
    every frame (pallas frames identical to the scene's CPU frame on >
    99.9% of pixels, xla frames on >= 99.9%); the flythrough example at its
    defaults (1280x720, 60 frames, phong + shadows, pinhole; frame 0
-   through B2 against the twin) and the inverse-rendering example at its
+   through B2 against the twin, then a frame replayed from the graph the
+   demo's loop captured against the twin and B2 on the same bins) and the inverse-rendering example at its
    defaults (the loss falls; B4 and B5 launched: at the compiled step's
    warm-up and capture, its replays uncounted); the memory report shows
    bytes in use on the card and the platform report names it;
@@ -214,6 +217,13 @@ import statistics
 import subprocess
 import sys
 import time
+
+
+def _hard_launches(tracing):
+    """B1/B2 runs counted since the last reset: launches from the host, and
+    replays of `render_tiled`'s frame graphs, each of which runs B1/B2 once
+    on the card."""
+    return tracing.counter("launch.B1") + tracing.counter("graph.replays.render_tiled")
 
 
 def _require(cond, msg):
@@ -390,13 +400,28 @@ def main() -> int:
     entry_cfg = T.RenderConfig(width=640, height=480, shading="phong",
                                shadows=True, framebuffer_dtype="packed")
 
+    # each frame three times: eager (a key's first call), captured and
+    # replayed, replayed; the last is the frame held against the twin below
     tracing.reset()
-    hl_out = render(headline, ortho, hl_cfg, backend="pallas")
-    entry_out = fwd_tiled.render_tiled(entry_scene, ortho, entry_cfg)
+    hl_runs = [render(headline, ortho, hl_cfg, backend="pallas") for _ in range(3)]
+    entry_runs = [fwd_tiled.render_tiled(entry_scene, ortho, entry_cfg)
+                  for _ in range(3)]
     torch.cuda.synchronize()
-    main_launches = tracing.counter("launch.B1")
-    print(f"[main] kernel launches in the main-path run: {main_launches}")
-    _require(main_launches >= 2, "the main path did not go through the kernel")
+    main_launches = _hard_launches(tracing)
+    replays = tracing.counter("graph.replays.render_tiled")
+    print(f"[main] kernel launches in the main-path run: {main_launches}, "
+          f"{replays} of them graph replays; frames eager "
+          f"{tracing.counter('frame.eager')}, replayed "
+          f"{tracing.counter('frame.replayed')}")
+    _require(main_launches >= 6, "the main path did not go through the kernel")
+    _require(replays >= 4 and tracing.counter("frame.replayed") >= 4,
+             f"[main] the repeated frames did not replay: {replays} replays")
+    for label, runs in (("headline", hl_runs), ("entry", entry_runs)):
+        _require(torch.equal(runs[0], runs[2]) and torch.equal(runs[1], runs[2]),
+                 f"[main] {label}: the replayed frame is not the eager one")
+        _require(runs[1].data_ptr() != runs[2].data_ptr(),
+                 f"[main] {label}: two returned frames share memory")
+    hl_out, entry_out = hl_runs[-1], entry_runs[-1]
 
     kernel_rows = []
     for label, scene, cfg, out in (
@@ -413,7 +438,10 @@ def main() -> int:
             packed, ortho, bins, height=cfg.height, width=cfg.width,
             shading=cfg.shading, shadows=cfg.shadows, out_format="packed")
         twin = fwd_tiled._tiled_kernel_plain(*args, **kw)
-        perr = _check_twin(f"[main] {label}: main path vs twin", out, twin, "packed")
+        perr = _check_twin(f"[main] {label}: replayed main path vs twin", out,
+                           twin, "packed")
+        _require(torch.equal(out, fwd_tiled.tiled_kernel(*args, **kw)),
+                 f"[main] {label}: the replayed frame is not B1's on the same bins")
         # the same frame as float RGBA: kernel vs twin (max_abs_err), and
         # kernel vs the brute-force oracle (no culling, no tables), which may
         # break a last-bit tie the other way on a few edge pixels
@@ -2081,12 +2109,12 @@ def new_sizes_phase(T, dev, smi):
     stress_frame = render(stress, ortho, legacy96, backend="pallas")
     frame_4k = render(four_k, ortho, cfg_4k, backend="pallas")
     torch.cuda.synchronize()
-    b1, b4 = tracing.counter("launch.B1"), tracing.counter("launch.B4")
+    b1, b4 = _hard_launches(tracing), tracing.counter("launch.B4")
     tracing.reset()
     b1_float = render(headline, ortho, hl_cfg.replace(framebuffer_dtype="float"),
                       backend="pallas")
     torch.cuda.synchronize()
-    b2 = tracing.counter("launch.B1")
+    b2 = _hard_launches(tracing)
     s = trainable_scene(stress)
     _mean_sq(S.render_soft_tiled(s, ortho, soft_cfg)).backward()
     torch.cuda.synchronize()
@@ -2304,7 +2332,7 @@ def sharded_phase(T, dev, smi):
         out = fn()
         torch.cuda.synchronize()
         hard = "B1" if cfg is not None and cfg.framebuffer_dtype == "packed" else "B2"
-        launches[hard] += tracing.counter("launch.B1")
+        launches[hard] += _hard_launches(tracing)
         launches["B4"] += tracing.counter("launch.B4")
         launches["B5"] += tracing.counter("launch.B5")
         return out
@@ -2584,7 +2612,7 @@ def shell_phase(T, dev, smi):
         tracing.reset()
         out = fn()
         torch.cuda.synchronize()
-        got = {hard: tracing.counter("launch.B1"), "B4": tracing.counter("launch.B4"),
+        got = {hard: _hard_launches(tracing), "B4": tracing.counter("launch.B4"),
                "B5": tracing.counter("launch.B5")}
         for k, v in got.items():
             launches[k] += v
@@ -2659,10 +2687,28 @@ def shell_phase(T, dev, smi):
     err = _check_twin("[shell] flythrough frame 0 1280x720 phong+shadows pinhole, "
                       "B2 vs twin", fwd_tiled.tiled_kernel(*args, **kw),
                       fwd_tiled._tiled_kernel_plain(*args, **kw), "float")
+    # a frame off the demo's orbit, replayed from the graph its loop captured
+    cam1 = camera_at(1.0)
+    tracing.reset()
+    replayed = fwd_tiled.render_tiled(scene, cam1, cfg)
+    torch.cuda.synchronize()
+    _require(tracing.counter("graph.replays.render_tiled") >= 1
+             and tracing.counter("frame.replayed") == 1,
+             "[shell] the flythrough's frame did not replay its graph")
+    bins = fwd_tiled.bin_for_config(packed, cam1, cfg)
+    args, kw = fwd_tiled.kernel_inputs(
+        packed, cam1, bins, height=cfg.height, width=cfg.width,
+        shading=cfg.shading, shadows=cfg.shadows, out_format=cfg.framebuffer_dtype)
+    rerr = _check_twin("[shell] flythrough replayed frame 1280x720 phong+shadows "
+                       "pinhole, B2 vs twin", replayed,
+                       fwd_tiled._tiled_kernel_plain(*args, **kw), "float")
+    _require(torch.equal(replayed, fwd_tiled.tiled_kernel(*args, **kw)),
+             "[shell] the flythrough's replayed frame is not B2's on the same bins")
     print(f"[shell] flythrough (defaults): {res['frames']} frames at 1280x720 in "
           f"{res['seconds']:.3f} s, {res['fps']:.1f} fps, "
           f"{res['fps'] * 1280 * 720:.3e} rays/s (host clock, a fence a frame); "
-          f"{got['B2']} B2 launches; frame 0 vs twin max err {err:.4f}; {smi}")
+          f"{got['B2']} B2 launches; frame 0 vs twin max err {err:.4f}, a "
+          f"replayed frame {rerr:.4f}; {smi}")
 
     # ---- (d) the inverse-rendering demo at its defaults ----------------------
     inv = _example("torch_inverse_rendering_demo")
@@ -3158,7 +3204,8 @@ def graph_phase(T, dev, smi):
     _require(lerr <= 1e-6 and serr <= 1e-6,
              f"[graph] the captured step is not the eager step: {lerr}, {serr}")
     print(f"[graph] launches of the compiled path (warm-up and capture of each "
-          f"graph; a replay runs the graph's launches without a wrapper call): "
+          f"graph, B1/B2 at the warm-up only; a replay runs the graph's launches "
+          f"without a wrapper call): "
           f"{launches}")
     _require(all(launches[k] >= 1 for k in GRAPH_KERNELS),
              f"[graph] the compiled path did not go through every kernel: {launches}")
@@ -3582,7 +3629,7 @@ def compiled_forms_phase(T, dev, smi):
 
     _branch_traces(17, "[compiled]")
     print(f"[compiled] launches of phase 17's path (warm-up and capture of each "
-          f"graph counted; a replay runs the graph's launches without a wrapper "
+          f"graph counted, B1/B2 at the warm-up only; a replay runs the graph's launches without a wrapper "
           f"call): {launches}")
     _require(all(launches[k] >= 1 for k in GRAPH_KERNELS),
              f"[compiled] phase 17's path did not go through every kernel: {launches}")

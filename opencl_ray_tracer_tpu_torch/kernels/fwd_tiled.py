@@ -17,7 +17,9 @@ see `_prep_projective_coefs`).
    or the float RGBA frame ("int" is the float frame truncated).
 3. OVERFLOW: eagerly, `render_tiled_packed` re-bins with K doubled until
    every candidate fits (bounded by the primitive count), so the tiled kernel
-   never sees a truncated list. The compiled frame, `_render_tiled_jit`,
+   never sees a truncated list. `render_tiled` does the same on the card from
+   a key's second frame on as CUDA graph replays, one a K pair, reading the
+   overflow flag once after each. The compiled frame, `_render_tiled_jit`,
    bins at fixed K caps with no host read and chooses between the tiled and
    the brute kernel (kernels/fwd.py) on the bins' overflow flag through
    `runtime.graph.cond`, the JAX package's `lax.cond` under `jit`: in a
@@ -33,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -67,7 +70,7 @@ from opencl_ray_tracer_tpu_torch.ops.shading import (
     LEGACY_FOG_MAX,
     pack_framebuffer_words,
 )
-from opencl_ray_tracer_tpu_torch.runtime.graph import cond, device_const
+from opencl_ray_tracer_tpu_torch.runtime.graph import GraphCache, cond, device_const
 from opencl_ray_tracer_tpu_torch.utils import tracing
 from opencl_ray_tracer_tpu_torch.utils.log import log_warning
 
@@ -997,7 +1000,8 @@ def _tiled_kernel_cuda(params, counts, tri_coef_t, tri_attr_t, sph_coef_t,
             f"fwd_tiled kernel launch failed: {lib.octrt_cuda_error_string(rc).decode()}"
             f" (cudaError {rc})"
         )
-    tracing.count("launch.B1")
+    if not torch.cuda.is_current_stream_capturing():  # a capture runs nothing
+        tracing.count("launch.B1")
     return out, tiles
 
 
@@ -1054,28 +1058,47 @@ def bin_for_config(packed, camera: Camera, config: RenderConfig) -> TileBins:
     """`bin_scene` at the config's K caps, re-binning with both caps doubled
     while any tile overflows, up to the primitive count (where no list can
     overflow). The span `frame.bin` (`utils.tracing`)."""
-    k, shadow_k = config.cull_k, config.shadow_cull_k
+    return _bin_escalating(packed, camera, config, config.cull_k,
+                           config.shadow_cull_k)[0]
 
-    def make(k_, sk_):
-        return bin_scene(
-            packed, height=config.height, width=config.width, k=k_,
-            shadows=config.shadows, shadow_k=sk_, camera=camera,
-        )
 
+def _bin_escalating(packed, camera: Camera, config: RenderConfig, k: int,
+                    shadow_k: int):
+    """(bins, re-binned): `bin_for_config` from the caps (k, shadow_k)."""
     with tracing.span("frame.bin"):
-        bins = make(k, shadow_k)
-        k_max = _round_up(max(packed.n_tris, packed.n_spheres, 1), CHUNK)
+        bins = _bins_at(packed, camera, config, k, shadow_k)
+        k_max = _full_k(packed.n_tris, packed.n_spheres)
+        rebinned = False
         while _overflow_on_host(bins):
-            if k >= k_max and shadow_k >= k_max:
-                raise RuntimeError("tile candidate overflow at the full K")
-            k = max(k, min(2 * k, k_max))
-            shadow_k = max(shadow_k, min(2 * shadow_k, k_max))
-            log_warning(
-                "tile candidate overflow: re-binning with cull_k=%d "
-                "shadow_cull_k=%d", k, shadow_k,
-            )
-            bins = make(k, shadow_k)
-        return bins
+            k, shadow_k = _doubled_caps(k, shadow_k, k_max)
+            rebinned = True
+            bins = _bins_at(packed, camera, config, k, shadow_k)
+        return bins, rebinned
+
+
+def _bins_at(packed, camera: Camera, config: RenderConfig, k: int,
+             shadow_k: int) -> TileBins:
+    """`bin_scene` for the config's frame at the caps (k, shadow_k)."""
+    return bin_scene(packed, height=config.height, width=config.width, k=k,
+                     shadows=config.shadows, shadow_k=shadow_k, camera=camera)
+
+
+def _full_k(n_tris: int, n_spheres: int) -> int:
+    """The K cap at which no list can overflow."""
+    return _round_up(max(n_tris, n_spheres, 1), CHUNK)
+
+
+def _doubled_caps(k: int, shadow_k: int, k_max: int):
+    """Both caps doubled, up to `k_max`; raises where both are there."""
+    if k >= k_max and shadow_k >= k_max:
+        raise RuntimeError("tile candidate overflow at the full K")
+    k = max(k, min(2 * k, k_max))
+    shadow_k = max(shadow_k, min(2 * shadow_k, k_max))
+    log_warning(
+        "tile candidate overflow: re-binning with cull_k=%d "
+        "shadow_cull_k=%d", k, shadow_k,
+    )
+    return k, shadow_k
 
 
 def _overflow_on_host(bins: TileBins) -> bool:
@@ -1085,8 +1108,62 @@ def _overflow_on_host(bins: TileBins) -> bool:
         return bool(bins.overflow)
 
 
+# The eager frames' graphs, one a (config, K pair, shapes, device).
+_FRAME_GRAPHS = GraphCache("render_tiled", 8)
+
+
+@torch.no_grad()
 def render_tiled(scene, camera: Camera, config: RenderConfig) -> torch.Tensor:
-    return render_tiled_packed(scene.pack(), camera, config)
+    """The tiled hard frame of a Scene, in `render_tiled_packed`'s formats:
+    binned at the config's K caps, re-binned with both doubled while a tile
+    overflows (`bin_for_config`). The eager frame of `models.renderer.render`.
+
+    On the card the first call of a key (the config, the K pair, the scene's
+    and camera's tensor shapes and dtypes, the device) runs eagerly. The
+    second captures the whole frame at that K pair (pack, `bin_scene`, the
+    gather, B1/B2) as a CUDA graph (`runtime.graph.GraphCache`, 8 keys
+    held), and it and every later call replay the graph with the scene and
+    camera copied in, then read the bins' overflow flag on the host once
+    (the span `frame.replay.host_read`). Where the flag is set, the frame
+    runs again at the doubled caps, as `bin_for_config` re-bins, so a frame
+    is bit for bit the eager one. The frame returned is the caller's own (a
+    clone of the graph's output). CPU tensors run eagerly. Counters
+    (`utils.tracing`): `frame.replayed` or `frame.eager`, one of them a
+    frame, and `frame.rebinned`, a frame whose overflow flag read true."""
+    k, shadow_k = config.cull_k, config.shadow_cull_k
+    k_max = _full_k(scene.num_triangles, scene.num_spheres)
+    overflowed = False
+    while True:
+        out = _FRAME_GRAPHS(
+            (config, k, shadow_k),
+            functools.partial(_frame_at_caps, config=config, k=k, shadow_k=shadow_k),
+            scene, camera)
+        if out is None:
+            tracing.count("frame.eager")
+            packed = scene.pack()
+            bins, rebinned = _bin_escalating(packed, camera, config, k, shadow_k)
+            if overflowed or rebinned:
+                tracing.count("frame.rebinned")
+            return _frame_from_bins(packed, camera, config, bins)
+        frame = out[0].clone()
+        with tracing.span("frame.replay.host_read"):
+            overflow = bool(out[1])
+        if not overflow:
+            tracing.count("frame.replayed")
+            if overflowed:
+                tracing.count("frame.rebinned")
+            return frame
+        overflowed = True
+        k, shadow_k = _doubled_caps(k, shadow_k, k_max)
+
+
+def _frame_at_caps(scene, camera: Camera, *, config: RenderConfig, k: int,
+                   shadow_k: int):
+    """(frame, bins.overflow): the whole frame binned at (k, shadow_k), with
+    no host read: what `render_tiled` captures."""
+    packed = scene.pack()
+    bins = _bins_at(packed, camera, config, k, shadow_k)
+    return _frame_from_bins(packed, camera, config, bins), bins.overflow
 
 
 def _frame_branches(packed, camera: Camera, bins: TileBins, *, height: int,
@@ -1138,9 +1215,7 @@ def bin_fixed(packed, camera: Camera, config: RenderConfig) -> TileBins:
     """`bin_scene` at the config's K caps (no re-binning: the bins may
     overflow), the bins of the JAX package's `render_tiled_packed` under
     `jit`."""
-    return bin_scene(packed, height=config.height, width=config.width,
-                     k=config.cull_k, shadows=config.shadows,
-                     shadow_k=config.shadow_cull_k, camera=camera)
+    return _bins_at(packed, camera, config, config.cull_k, config.shadow_cull_k)
 
 
 def render_tiled_fixed(scene, camera: Camera, config: RenderConfig) -> torch.Tensor:
@@ -1171,6 +1246,12 @@ def render_tiled_packed(packed, camera: Camera, config: RenderConfig,
         bins = bin_for_config(packed, camera, config)
     elif bool(bins.overflow):
         raise ValueError("bins overflow their K; re-bin with a larger K")
+    return _frame_from_bins(packed, camera, config, bins)
+
+
+def _frame_from_bins(packed, camera: Camera, config: RenderConfig,
+                     bins: TileBins) -> torch.Tensor:
+    """The gather and B1/B2 on bins that do not overflow."""
     args, kw = kernel_inputs(
         packed, camera, bins, height=config.height, width=config.width,
         shading=config.shading, shadows=config.shadows,

@@ -62,7 +62,13 @@ def render(
 
     config.msaa > 1 supersamples: `msaa` sub-pixel-jittered renders through
     the affine camera bundle, box-filtered, quantised once at the end
-    (resolve-then-quantise, the GL multisample-resolve order)."""
+    (resolve-then-quantise, the GL multisample-resolve order).
+
+    The hard tiled frame (backend "pallas", soft off) is
+    `kernels.fwd_tiled.render_tiled`: on the card, the second frame of a
+    key (config, K pair, the tensors' shapes and dtypes, device) and every
+    later one replay a CUDA graph of the whole frame, the same frame bit
+    for bit as the eager first; the frame returned is the caller's own."""
     config = config or RenderConfig()
     camera = camera or legacy_ortho_camera(device=scene.device)
 

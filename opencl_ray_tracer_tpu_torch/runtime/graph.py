@@ -9,7 +9,8 @@ warm-up builds the kernel library and makes the per-device constants of
 `device_const`, cuBLAS and cuSOLVER handles, optimizer state), then
 captures it into a `torch.cuda.CUDAGraph` over static copies of the
 inputs. Every later call copies its inputs into those buffers and replays
-the graph: one launch from the host.
+the graph: one launch from the host. `GraphCache` holds such graphs by key
+for a caller that runs eagerly until a call repeats (the eager hard frame).
 
 What a captured function may not do is what `jit` forbids too: wait for the
 card or read a device value on the host (`.item()`, `bool(tensor)`,
@@ -26,6 +27,7 @@ branches.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import time
@@ -399,21 +401,79 @@ class Compiled:
         entry = self.graphs.get(key)
         with torch.cuda.device(leaves[0].device):
             if entry is None:
-                entry = self.graphs[key] = self._capture(spec, st, leaves)
-            else:
-                with torch.no_grad():
-                    for buf, t in zip(entry.inputs, leaves):
-                        buf.copy_(t)
-            replay(entry.graph, self.name)
+                entry = self.graphs[key] = _capture_over_copies(
+                    lambda a, kw: self.fn(*a, **kw, **st), spec, leaves, self.name)
+            _replay_with(entry, leaves, self.name)
         return entry.outputs
 
-    def _capture(self, spec, st, leaves) -> _Captured:
-        with torch.no_grad():
-            bufs = [t.detach().clone() for t in leaves]
-        args, kwargs = _unflatten(spec, iter(bufs))
-        graph, out = capture(lambda: self.fn(*args, **kwargs, **st),
-                             name=self.name)
-        return _Captured(graph, bufs, out)
+
+def _capture_over_copies(fn: Callable, spec, leaves, name: str) -> _Captured:
+    """`fn(*args)` captured over static copies of `leaves`, the tensors of
+    `args` (flattened to `spec`)."""
+    with torch.no_grad():
+        bufs = [t.detach().clone() for t in leaves]
+    args = _unflatten(spec, iter(bufs))
+    graph, out = capture(lambda: fn(*args), name=name)
+    return _Captured(graph, bufs, out)
+
+
+def _replay_with(entry: _Captured, leaves, name: str) -> None:
+    """`entry`'s graph replayed on `leaves` copied into its static inputs."""
+    with torch.no_grad():
+        for buf, t in zip(entry.inputs, leaves):
+            buf.copy_(t)
+    replay(entry.graph, name)
+
+
+def _on_card(leaves) -> bool:
+    """Whether a call on these tensors can run as a graph: all on one CUDA
+    device."""
+    return (bool(leaves) and all(t.is_cuda for t in leaves)
+            and len({t.device for t in leaves}) == 1)
+
+
+class GraphCache:
+    """CUDA graphs of the calls that repeat, for a caller that runs eagerly
+    until a call does (`kernels.fwd_tiled.render_tiled`).
+
+    `cache(key, fn, *args)` with every tensor of `args` on one CUDA device:
+    the first call of a key (the caller's `key`, with the arguments'
+    structure and static values, their tensors' shapes and dtypes, and the
+    device) returns None, and the caller runs its eager path; the second
+    captures `fn(*args)` over static copies of the tensors (`capture`) and
+    replays it; every later call copies the tensors into those copies and
+    replays. It returns the graph's static outputs, which the next replay
+    of the key overwrites: callers `clone()` what they keep. `fn` closes
+    over nothing that `key` does not name. With tensors elsewhere it returns
+    None and captures nothing. At most `size` keys are held, seen once or
+    captured alike; the least recently used goes first, with its graph."""
+
+    def __init__(self, name: str, size: int):
+        self.name = name
+        self.size = size
+        self.held: "collections.OrderedDict[tuple, Optional[_Captured]]" = \
+            collections.OrderedDict()
+
+    def __call__(self, key, fn: Callable, *args):
+        leaves: list = []
+        spec = _flatten(args, leaves)
+        if not _on_card(leaves):
+            return None
+        device = leaves[0].device
+        key = (key, spec, tuple((tuple(t.shape), t.dtype) for t in leaves), device)
+        if key not in self.held:
+            self.held[key] = None
+            while len(self.held) > self.size:
+                self.held.popitem(last=False)
+            return None
+        self.held.move_to_end(key)
+        entry = self.held[key]
+        with torch.cuda.device(device):
+            if entry is None:
+                entry = self.held[key] = _capture_over_copies(fn, spec, leaves,
+                                                              self.name)
+            _replay_with(entry, leaves, self.name)
+        return entry.outputs
 
 
 def jit(fn: Callable, *, static: Iterable[str] = ()) -> Compiled:

@@ -30,15 +30,20 @@ Span and counter names, by layer:
 - hard frame (`models.renderer.render` -> `kernels.fwd_tiled`): spans
   `frame.pack` (`Scene.pack`), `frame.bin` (`bin_for_config`, re-bins
   included), `frame.bin.host_read` (its overflow read), `frame.gather`
-  (`kernel_inputs`);
+  (`kernel_inputs`), all four eager (a replayed frame runs them only in its
+  capture), and `frame.replay.host_read` (the overflow read after a
+  replay); counters `frame.replayed`, `frame.eager` (`render_tiled`'s
+  frames, each in one of them), `frame.rebinned` (its frames whose
+  overflow flag read true);
 - compiled path (`runtime.graph`, `parallel.train`): span `graph.replay`,
   counters `graph.replays.<capture name>`, `graph.capture_s` (warm-up and
   capture), device counter `cond.soft_tiled.fwd.brute` (replays whose
   soft forward took the brute branch: `runtime.graph.cond(..., site=)`);
 - set-up: `train.optimizer_s` (the optimizer's construction),
   `kernels.build_s` (nvcc);
-- kernels: `launch.B1` (B1/B2), `launch.B3` ... `launch.B7`,
-  `launch.B4_finals`, `launch.B5_finals`.
+- kernels: `launch.B1` (B1/B2, launched from the host outside a capture:
+  a captured B1 runs at each replay, `graph.replays.<capture name>`),
+  `launch.B3` ... `launch.B7`, `launch.B4_finals`, `launch.B5_finals`.
 """
 
 from __future__ import annotations
