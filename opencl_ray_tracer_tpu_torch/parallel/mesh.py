@@ -31,6 +31,7 @@ import torch.distributed as dist
 from opencl_ray_tracer_tpu_torch.camera import Camera
 from opencl_ray_tracer_tpu_torch.config import RenderConfig
 from opencl_ray_tracer_tpu_torch.parallel import distributed
+from opencl_ray_tracer_tpu_torch.utils import tracing
 
 IMAGE_AXIS = "image"
 HOST_AXIS = "host"
@@ -60,14 +61,31 @@ class Mesh:
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """Sum `t` in place over the mesh, one group at a time (inner,
         intra-host first; then one exchange of the host's sums across
-        hosts). Returns `t`."""
-        for group in self.reduce_groups:
-            dist.all_reduce(t, group=group)
+        hosts). Returns `t`. Inside the span `mesh.all_reduce`; an exchange
+        that runs now adds 1 to the counter `mesh.all_reduces` and t's bytes
+        to `mesh.all_reduce_bytes` (`utils.tracing`); one recorded into a
+        CUDA graph's capture adds its bytes to `mesh.captured_bytes`, and
+        counts at each replay (`parallel.train`)."""
+        with tracing.span("mesh.all_reduce"):
+            for group in self.reduce_groups:
+                dist.all_reduce(t, group=group)
+        if self.reduce_groups:
+            nbytes = t.numel() * t.element_size()
+            if t.is_cuda and torch.cuda.is_current_stream_capturing():
+                tracing.count("mesh.captured_bytes", nbytes)
+            else:
+                count_exchange(nbytes)
         return t
 
     def barrier(self) -> None:
         if self.reduce_groups:
             dist.barrier()
+
+
+def count_exchange(nbytes: int) -> None:
+    """One run of a mesh's exchange of `nbytes` bytes, on its counters."""
+    tracing.count("mesh.all_reduces")
+    tracing.count("mesh.all_reduce_bytes", nbytes)
 
 
 def _check_ranks(shape: Tuple[int, ...]) -> None:

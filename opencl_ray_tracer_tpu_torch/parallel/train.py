@@ -51,6 +51,7 @@ from opencl_ray_tracer_tpu_torch.kernels.soft_tiled import _soft_tiled_core
 from opencl_ray_tracer_tpu_torch.parallel.mesh import (
     IMAGE_AXIS,
     Mesh,
+    count_exchange,
     mesh_n_shards,
     shift_camera_rows,
 )
@@ -119,7 +120,8 @@ def init_train_state(scene, optimizer: Callable) -> TrainState:
 
 def _all_reduce(mesh: Mesh, loss: torch.Tensor, grads):
     """(loss, grads) summed over the mesh: flattened into one buffer, so the
-    whole exchange is one all-reduce per level."""
+    whole exchange is one all-reduce per level. The buffer holds every
+    leaf's gradient, frozen leaves' too (the filter applies after it)."""
     flat = mesh.all_reduce(torch.cat([loss.reshape(1)]
                                      + [g.reshape(-1) for g in grads]))
     sizes = [1] + [g.numel() for g in grads]
@@ -270,10 +272,13 @@ def _jit_step(camera: Camera, config: RenderConfig, param_filter,
     then captures the step over a static target buffer; every call copies
     its target in and replays the graph. On a mesh every rank does this at
     the same call. CPU tensors run the same step eagerly (over gloo groups
-    on a mesh). `camera` is this rank's and `h` its rows."""
+    on a mesh). `camera` is this rank's and `h` its rows. A replay on a
+    mesh counts its exchange (`mesh.count_exchange`) with the bytes its
+    capture recorded (the counter `mesh.captured_bytes`)."""
     w = config.width
     taus = {}  # device -> (tau_d, tau_e)
-    graphs = {}  # id(optimizer) -> (optimizer, graph, target buffer, loss)
+    # id(optimizer) -> (optimizer, graph, target buffer, loss, exchange bytes)
+    graphs = {}
 
     def body(state: TrainState, target) -> torch.Tensor:
         dev = target.device
@@ -293,16 +298,20 @@ def _jit_step(camera: Camera, config: RenderConfig, param_filter,
         if entry is None or tuple(entry[2].shape) != tuple(target.shape):
             _require_nccl(mesh, target.device)
             buf = target.detach().clone()
+            mark = tracing.counter("mesh.captured_bytes")
             with torch.cuda.device(buf.device):
                 keep = _snapshot(opt)
                 graph_, loss = graph.capture(lambda: body(state, buf),
                                              name=_STEP_NAME)
                 _restore(opt, keep)
-            entry = graphs[id(opt)] = (opt, graph_, buf, loss)
-        _, graph_, buf, loss = entry
+            xbytes = tracing.counter("mesh.captured_bytes") - mark
+            entry = graphs[id(opt)] = (opt, graph_, buf, loss, xbytes)
+        _, graph_, buf, loss, xbytes = entry
         with torch.cuda.device(buf.device):
             buf.copy_(target)
             graph.replay(graph_, _STEP_NAME)
+        if xbytes:
+            count_exchange(xbytes)
         return state._replace(step=state.step + 1), loss
 
     return step

@@ -39,6 +39,13 @@ Span and counter names, by layer:
   counters `graph.replays.<capture name>`, `graph.capture_s` (warm-up and
   capture), device counter `cond.soft_tiled.fwd.brute` (replays whose
   soft forward took the brute branch: `runtime.graph.cond(..., site=)`);
+- rank mesh (`parallel.mesh.Mesh.all_reduce`, `parallel.train`): span
+  `mesh.all_reduce` (each call, a capture's included), counters
+  `mesh.all_reduces` and `mesh.all_reduce_bytes` (each exchange that runs:
+  an eager call, or a replay of a captured mesh step, which adds the bytes
+  its capture recorded), `mesh.captured_bytes` (the bytes of exchanges
+  recorded into captures); a mesh without a process group exchanges
+  nothing;
 - set-up: `train.optimizer_s` (the optimizer's construction),
   `kernels.build_s` (nvcc);
 - kernels: `launch.B1` (B1/B2, launched from the host outside a capture:

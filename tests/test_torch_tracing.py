@@ -197,3 +197,34 @@ def test_init_train_state_counts_the_optimizer_seconds():
     assert first > 0
     init_train_state(T.create_scene1(device="cpu"), adam(0.1))
     assert tracing.counter("train.optimizer_s") > first
+
+
+def test_mesh_all_reduce_is_a_span_and_counts_each_exchange():
+    """`Mesh.all_reduce` runs inside the span `mesh.all_reduce`; a mesh with
+    a group (one gloo rank here) counts each call as one exchange of the
+    buffer's bytes, spans on or off, and a one-rank mesh without a group
+    exchanges nothing and counts nothing."""
+    import torch.distributed as dist
+
+    from opencl_ray_tracer_tpu_torch.parallel import distributed
+    from opencl_ray_tracer_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    buf = torch.ones(5)
+    with tracing.recording():
+        Mesh((1,), ("image",)).all_reduce(buf)
+    assert tracing.snapshot()["spans"]["mesh.all_reduce"]["count"] == 1
+    assert tracing.counter("mesh.all_reduces") == 0
+    assert not dist.is_initialized()
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{distributed.free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        with tracing.recording():
+            mesh.all_reduce(buf)
+        mesh.all_reduce(buf)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(buf, torch.ones(5))
+    assert tracing.snapshot()["spans"]["mesh.all_reduce"]["count"] == 2
+    assert tracing.counter("mesh.all_reduces") == 2
+    assert tracing.counter("mesh.all_reduce_bytes") == 2 * 5 * 4
