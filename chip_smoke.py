@@ -20,8 +20,10 @@ forms (CUDA graphs) — through the entry points a user calls, and fails
    camera) through models.renderer.render(backend="pallas"), and the
    640x480 scene-1 frame of the JAX package's entry(), each three times
    (eager, captured and replayed, replayed: the same frame bit for bit);
-   launch and replay counts, the replayed frame against the twin, B1 on
-   the same bins and the oracle, and CUDA-event timings of the kernel, its
+   launch and replay counts (B1's, and the binning and gather kernels'
+   of the same frames: at least 6 each, a host launch in every eager
+   frame), the replayed frame against the twin, B1 on the same bins and
+   the oracle, and CUDA-event timings of the kernel, its
    twin and the whole frame;
 6. where the time goes: the frame's stages timed back to back in one loop
    (they add up to the frame), and a device trace of 20 frames for kernels
@@ -187,7 +189,19 @@ forms (CUDA graphs) — through the entry points a user calls, and fails
    eager step (1e-6, the loss and each leaf normalised by its largest, as
    phase 17 reads the fit). Its
    launches are the `phase 18` path of B4 and B5, and those made with a
-   finals block are `finals_launches_by_path` (eager, bench, compiled).
+   finals block are `finals_launches_by_path` (eager, bench, compiled);
+19. the binning and gather kernels (`bin_phase`, kernels/csrc/bin_tiled.cu)
+   on the bench's headline scene at 1920x1080 (10 spheres + 1 cube, phong
+   + hard shadows) through the legacy ortho camera and four pinhole
+   cameras of an orbit about it, against their twins on the CPU: the lists,
+   counts and overflow flag equal, the rows copied from the scene and the
+   params equal, shadow planes, normals and the coefficient tables within
+   rtol 1e-5 / atol 1e-4, and the frame B1 draws from the tables within
+   the hard bars of B1 on the twin's; the counters `launch.bin` and
+   `launch.gather`; each wrapper's device time a call (bin: two launches,
+   gather: one) beside its twin's on the card and its bound (the bytes of
+   the scene and lists read and the tables written once). Its rows in the
+   `kernels` line are `bin_tiled` and `gather_tiled`;
 
 Hard kernel vs twin is bounded on every pixel: float frames within 0.5/255,
 packed and int frames within one step of 1/255 (and identical on >= 99.5%
@@ -224,6 +238,15 @@ def _hard_launches(tracing):
     replays of `render_tiled`'s frame graphs, each of which runs B1/B2 once
     on the card."""
     return tracing.counter("launch.B1") + tracing.counter("graph.replays.render_tiled")
+
+
+def _table_launches(tracing, which):
+    """Runs of the binning ("bin") or gather ("gather") kernels of the hard
+    frame counted since the last reset, as `_hard_launches` counts B1: host
+    launches, and replays of `render_tiled`'s frame graphs, each of which
+    bins and gathers once on the card."""
+    return (tracing.counter(f"launch.{which}")
+            + tracing.counter("graph.replays.render_tiled"))
 
 
 def _require(cond, msg):
@@ -409,11 +432,20 @@ def main() -> int:
     torch.cuda.synchronize()
     main_launches = _hard_launches(tracing)
     replays = tracing.counter("graph.replays.render_tiled")
+    eager = tracing.counter("frame.eager")
+    table_launches = {k: _table_launches(tracing, k) for k in ("bin", "gather")}
     print(f"[main] kernel launches in the main-path run: {main_launches}, "
-          f"{replays} of them graph replays; frames eager "
-          f"{tracing.counter('frame.eager')}, replayed "
-          f"{tracing.counter('frame.replayed')}")
+          f"{replays} of them graph replays; frames eager {eager}, replayed "
+          f"{tracing.counter('frame.replayed')}; binning and gather runs "
+          f"{table_launches} (host launches: bin "
+          f"{tracing.counter('launch.bin')}, gather "
+          f"{tracing.counter('launch.gather')})")
     _require(main_launches >= 6, "the main path did not go through the kernel")
+    for k, n in table_launches.items():
+        _require(n >= 6 and eager >= 1 and tracing.counter(f"launch.{k}") >= eager,
+                 f"[main] the main path did not bin and gather on the card: "
+                 f"{k} {n} runs, {tracing.counter(f'launch.{k}')} host "
+                 f"launches over {eager} eager frames")
     _require(replays >= 4 and tracing.counter("frame.replayed") >= 4,
              f"[main] the repeated frames did not replay: {replays} replays")
     for label, runs in (("headline", hl_runs), ("entry", entry_runs)):
@@ -538,6 +570,12 @@ def main() -> int:
     graph, _ = graph_phase(T, dev, smi)         # 16
     compiled = compiled_forms_phase(T, dev, smi)  # 17
     finals, finals_paths = finals_phase(T, dev, smi)  # 18
+    bin_rows = bin_phase(T, dev, smi)           # 19
+    for row in bin_rows:
+        key = row.pop("counter")
+        row["launches_by_path"] = {"phase 5": table_launches[key],
+                                   "phase 19": row["launches"]}
+        row["launches"] += table_launches[key]
     for i, (row, key) in enumerate(zip(soft_rows, ("B4", "B5"))):
         row["launches_by_path"] = {"phase 9": row["launches"], "phase 13": new[key],
                                    "phase 14": sharded[key], "phase 15": shell[key],
@@ -594,7 +632,7 @@ def main() -> int:
         "bound_ms": hl["fbound"][0],
         "bound_by": hl["fbound"][1],
         "library_ms": None,
-    }] + soft_rows + brute_rows}))
+    }] + soft_rows + brute_rows + bin_rows}))
     # the smoke drives one card (cuda:0), whatever else is visible
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": 1}}))
@@ -3857,6 +3895,149 @@ def finals_phase(T, dev, smi):
         regime(threshold)
     print(f"[finals] phase 18 took {time.perf_counter() - t_phase:.1f} s")
     return launches, paths
+
+
+def _orbit_pinhole(T, dev, angle_deg, w=1920, h=1080):
+    """A pinhole camera of the flythrough's orbit about the headline scene
+    (radius 900, 120 below the centre, fov 60)."""
+    import math
+
+    a = math.radians(angle_deg)
+    cx, cy, cz = 955.0, 535.0, -60.0
+    return T.pinhole_camera((cx + 900.0 * math.sin(a), cy - 120.0,
+                             cz + 900.0 * math.cos(a)), (cx, cy, cz),
+                            fov_degrees=60.0, width=w, height=h, device=dev)
+
+
+def bin_phase(T, dev, smi):
+    """Phase 19 (see the module's docstring). Returns the `kernels` rows of
+    the binning wrapper (bin_prep_kernel + bin_tiles_kernel) and the gather
+    kernel, each with the name of its launch counter under "counter"."""
+    import torch
+
+    from opencl_ray_tracer_tpu_torch.bench_util import device_ms
+    from opencl_ray_tracer_tpu_torch.kernels import fwd_tiled
+    from opencl_ray_tracer_tpu_torch.utils import profiling as P
+    from opencl_ray_tracer_tpu_torch.utils import tracing
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    w, h = 1920, 1080
+    cfg = T.RenderConfig(width=w, height=h, shading="phong", shadows=True,
+                         framebuffer_dtype="packed")
+    exact = ("t_idx", "t_valid", "s_idx", "s_valid", "counts", "overflow")
+    scene_d = T.random_scene(10, 1, seed=0, bounds=(1910.0, 1070.0), device=dev)
+    scene_c = T.random_scene(10, 1, seed=0, bounds=(1910.0, 1070.0), device=cpu)
+    cams = [("ortho", T.legacy_ortho_camera(device=dev),
+             T.legacy_ortho_camera(device=cpu))]
+    cams += [(f"pinhole {a}", _orbit_pinhole(T, dev, a), _orbit_pinhole(T, cpu, a))
+             for a in (0, 90, 150, 270)]
+    kw = dict(height=h, width=w, k=cfg.cull_k, shadows=True,
+              shadow_k=cfg.shadow_cull_k)
+    gkw = dict(height=h, width=w, shading="phong", shadows=True, out_format="packed")
+    tracing.reset()
+    worst_coef, bin_err, gather_err = 0.0, 0.0, 0.0
+    for label, cam_d, cam_c in cams:
+        pd, pc = scene_d.pack(), scene_c.pack()
+        got = fwd_tiled.bin_scene(pd, camera=cam_d, **kw)
+        want = fwd_tiled.bin_scene(pc, camera=cam_c, **kw)
+        for f in exact:
+            _require(torch.equal(getattr(got, f).cpu(), getattr(want, f)),
+                     f"[bins] {label}: {f} differs from the twin's")
+        keep = [0, 1, 2, 6, 7]  # tri_attr_t's copied columns (3-5: the normal)
+        _require(torch.equal(got.tri_attr_t[..., keep].cpu(), want.tri_attr_t[..., keep])
+                 and torch.equal(got.sph_attr_t.cpu(), want.sph_attr_t)
+                 and torch.equal(got.sph_sh_t.cpu(), want.sph_sh_t),
+                 f"[bins] {label}: a copied row differs from the twin's")
+        for name, a, b in (("normals", got.tri_attr_t[..., 3:6], want.tri_attr_t[..., 3:6]),
+                           ("tri_sh_t", got.tri_sh_t, want.tri_sh_t)):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-4, msg=name)
+            bin_err = max(bin_err, (a.cpu() - b).abs().max().item())
+        args, kwd = fwd_tiled.kernel_inputs(pd, cam_d, got, **gkw)
+        want_args, _ = fwd_tiled.kernel_inputs(pc, cam_c, want, **gkw)
+        _require(torch.equal(args[0].cpu(), want_args[0]), f"[bins] {label}: params")
+        dev_ = []
+        for i in (2, 4):
+            g, r = args[i].cpu(), want_args[i]
+            dev_.append(((g - r).abs() / (1e-4 + 1e-5 * r.abs())).max().item())
+            gather_err = max(gather_err, (g - r).abs().max().item())
+        worst_coef = max(worst_coef, *dev_)
+        frame = fwd_tiled.tiled_kernel(*args, **kwd)
+        twin_tables = fwd_tiled.tiled_kernel(*[a.to(dev) for a in want_args], **kwd)
+        torch.cuda.synchronize()
+        _check_twin(f"[bins] {label}: B1 on the kernels' tables vs on the twin's",
+                    frame, twin_tables, "packed")
+        print(f"[bins] {label}: lists, counts, overflow equal "
+              f"({int(got.counts[:, :2].sum())} primary, "
+              f"{int(got.counts[:, 2:].sum())} shadow entries); coefficient "
+              f"tables' largest deviation {dev_[0]:.3f} / {dev_[1]:.3f} of the "
+              f"rtol 1e-5 / atol 1e-4 bar (tri / sph)")
+    nb, ng = tracing.counter("launch.bin"), tracing.counter("launch.gather")
+    _require(nb == len(cams) and ng == len(cams),
+             f"[bins] launch.bin {nb}, launch.gather {ng}")
+    print(f"[bins] launch.bin {nb}, launch.gather {ng}; coefficient tables at most "
+          f"{worst_coef:.3f} of the bar")
+    _require(worst_coef <= 1.0, f"[bins] a coefficient table is {worst_coef:.3f} "
+             "of the rtol 1e-5 / atol 1e-4 bar from the twin's")
+
+    # each wrapper's device time a call, beside its twin's on the card and
+    # the bytes' bound; the rows report the pinhole frame (the fly's kind)
+    timed = {}
+    for label, cam_d, _ in (cams[0], cams[1]):
+        pd = scene_d.pack()
+        sizes = fwd_tiled._bin_sizes(pd, height=h, width=w, k=cfg.cull_k,
+                                     shadows=True, shadow_k=cfg.shadow_cull_k,
+                                     projective=cam_d.normalize)
+        b = fwd_tiled.bin_scene(pd, camera=cam_d, **kw)
+        args = fwd_tiled.kernel_inputs(pd, cam_d, b, **gkw)[0]
+        shape = (f"1920x1080 10sph+1cube phong+shadows, {label}; K {b.k_tri} / "
+                 f"{b.k_sph}, shadow K {b.k_sh_tri} / {b.k_sh_sph}")
+        scene_in = P.nbytes(pd.tri_v0, pd.tri_e1, pd.tri_e2, pd.sph_origin,
+                            pd.sph_radius)
+        lists = P.nbytes(b.t_idx, b.t_valid, b.s_idx, b.s_valid)
+        bin_bytes = (scene_in + P.nbytes(pd.tri_colour, pd.sph_colour) + lists
+                     + P.nbytes(b.tri_attr_t, b.sph_attr_t, b.tri_sh_t,
+                                b.sph_sh_t, b.counts))
+        gather_bytes = scene_in + lists + P.nbytes(args[0], args[2], args[4])
+        for name, fn, twin, moved in (
+            ("bin", lambda pd=pd, c=cam_d: fwd_tiled.bin_scene(pd, camera=c, **kw),
+             lambda pd=pd, c=cam_d, sz=sizes: fwd_tiled._bin_scene_plain(pd, c, **sz),
+             bin_bytes),
+            ("gather", lambda pd=pd, c=cam_d, b=b: fwd_tiled.kernel_inputs(pd, c, b, **gkw),
+             lambda pd=pd, c=cam_d, b=b: fwd_tiled._gather_plain(pd, c, b),
+             gather_bytes),
+        ):
+            bound_ms, by = P.bound(0, moved)
+            ms, t_ms = device_ms(fn, 50), device_ms(twin, 20)
+            timed[name, label] = (ms, t_ms, bound_ms, by, shape)
+            print(f"[time] {name}, {label} 1080p: device {ms:.4f} ms a call behind "
+                  f"a spin; bound {bound_ms:.6f} ms by {by} ({moved} B); the twin "
+                  f"on the card {t_ms:.4f} ms behind a spin; {smi}")
+    print(f"[bins] phase 19 took {time.perf_counter() - t_phase:.1f} s")
+
+    src = "opencl_ray_tracer_tpu_torch/kernels/csrc/bin_tiled.cu"
+    ms_is = ("device time per call of the wrapper ({}), behind a spin, at the "
+             "pinhole 0 frame (ortho: {:.4f} ms, the [time] lines)")
+    rows = []
+    for name, counter, replaces, err, tol, kernels in (
+        ("bin_tiled", "bin", "opencl_ray_tracer_tpu/kernels/fwd_tiled.py:1092",
+         bin_err, "lists, counts, overflow and copied rows equal to the twin's; "
+         "normals and shadow planes within rtol 1e-5 / atol 1e-4",
+         "bin_prep_kernel then bin_tiles_kernel"),
+        ("gather_tiled", "gather", "opencl_ray_tracer_tpu/kernels/fwd_tiled.py:1248",
+         gather_err, "params equal to the twin's; coefficient tables within "
+         "rtol 1e-5 / atol 1e-4", "gather_kernel"),
+    ):
+        ms, t_ms, bound_ms, by, shape = timed[counter, "pinhole 0"]
+        rows.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "counter": counter, "launches": {"bin": nb, "gather": ng}[counter],
+            "max_abs_err": err, "tolerance": tol, "shape": shape,
+            "ms": ms, "ms_is": ms_is.format(kernels, timed[counter, "ortho"][0]),
+            "plain_ms": t_ms, "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": None,
+        })
+    return rows
 
 
 if __name__ == "__main__":

@@ -24,7 +24,7 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "build")
 SOURCES = ("fwd_tiled.cu", "fwd_brute.cu", "soft_tiled.cu", "soft_brute.cu",
-           "graph_cond.cu")
+           "graph_cond.cu", "bin_tiled.cu")
 HEADERS = ("soft_tiled.cuh", "tile_list.cuh")
 
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -103,6 +103,10 @@ def load_library() -> ctypes.CDLL:
         ptr, i = ctypes.c_void_p, ctypes.c_int
         lib.octrt_fwd_tiled.restype = i
         lib.octrt_fwd_tiled.argtypes = [ptr] * 10 + [i] * 13 + [ptr, i, ptr]
+        lib.octrt_bin_tiled.restype = i
+        lib.octrt_bin_tiled.argtypes = [ptr] * 24 + [i] * 16 + [ptr]
+        lib.octrt_gather_tiled.restype = i
+        lib.octrt_gather_tiled.argtypes = [ptr] * 24 + [i] * 7 + [ptr]
         lib.octrt_soft_tiled_fwd.restype = i
         lib.octrt_soft_tiled_fwd.argtypes = [ptr] * 12 + [i] * 12 + [ptr, i, ptr]
         lib.octrt_soft_tiled_bwd.restype = i

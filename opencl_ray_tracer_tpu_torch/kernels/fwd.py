@@ -407,15 +407,16 @@ def _out_buffer(shape, dtype, device, run_if):
     return make(shape, dtype=dtype, device=device)
 
 
-def _check(name, t, dtype, shape=None, device=None):
+def _check(name, t, dtype, shape=None, device=None, align=16):
     """What every kernel wrapper asks of a tensor before it passes its
-    pointer on."""
+    pointer on: `align` bytes, 16 for a table read in float4s, less for an
+    array read element by element."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if device is not None and t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
+    if not t.is_contiguous() or t.data_ptr() % align:
+        raise ValueError(f"{name}: must be contiguous and {align}-byte aligned")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
 

@@ -1,16 +1,19 @@
-"""Tiled hard forward frame: binning in torch, then a hand-written CUDA kernel.
+"""Tiled hard forward frame: tile binning and a hand-written CUDA kernel.
 
 Covers both camera families: shared-direction (legacy ortho, affine
 coefficient tests) and shared-origin pinhole (projective coefficient tests,
 see `_prep_projective_coefs`).
 
-1. BINNING (torch on the scene's device): a primitive can only cover a
-   64x128-pixel tile if its screen-space bbox overlaps the tile rect. A
-   (tiles x prims) overlap matrix -> top-K compaction gives each tile a
-   candidate list in ascending primitive index plus a candidate count. Shadow
-   candidates are binned per (light, tile) with the segment-hull test. The
-   camera-dependent intersection coefficients are gathered into per-tile
-   tables every frame (`_gather_coefs`).
+1. BINNING: a primitive can only cover a 64x128-pixel tile if its
+   screen-space bbox overlaps the tile rect. Each tile gets a candidate list
+   in ascending primitive index (the first K that overlap) plus a candidate
+   count. Shadow candidates are binned per (light, tile) with the
+   segment-hull test. The camera-dependent intersection coefficients are
+   gathered into per-tile tables every frame (`kernel_inputs`). On CUDA
+   tensors the kernels of kernels/csrc/bin_tiled.cu build every table in
+   three launches; other tensors run the plain twins in torch
+   (`_bin_scene_plain`: a (tiles x prims) overlap matrix -> top-K
+   compaction; `_gather_plain`).
 2. TRACE: `tiled_kernel` launches kernels/csrc/fwd_tiled.cu on CUDA tensors
    and runs `_tiled_kernel_plain`, the same function in vectorised torch, on
    CPU tensors. One output-format switch gives the packed int32 RGBA words
@@ -471,15 +474,50 @@ def bin_scene(packed, *, height: int, width: int, k: int = 32,
     shared-direction camera contributes its origin offset o0.xy. With a
     normalize (pinhole) `camera`: perspective screen-space bboxes, and the
     shadow candidates of every tile are the full primitive set, stored once
-    and shared by all tiles."""
+    and shared by all tiles. On CUDA tensors the kernels of
+    kernels/csrc/bin_tiled.cu build the bins (`_bin_scene_cuda`: no host
+    read, nothing that waits for the card); other tensors run
+    `_bin_scene_plain`, their twin."""
     projective = camera is not None and camera.normalize
+    sizes = _bin_sizes(packed, height=height, width=width, k=k,
+                       shadows=shadows, shadow_k=shadow_k, projective=projective)
+    if packed.device.type == "cuda":
+        return _bin_scene_cuda(packed, camera, **sizes)
+    return _bin_scene_plain(packed, camera, **sizes)
+
+
+def _bin_sizes(packed, *, height, width, k, shadows, shadow_k, projective):
+    """The static fields of `bin_scene`'s TileBins: the tile grid and the
+    lists' K caps (0 where a list is not binned)."""
+    if projective:
+        k_sh_tri = packed.padded_tris if (shadows and packed.n_tris) else 0
+        k_sh_sph = packed.padded_spheres if (shadows and packed.n_spheres) else 0
+    else:
+        k_sh_tri = (
+            min(shadow_k, _round_up(packed.n_tris, CHUNK))
+            if (shadows and packed.n_tris) else 0
+        )
+        k_sh_sph = (
+            min(shadow_k, _round_up(packed.n_spheres, CHUNK))
+            if (shadows and packed.n_spheres) else 0
+        )
+    return dict(
+        k_tri=min(k, _round_up(packed.n_tris, CHUNK)) if packed.n_tris else 0,
+        k_sph=min(k, _round_up(packed.n_spheres, CHUNK)) if packed.n_spheres else 0,
+        k_sh_tri=k_sh_tri, k_sh_sph=k_sh_sph,
+        nty=_round_up(height, TILE_H) // TILE_H,
+        ntx=_round_up(width, TILE_W) // TILE_W, projective=projective,
+    )
+
+
+def _bin_scene_plain(packed, camera: Optional[Camera], *, k_tri, k_sph,
+                     k_sh_tri, k_sh_sph, nty, ntx, projective) -> TileBins:
+    """`bin_scene` in torch, on any device: the twin of `_bin_scene_cuda`."""
     offs = (
         (camera.o0[0], camera.o0[1])
         if (camera is not None and not projective) else None
     )
     dev = packed.device
-    nty = _round_up(height, TILE_H) // TILE_H
-    ntx = _round_up(width, TILE_W) // TILE_W
     n_tiles = nty * ntx
     n_lights = packed.lights.position.shape[0]
     _, tri_attr, _, sph_attr = _prep_scene_arrays(packed)
@@ -487,9 +525,6 @@ def bin_scene(packed, *, height: int, width: int, k: int = 32,
         tri_box, sph_box = _pinhole_bboxes(packed, camera)
     else:
         tri_box, sph_box = _prim_bboxes(packed)
-
-    k_tri = min(k, _round_up(packed.n_tris, CHUNK)) if packed.n_tris else 0
-    k_sph = min(k, _round_up(packed.n_spheres, CHUNK)) if packed.n_spheres else 0
 
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
     zero_cnt = torch.zeros((n_tiles,), dtype=torch.int32, device=dev)
@@ -521,18 +556,6 @@ def bin_scene(packed, *, height: int, width: int, k: int = 32,
         cnt_sph = zero_cnt
 
     sh_tiles = 1 if projective else n_tiles
-    if projective:
-        k_sh_tri = packed.padded_tris if (shadows and packed.n_tris) else 0
-        k_sh_sph = packed.padded_spheres if (shadows and packed.n_spheres) else 0
-    else:
-        k_sh_tri = (
-            min(shadow_k, _round_up(packed.n_tris, CHUNK))
-            if (shadows and packed.n_tris) else 0
-        )
-        k_sh_sph = (
-            min(shadow_k, _round_up(packed.n_spheres, CHUNK))
-            if (shadows and packed.n_spheres) else 0
-        )
     lpos = packed.lights.position
     # z inputs of the segment-hull shadow culling (small pad: exact hard
     # occlusion plus the shadow-ray t_min offset margin); tile_z is the
@@ -600,6 +623,85 @@ def bin_scene(packed, *, height: int, width: int, k: int = 32,
         k_tri=k_tri, k_sph=k_sph, k_sh_tri=k_sh_tri, k_sh_sph=k_sh_sph,
         nty=nty, ntx=ntx, projective=projective,
     )
+
+
+def _ptr(t):
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _raise_on(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(
+            f"{what} kernel launch failed: {lib.octrt_cuda_error_string(rc).decode()}"
+            f" (cudaError {rc})")
+
+
+def _bin_scene_cuda(packed, camera: Optional[Camera], *, k_tri, k_sph,
+                    k_sh_tri, k_sh_sph, nty, ntx, projective) -> TileBins:
+    """`bin_scene` on CUDA tensors: bin_prep_kernel then bin_tiles_kernel of
+    kernels/csrc/bin_tiled.cu, on the current stream, into tables allocated
+    here (`_bin_scene_plain` is their twin). A list that is not binned has
+    CHUNK slots, all invalid. The counter `launch.bin` (`utils.tracing`)
+    counts each launch from the host outside a capture."""
+    from opencl_ray_tracer_tpu_torch.kernels._build import load_library
+
+    lib = load_library()
+    dev = packed.device
+    n_tiles = nty * ntx
+    n_lights = packed.lights.position.shape[0]
+    tp, sp = packed.padded_tris, packed.padded_spheres
+    w_tri, w_sph, w_sh_tri, w_sh_sph = (
+        k or CHUNK for k in (k_tri, k_sph, k_sh_tri, k_sh_sph))
+    sh_tiles = 1 if projective else n_tiles
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    bins = TileBins(
+        t_idx=empty(n_tiles, w_tri, dtype=torch.int32),
+        t_valid=empty(n_tiles, w_tri, dtype=torch.bool),
+        s_idx=empty(n_tiles, w_sph, dtype=torch.int32),
+        s_valid=empty(n_tiles, w_sph, dtype=torch.bool),
+        tri_attr_t=empty(n_tiles, w_tri, 8), sph_attr_t=empty(n_tiles, w_sph, 8),
+        tri_sh_t=empty(sh_tiles, n_lights * w_sh_tri, 16),
+        sph_sh_t=empty(sh_tiles, n_lights * w_sh_sph, 16),
+        counts=empty(n_tiles, 2 + 2 * n_lights, dtype=torch.int32),
+        overflow=empty(dtype=torch.bool),
+        k_tri=k_tri, k_sph=k_sph, k_sh_tri=k_sh_tri, k_sh_sph=k_sh_sph,
+        nty=nty, ntx=ntx, projective=projective,
+    )
+    prims = empty(tp + sp, 8)  # per primitive: screen box, then z extent
+    planes = None              # each light's triangle planes, (L, tp, 16)
+    if k_sh_tri:
+        planes = bins.tri_sh_t if projective else empty(n_lights, tp, 16)
+    ins = [
+        ("tri_v0", packed.tri_v0, (3, tp)), ("tri_e1", packed.tri_e1, (3, tp)),
+        ("tri_e2", packed.tri_e2, (3, tp)),
+        ("tri_colour", packed.tri_colour, (4, tp)),
+        ("sph_origin", packed.sph_origin, (3, sp)),
+        ("sph_radius", packed.sph_radius, (1, sp)),
+        ("sph_colour", packed.sph_colour, (4, sp)),
+        ("light position", packed.lights.position, (n_lights, 3)),
+        *((name, None if camera is None else getattr(camera, name).contiguous(), (3,))
+          for name in ("o0", "d0", "ddx", "ddy"))]
+    for name, t, shape in ins:  # read element by element; no camera: null
+        if t is not None:
+            _check(name, t, torch.float32, shape, dev, align=4)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.octrt_bin_tiled(
+            *(_ptr(t) for _, t, _ in ins), _ptr(prims), _ptr(planes),
+            _ptr(bins.t_idx), _ptr(bins.t_valid), _ptr(bins.s_idx), _ptr(bins.s_valid),
+            _ptr(bins.tri_attr_t), _ptr(bins.sph_attr_t), _ptr(bins.tri_sh_t),
+            _ptr(bins.sph_sh_t), _ptr(bins.counts), _ptr(bins.overflow),
+            tp, sp, packed.n_tris, packed.n_spheres, n_lights, nty, ntx,
+            int(projective), k_tri, k_sph, k_sh_tri, k_sh_sph, w_tri, w_sph,
+            w_sh_tri, w_sh_sph, ctypes.c_void_p(stream),
+        )
+    _raise_on(lib, rc, "bin_tiled")
+    if not torch.cuda.is_current_stream_capturing():  # a capture runs nothing
+        tracing.count("launch.bin")
+    return bins
 
 
 def _gather_coefs(coef, idx, valid, null_col):
@@ -983,26 +1085,97 @@ def _tiled_kernel_cuda(params, counts, tri_coef_t, tri_attr_t, sph_coef_t,
     else:
         out = _out_buffer((height, width, 4), torch.float32, dev, run_if)
     tiles = _out_buffer((2 + n_tiles,), torch.int32, dev, run_if)
-    p = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.octrt_fwd_tiled(
-            p(params), p(counts), p(tri_coef_t), p(tri_attr_t),
-            p(sph_coef_t), p(sph_attr_t), p(tri_sh_t), p(sph_sh_t), p(out),
-            p(tiles), height, width, ntx, n_tiles, tri_coef_t.shape[1],
+            _ptr(params), _ptr(counts), _ptr(tri_coef_t), _ptr(tri_attr_t),
+            _ptr(sph_coef_t), _ptr(sph_attr_t), _ptr(tri_sh_t), _ptr(sph_sh_t),
+            _ptr(out), _ptr(tiles), height, width, ntx, n_tiles, tri_coef_t.shape[1],
             sph_coef_t.shape[1], tri_sh_t.shape[1] // n_lights,
             sph_sh_t.shape[1] // n_lights, n_lights, _SHADING_CODES[shading],
             int(bool(shadows)), int(bool(projective)), _FORMAT_CODES[out_format],
-            p(run_if), int(want), ctypes.c_void_p(stream),
+            _ptr(run_if), int(want), ctypes.c_void_p(stream),
         )
-    if rc != 0:
-        raise RuntimeError(
-            f"fwd_tiled kernel launch failed: {lib.octrt_cuda_error_string(rc).decode()}"
-            f" (cudaError {rc})"
-        )
+    _raise_on(lib, rc, "fwd_tiled")
     if not torch.cuda.is_current_stream_capturing():  # a capture runs nothing
         tracing.count("launch.B1")
     return out, tiles
+
+
+def _gather_plain(packed, camera: Camera, bins: TileBins):
+    """`kernel_inputs`' (params, tri_coef_t, sph_coef_t) in torch, on any
+    device: the twin of `_gather_cuda`."""
+    n_tiles = bins.nty * bins.ntx
+    dev = packed.device
+    if camera.normalize:
+        tri_coef, sph_coef = _prep_projective_coefs(packed, camera)
+        null_tri, null_sph = _NULL_TRI_PROJ, _NULL_SPH_PROJ
+    else:
+        tri_coef, sph_coef = _prep_affine_coefs(packed, camera)
+        null_tri, null_sph = _NULL_TRI, _NULL_SPH
+
+    def table(k, coef, idx, valid, null):
+        if k:
+            return _gather_coefs(coef, idx, valid, null)
+        row = device_const(np.pad(null, (0, 16 - null.shape[0])), dev)
+        return row.expand(n_tiles, CHUNK, 16).contiguous()
+
+    return (
+        _camera_params(camera, packed.lights).contiguous(),
+        table(bins.k_tri, tri_coef, bins.t_idx, bins.t_valid, null_tri),
+        table(bins.k_sph, sph_coef, bins.s_idx, bins.s_valid, null_sph),
+    )
+
+
+def _gather_cuda(packed, camera: Camera, bins: TileBins):
+    """`kernel_inputs`' (params, tri_coef_t, sph_coef_t) on CUDA tensors:
+    gather_kernel of kernels/csrc/bin_tiled.cu, on the current stream
+    (`_gather_plain` is its twin). The counter `launch.gather`
+    (`utils.tracing`) counts each launch from the host outside a capture."""
+    from opencl_ray_tracer_tpu_torch.kernels._build import load_library
+
+    lib = load_library()
+    dev = packed.device
+    n_tiles = bins.nty * bins.ntx
+    lights = packed.lights
+    n_lights = lights.position.shape[0]
+    tp, sp = packed.padded_tris, packed.padded_spheres
+    w_tri, w_sph = bins.t_idx.shape[1], bins.s_idx.shape[1]
+    for name, t, dtype, w in (("t_idx", bins.t_idx, torch.int32, w_tri),
+                              ("t_valid", bins.t_valid, torch.bool, w_tri),
+                              ("s_idx", bins.s_idx, torch.int32, w_sph),
+                              ("s_valid", bins.s_valid, torch.bool, w_sph)):
+        _check(name, t, dtype, (n_tiles, w), dev)
+    ins = (
+        ("tri_v0", packed.tri_v0, (3, tp)), ("tri_e1", packed.tri_e1, (3, tp)),
+        ("tri_e2", packed.tri_e2, (3, tp)),
+        ("sph_origin", packed.sph_origin, (3, sp)),
+        ("sph_radius", packed.sph_radius, (1, sp)),
+        *((name, getattr(camera, name).contiguous(), (3,))
+          for name in ("o0", "dox", "doy", "d0", "ddx", "ddy")),
+        ("light position", lights.position, (n_lights, 3)),
+        ("light colour", lights.colour, (n_lights, 3)),
+        ("light intensity", lights.intensity, (n_lights,)),
+        ("ambient", lights.ambient, ()), ("spec_strength", lights.spec_strength, ()),
+        ("shininess", lights.shininess, ()))
+    for name, t, shape in ins:  # read element by element
+        _check(name, t, torch.float32, shape, dev, align=4)
+    params = torch.empty((_P_LIGHTS + n_lights * _LIGHT_STRIDE,),
+                         dtype=torch.float32, device=dev)
+    tri_coef_t = torch.empty((n_tiles, w_tri, 16), dtype=torch.float32, device=dev)
+    sph_coef_t = torch.empty((n_tiles, w_sph, 16), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.octrt_gather_tiled(
+            *(_ptr(t) for _, t, _ in ins), _ptr(bins.t_idx), _ptr(bins.t_valid),
+            _ptr(bins.s_idx), _ptr(bins.s_valid), _ptr(params), _ptr(tri_coef_t),
+            _ptr(sph_coef_t), tp, sp, n_lights, n_tiles, w_tri, w_sph, int(camera.normalize),
+            ctypes.c_void_p(stream),
+        )
+    _raise_on(lib, rc, "gather_tiled")
+    if not torch.cuda.is_current_stream_capturing():  # a capture runs nothing
+        tracing.count("launch.gather")
+    return params, tri_coef_t, sph_coef_t
 
 
 # ---------------------------------------------------------------------------
@@ -1014,42 +1187,30 @@ def kernel_inputs(packed, camera: Camera, bins: TileBins, *, height: int,
                   out_format: str = "int"):
     """Per-frame coefficient gather + params: the (args, kwargs) that
     `tiled_kernel` (and `_tiled_kernel_plain`) take for this frame. "int"
-    frames use the kernel's float output, truncated afterwards. The span
-    `frame.gather` (`utils.tracing`)."""
+    frames use the kernel's float output, truncated afterwards. On CUDA
+    tensors gather_kernel of kernels/csrc/bin_tiled.cu writes the params and
+    the coefficient tables (`_gather_cuda`); other tensors run
+    `_gather_plain`, its twin. The span `frame.gather` (`utils.tracing`)."""
     with tracing.span("frame.gather"):
-        projective = camera.normalize
-        if bins.projective != projective:
+        if bins.projective != camera.normalize:
             raise ValueError(
                 "TileBins/camera mismatch: pinhole cameras need bins computed "
                 "with bin_scene(..., camera=camera)"
             )
-        n_tiles = bins.nty * bins.ntx
-        dev = packed.device
-        if projective:
-            tri_coef, sph_coef = _prep_projective_coefs(packed, camera)
-            null_tri, null_sph = _NULL_TRI_PROJ, _NULL_SPH_PROJ
-        else:
-            tri_coef, sph_coef = _prep_affine_coefs(packed, camera)
-            null_tri, null_sph = _NULL_TRI, _NULL_SPH
-
-        def table(k, coef, idx, valid, null):
-            if k:
-                return _gather_coefs(coef, idx, valid, null)
-            row = device_const(np.pad(null, (0, 16 - null.shape[0])), dev)
-            return row.expand(n_tiles, CHUNK, 16).contiguous()
-
+        gather = _gather_cuda if packed.device.type == "cuda" else _gather_plain
+        params, tri_coef_t, sph_coef_t = gather(packed, camera, bins)
         args = (
-            _camera_params(camera, packed.lights).contiguous(),
+            params,
             bins.counts.contiguous(),
-            table(bins.k_tri, tri_coef, bins.t_idx, bins.t_valid, null_tri),
+            tri_coef_t,
             bins.tri_attr_t.contiguous(),
-            table(bins.k_sph, sph_coef, bins.s_idx, bins.s_valid, null_sph),
+            sph_coef_t,
             bins.sph_attr_t.contiguous(),
             bins.tri_sh_t.contiguous(),
             bins.sph_sh_t.contiguous(),
         )
         kw = dict(height=height, width=width, ntx=bins.ntx, shading=shading,
-                  shadows=shadows, projective=projective,
+                  shadows=shadows, projective=camera.normalize,
                   out_format="packed" if out_format == "packed" else "float")
         return args, kw
 

@@ -99,3 +99,51 @@ def test_scene_arrays_and_params_match_jax(scene_name):
         want = np.asarray(jfwd._camera_params(cam_j, jp.lights))
         got = tfwd._camera_params(cam_t, tp.lights).numpy()
         assert got.shape == (21 + 7,) and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("cam_kind", ["ortho", "pinhole"])
+def test_cpu_tensors_run_the_twins_and_launch_nothing(monkeypatch, cam_kind):
+    from opencl_ray_tracer_tpu_torch.utils import tracing
+
+    def no_kernel(*a, **k):
+        raise AssertionError("a CPU frame reached a CUDA kernel's wrapper")
+
+    monkeypatch.setattr(tft, "_bin_scene_cuda", no_kernel)
+    monkeypatch.setattr(tft, "_gather_cuda", no_kernel)
+    tracing.reset()
+    _, tp, _, tc = _setup("scene1", cam_kind)
+    kw = dict(height=H, width=W, k=32, shadows=True, shadow_k=64)
+    bins = tft.bin_scene(tp, camera=tc, **kw)
+    want = tft._bin_scene_plain(tp, tc, **tft._bin_sizes(
+        tp, height=H, width=W, k=32, shadows=True, shadow_k=64,
+        projective=tc.normalize))
+    for f in EXACT + TABLES:
+        assert torch.equal(getattr(bins, f), getattr(want, f)), f
+    args, _ = tft.kernel_inputs(tp, tc, bins, height=H, width=W, shading="phong",
+                                shadows=True)
+    params, tri_coef_t, sph_coef_t = tft._gather_plain(tp, tc, bins)
+    assert torch.equal(args[0], tfwd._camera_params(tc, tp.lights))
+    assert torch.equal(args[0], params)
+    assert torch.equal(args[2], tri_coef_t) and torch.equal(args[4], sph_coef_t)
+    assert tracing.counter("launch.bin") == 0
+    assert tracing.counter("launch.gather") == 0
+
+
+def test_the_soft_binning_keeps_the_plain_helpers(monkeypatch):
+    from opencl_ray_tracer_tpu_torch.kernels import soft_tiled
+
+    for name in ("_bin_prims", "_prim_z_extents", "_tile_hit_z"):
+        assert getattr(soft_tiled, name) is getattr(tft, name), name
+    calls = []
+    real = tft._bin_prims
+
+    def spy(*a, **k):
+        calls.append(k.get("light_z") is not None)
+        return real(*a, **k)
+
+    monkeypatch.setattr(soft_tiled, "_bin_prims", spy)
+    _, tp, _, tc = _setup("scene3_small", "ortho")
+    soft_tiled._bin_soft(tp, 0.5, tc, height=H, width=W, k=32, shadows=True,
+                         shadow_k=64)
+    # the primary lists (triangles, spheres) and one shadow list each a light
+    assert calls == [False, False, True, True]
