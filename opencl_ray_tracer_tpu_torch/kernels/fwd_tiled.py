@@ -18,11 +18,12 @@ see `_prep_projective_coefs`).
    and runs `_tiled_kernel_plain`, the same function in vectorised torch, on
    CPU tensors. One output-format switch gives the packed int32 RGBA words
    or the float RGBA frame ("int" is the float frame truncated).
-3. OVERFLOW: eagerly, `render_tiled_packed` re-bins with K doubled until
-   every candidate fits (bounded by the primitive count), so the tiled kernel
-   never sees a truncated list. `render_tiled` does the same on the card from
-   a key's second frame on as CUDA graph replays, one a K pair, reading the
-   overflow flag once after each. The compiled frame, `_render_tiled_jit`,
+3. OVERFLOW: one loop (`_escalating`) doubles the K caps while a flag read
+   on the host says a tile overflows, bounded by the primitive count, so the
+   tiled kernel's frame never rests on a truncated list: `bin_for_config`
+   (and `render_tiled_packed` through it) re-bins, and `render_tiled` runs
+   the whole frame again, on the card from a key's second frame on as CUDA
+   graph replays, one a K pair. The compiled frame, `_render_tiled_jit`,
    bins at fixed K caps with no host read and chooses between the tiled and
    the brute kernel (kernels/fwd.py) on the bins' overflow flag through
    `runtime.graph.cond`, the JAX package's `lax.cond` under `jit`: in a
@@ -1218,113 +1219,99 @@ def kernel_inputs(packed, camera: Camera, bins: TileBins, *, height: int,
 def bin_for_config(packed, camera: Camera, config: RenderConfig) -> TileBins:
     """`bin_scene` at the config's K caps, re-binning with both caps doubled
     while any tile overflows, up to the primitive count (where no list can
-    overflow). The span `frame.bin` (`utils.tracing`)."""
-    return _bin_escalating(packed, camera, config, config.cull_k,
-                           config.shadow_cull_k)[0]
-
-
-def _bin_escalating(packed, camera: Camera, config: RenderConfig, k: int,
-                    shadow_k: int):
-    """(bins, re-binned): `bin_for_config` from the caps (k, shadow_k)."""
+    overflow): `_escalating` over `_bins_at`. The span `frame.bin`, its
+    flag reads under `frame.bin.host_read` (`utils.tracing`)."""
     with tracing.span("frame.bin"):
-        bins = _bins_at(packed, camera, config, k, shadow_k)
-        k_max = _full_k(packed.n_tris, packed.n_spheres)
-        rebinned = False
-        while _overflow_on_host(bins):
-            k, shadow_k = _doubled_caps(k, shadow_k, k_max)
-            rebinned = True
-            bins = _bins_at(packed, camera, config, k, shadow_k)
-        return bins, rebinned
+        return _escalating(functools.partial(_bins_at, packed, camera, config),
+                           config, packed.n_tris, packed.n_spheres,
+                           "frame.bin.host_read")[0]
 
 
 def _bins_at(packed, camera: Camera, config: RenderConfig, k: int,
-             shadow_k: int) -> TileBins:
-    """`bin_scene` for the config's frame at the caps (k, shadow_k)."""
-    return bin_scene(packed, height=config.height, width=config.width, k=k,
+             shadow_k: int):
+    """(bins, bins.overflow): `bin_scene` for the config's frame at the caps
+    (k, shadow_k), with no host read."""
+    bins = bin_scene(packed, height=config.height, width=config.width, k=k,
                      shadows=config.shadows, shadow_k=shadow_k, camera=camera)
+    return bins, bins.overflow
 
 
-def _full_k(n_tris: int, n_spheres: int) -> int:
-    """The K cap at which no list can overflow."""
-    return _round_up(max(n_tris, n_spheres, 1), CHUNK)
+def _escalating(run, config: RenderConfig, n_tris: int, n_spheres: int,
+                read: str):
+    """(result, re-run): `run(k, shadow_k)` -> (result, flag) from the
+    config's K caps, the flag read on the host (the span `read`, which waits
+    for the card), and run again with both caps doubled while it is set, up
+    to the K at which no list can overflow; raises where both caps are
+    there. The one K escalation of the hard frame: `bin_for_config` runs
+    `_bins_at` through it, `render_tiled` the whole frame."""
+    k, shadow_k = config.cull_k, config.shadow_cull_k
+    k_max = _round_up(max(n_tris, n_spheres, 1), CHUNK)
+    rerun = False
+    while True:
+        result, flag = run(k, shadow_k)
+        with tracing.span(read):
+            if not bool(flag):
+                return result, rerun
+        if k >= k_max and shadow_k >= k_max:
+            raise RuntimeError("tile candidate overflow at the full K")
+        k = max(k, min(2 * k, k_max))
+        shadow_k = max(shadow_k, min(2 * shadow_k, k_max))
+        rerun = True
+        log_warning(
+            "tile candidate overflow: re-binning with cull_k=%d "
+            "shadow_cull_k=%d", k, shadow_k,
+        )
 
 
-def _doubled_caps(k: int, shadow_k: int, k_max: int):
-    """Both caps doubled, up to `k_max`; raises where both are there."""
-    if k >= k_max and shadow_k >= k_max:
-        raise RuntimeError("tile candidate overflow at the full K")
-    k = max(k, min(2 * k, k_max))
-    shadow_k = max(shadow_k, min(2 * shadow_k, k_max))
-    log_warning(
-        "tile candidate overflow: re-binning with cull_k=%d "
-        "shadow_cull_k=%d", k, shadow_k,
-    )
-    return k, shadow_k
-
-
-def _overflow_on_host(bins: TileBins) -> bool:
-    """The bins' overflow flag read on the host, which waits for the card
-    to finish the binning: the span `frame.bin.host_read`."""
-    with tracing.span("frame.bin.host_read"):
-        return bool(bins.overflow)
-
-
-# The eager frames' graphs, one a (config, K pair, shapes, device).
-_FRAME_GRAPHS = GraphCache("render_tiled", 8)
+# The hard frames' graphs, one a (config, K pair, shapes, device).
+_FRAME_GRAPHS = GraphCache("render_tiled")
 
 
 @torch.no_grad()
 def render_tiled(scene, camera: Camera, config: RenderConfig) -> torch.Tensor:
     """The tiled hard frame of a Scene, in `render_tiled_packed`'s formats:
-    binned at the config's K caps, re-binned with both doubled while a tile
-    overflows (`bin_for_config`). The eager frame of `models.renderer.render`.
+    the whole frame at the config's K caps (`_frame_at_caps`: pack,
+    `bin_scene`, the gather, B1/B2), its overflow flag read on the host once
+    (the span `frame.replay.host_read`), and the frame run again at both
+    caps doubled while the flag is set (`_escalating`), so every frame is
+    the one `bin_for_config`'s bins give. The eager frame of
+    `models.renderer.render`.
 
-    On the card the first call of a key (the config, the K pair, the scene's
-    and camera's tensor shapes and dtypes, the device) runs eagerly. The
-    second captures the whole frame at that K pair (pack, `bin_scene`, the
-    gather, B1/B2) as a CUDA graph (`runtime.graph.GraphCache`, 8 keys
-    held), and it and every later call replay the graph with the scene and
-    camera copied in, then read the bins' overflow flag on the host once
-    (the span `frame.replay.host_read`). Where the flag is set, the frame
-    runs again at the doubled caps, as `bin_for_config` re-bins, so a frame
-    is bit for bit the eager one. The frame returned is the caller's own (a
-    clone of the graph's output). CPU tensors run eagerly. Counters
-    (`utils.tracing`): `frame.replayed` or `frame.eager`, one of them a
-    frame, and `frame.rebinned`, a frame whose overflow flag read true."""
-    k, shadow_k = config.cull_k, config.shadow_cull_k
-    k_max = _full_k(scene.num_triangles, scene.num_spheres)
-    overflowed = False
-    while True:
-        out = _FRAME_GRAPHS(
+    Each run at a K pair goes through `runtime.graph.GraphCache`, keyed by
+    the config, the K pair, the scene's and camera's tensor shapes and
+    dtypes, and the device (8 keys held). On the card the first run of a
+    key is eager; the second captures the frame as a CUDA graph, and it and
+    every later run replay the graph with the scene and camera copied in.
+    The frame returned is the caller's own (a replay's is cloned). CPU
+    tensors run eagerly. Counters (`utils.tracing`): `frame.replayed` or
+    `frame.eager`, one of them a frame, as its last run replayed or not,
+    and `frame.rebinned`, a frame whose overflow flag read true."""
+
+    def run(k, shadow_k):
+        (frame, overflow), replayed = _FRAME_GRAPHS(
             (config, k, shadow_k),
             functools.partial(_frame_at_caps, config=config, k=k, shadow_k=shadow_k),
             scene, camera)
-        if out is None:
-            tracing.count("frame.eager")
-            packed = scene.pack()
-            bins, rebinned = _bin_escalating(packed, camera, config, k, shadow_k)
-            if overflowed or rebinned:
-                tracing.count("frame.rebinned")
-            return _frame_from_bins(packed, camera, config, bins)
-        frame = out[0].clone()
-        with tracing.span("frame.replay.host_read"):
-            overflow = bool(out[1])
-        if not overflow:
-            tracing.count("frame.replayed")
-            if overflowed:
-                tracing.count("frame.rebinned")
-            return frame
-        overflowed = True
-        k, shadow_k = _doubled_caps(k, shadow_k, k_max)
+        return (frame.clone() if replayed else frame, replayed), overflow
+
+    (frame, replayed), rebinned = _escalating(
+        run, config, scene.num_triangles, scene.num_spheres,
+        "frame.replay.host_read")
+    tracing.count("frame.replayed" if replayed else "frame.eager")
+    if rebinned:
+        tracing.count("frame.rebinned")
+    return frame
 
 
 def _frame_at_caps(scene, camera: Camera, *, config: RenderConfig, k: int,
                    shadow_k: int):
     """(frame, bins.overflow): the whole frame binned at (k, shadow_k), with
-    no host read: what `render_tiled` captures."""
+    no host read: what `render_tiled` runs, eagerly or captured. The
+    binning is the span `frame.bin`."""
     packed = scene.pack()
-    bins = _bins_at(packed, camera, config, k, shadow_k)
-    return _frame_from_bins(packed, camera, config, bins), bins.overflow
+    with tracing.span("frame.bin"):
+        bins, overflow = _bins_at(packed, camera, config, k, shadow_k)
+    return _frame_from_bins(packed, camera, config, bins), overflow
 
 
 def _frame_branches(packed, camera: Camera, bins: TileBins, *, height: int,
@@ -1376,7 +1363,7 @@ def bin_fixed(packed, camera: Camera, config: RenderConfig) -> TileBins:
     """`bin_scene` at the config's K caps (no re-binning: the bins may
     overflow), the bins of the JAX package's `render_tiled_packed` under
     `jit`."""
-    return _bins_at(packed, camera, config, config.cull_k, config.shadow_cull_k)
+    return _bins_at(packed, camera, config, config.cull_k, config.shadow_cull_k)[0]
 
 
 def render_tiled_fixed(scene, camera: Camera, config: RenderConfig) -> torch.Tensor:
@@ -1412,7 +1399,8 @@ def render_tiled_packed(packed, camera: Camera, config: RenderConfig,
 
 def _frame_from_bins(packed, camera: Camera, config: RenderConfig,
                      bins: TileBins) -> torch.Tensor:
-    """The gather and B1/B2 on bins that do not overflow."""
+    """The gather and B1/B2 on the bins: the frame where they do not
+    overflow (`_frame_at_caps` discards it where they do)."""
     args, kw = kernel_inputs(
         packed, camera, bins, height=config.height, width=config.width,
         shading=config.shading, shadows=config.shadows,

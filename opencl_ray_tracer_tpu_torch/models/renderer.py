@@ -65,10 +65,13 @@ def render(
     (resolve-then-quantise, the GL multisample-resolve order).
 
     The hard tiled frame (backend "pallas", soft off) is
-    `kernels.fwd_tiled.render_tiled`: on the card, the second frame of a
-    key (config, K pair, the tensors' shapes and dtypes, device) and every
-    later one replay a CUDA graph of the whole frame, the same frame bit
-    for bit as the eager first; the frame returned is the caller's own."""
+    `kernels.fwd_tiled.render_tiled`: the whole frame at the config's K
+    caps, run again at doubled caps while its overflow flag reads true.
+    Each run goes through `runtime.graph.GraphCache`: on the card the first
+    run of a key (config, K pair, the tensors' shapes and dtypes, device)
+    is eager, and the second and every later one replay a CUDA graph of the
+    frame, the same frame bit for bit; the frame returned is the caller's
+    own."""
     config = config or RenderConfig()
     camera = camera or legacy_ortho_camera(device=scene.device)
 
@@ -121,8 +124,9 @@ def render_jit(config: RenderConfig) -> Callable:
     """forward(scene, camera) -> the tiled frame of `config` (the formats of
     `render_tiled`), compiled: `kernels.fwd_tiled.render_tiled_fixed` at the
     config's K caps through `runtime.graph.jit`. On the card the first call
-    captures a CUDA graph and every call returns the graph's static output
-    (clone what you keep); on the CPU it runs the plain twins eagerly."""
+    of a key captures a CUDA graph (the 8 keys used last are held) and
+    every call returns the graph's static output (clone what you keep); on
+    the CPU it runs the plain twins eagerly."""
     from opencl_ray_tracer_tpu_torch.kernels.fwd_tiled import render_tiled_fixed
     from opencl_ray_tracer_tpu_torch.runtime.graph import jit
 

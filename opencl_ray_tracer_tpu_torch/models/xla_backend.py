@@ -70,8 +70,8 @@ def render_xla(scene, camera: Camera, config: RenderConfig,
 # render_xla_jit(scene, camera, height=..., width=..., shading="legacy",
 # shadows=False, row_chunk=32, as_int=True): the JAX package's jitted frame,
 # through runtime.graph.jit. On the card the first call for a frame size,
-# mode and input shapes captures a CUDA graph, and every call replays it and
-# returns the graph's static output (clone what you keep); on the CPU it
-# runs `_xla_frame` eagerly.
+# mode and input shapes captures a CUDA graph (the 8 such keys used last are
+# held), and every call replays it and returns the graph's static output
+# (clone what you keep); on the CPU it runs `_xla_frame` eagerly.
 render_xla_jit = jit(_xla_frame, static=("height", "width", "shading", "shadows",
                                          "row_chunk", "as_int"))

@@ -265,9 +265,9 @@ def render_sharded_jit(config: RenderConfig, mesh: Optional[Mesh] = None,
     `pallas`: `render_tiled_fixed`, B3 taking over on the card where a list
     overflows; soft `pallas`: `_soft_tiled_core`; `xla`: the whole-frame
     path), MSAA and packed words per block, through `runtime.graph.jit`.
-    On the card the first call captures a CUDA graph and every call returns
-    the graph's static output (clone what you keep); on the CPU it runs
-    eagerly. It holds no collective: `gather_rows` assembles the frame.
+    On the card the first call of a key captures a CUDA graph (the 8 keys
+    used last are held) and every call returns the graph's static output
+    (clone what you keep); on the CPU it runs eagerly. It holds no collective: `gather_rows` assembles the frame.
     Without `mesh`, config.mesh_shape picks it (mesh_from_config)."""
     from opencl_ray_tracer_tpu_torch.runtime.graph import jit
 

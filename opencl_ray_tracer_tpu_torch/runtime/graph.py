@@ -1,21 +1,29 @@
-"""The port's `jax.jit` for the card: a function captured once as a CUDA graph.
+"""The port's `jax.jit` for the card: functions captured as CUDA graphs.
 
 The JAX package runs a frame and a train step each as one compiled device
 program (`jax.jit`; `_render_tiled_jit`, the train step of
 parallel/train.py). Eagerly, the port dispatches each of their hundreds of
-small launches from Python. `jit(fn)` is the counterpart of that one
-program: the first call with CUDA tensors runs `fn` on a side stream (the
-warm-up builds the kernel library and makes the per-device constants of
-`device_const`, cuBLAS and cuSOLVER handles, optimizer state), then
-captures it into a `torch.cuda.CUDAGraph` over static copies of the
-inputs. Every later call copies its inputs into those buffers and replays
-the graph: one launch from the host. `GraphCache` holds such graphs by key
-for a caller that runs eagerly until a call repeats (the eager hard frame).
+small launches from Python. A captured graph is the counterpart of that one
+program: `capture` runs a function on a side stream (the warm-up builds the
+kernel library and makes the per-device constants of `device_const`,
+cuBLAS and cuSOLVER handles, optimizer state), then captures it into a
+`torch.cuda.CUDAGraph`; a replay is one launch from the host.
 
-What a captured function may not do is what `jit` forbids too: wait for the
-card or read a device value on the host (`.item()`, `bool(tensor)`,
-`torch.nonzero`, a host branch on a flag) or copy from pageable host memory
-(`torch.tensor(list, device=...)`). The frame and step paths of the port
+`GraphCache` is the one holder of such graphs by key (the caller's key,
+the arguments' structure and static values, the tensors' shapes and
+dtypes, the device; the 8 keys used last). It captures over static copies
+of the inputs, and each later call of the key copies its inputs in and
+replays. Its two owners differ only in the call that captures: `jit(fn)`
+captures at a key's first call; `kernels.fwd_tiled.render_tiled` runs a
+key's first frame eagerly through the holder and captures at its second.
+CPU tensors run the function as it is. The train step keeps a holder of its
+own (`parallel.train`), whose capture saves and restores the optimizer's
+state around the warm-up.
+
+A captured function may not wait for the card or read a device value on
+the host (`.item()`, `bool(tensor)`, `torch.nonzero`, a host branch on a
+flag) or copy from pageable host memory (`torch.tensor(list,
+device=...)`). The frame and step paths of the port
 choose between the tiled and the brute kernels on the card instead, through
 `cond`, the counterpart of `lax.cond`: captured, each branch is a
 conditional node of the graph and a replay runs only the branch its flag
@@ -374,110 +382,80 @@ class _Captured:
     outputs: Any        # the static outputs
 
 
-class Compiled:
-    """A function run as a CUDA graph on CUDA tensors (see `jit`)."""
-
-    def __init__(self, fn: Callable, static: Iterable[str] = ()):
-        self.fn = fn
-        self.static = tuple(static)
-        self.graphs: Dict[tuple, _Captured] = {}
-        self.__doc__ = getattr(fn, "__doc__", None)
-        # a functools.partial is named by its function
-        self.name = getattr(fn, "__name__", None) or getattr(
-            getattr(fn, "func", None), "__name__", "")
-
-    def __call__(self, *args, **kwargs):
-        st = {k: kwargs.pop(k) for k in self.static if k in kwargs}
-        leaves: list = []
-        spec = _flatten((args, kwargs), leaves)
-        if not any(t.is_cuda for t in leaves):
-            return self.fn(*args, **kwargs, **st)  # the CPU, as asked
-        devices = {t.device for t in leaves}
-        if len(devices) != 1:
-            raise ValueError(f"jit: the inputs lie on {sorted(map(str, devices))}; "
-                             "a graph runs on one device")
-        key = (spec, tuple(sorted(st.items())),
-               tuple((tuple(t.shape), t.dtype) for t in leaves), devices.pop())
-        entry = self.graphs.get(key)
-        with torch.cuda.device(leaves[0].device):
-            if entry is None:
-                entry = self.graphs[key] = _capture_over_copies(
-                    lambda a, kw: self.fn(*a, **kw, **st), spec, leaves, self.name)
-            _replay_with(entry, leaves, self.name)
-        return entry.outputs
-
-
-def _capture_over_copies(fn: Callable, spec, leaves, name: str) -> _Captured:
-    """`fn(*args)` captured over static copies of `leaves`, the tensors of
-    `args` (flattened to `spec`)."""
-    with torch.no_grad():
-        bufs = [t.detach().clone() for t in leaves]
-    args = _unflatten(spec, iter(bufs))
-    graph, out = capture(lambda: fn(*args), name=name)
-    return _Captured(graph, bufs, out)
-
-
-def _replay_with(entry: _Captured, leaves, name: str) -> None:
-    """`entry`'s graph replayed on `leaves` copied into its static inputs."""
-    with torch.no_grad():
-        for buf, t in zip(entry.inputs, leaves):
-            buf.copy_(t)
-    replay(entry.graph, name)
-
-
-def _on_card(leaves) -> bool:
-    """Whether a call on these tensors can run as a graph: all on one CUDA
-    device."""
-    return (bool(leaves) and all(t.is_cuda for t in leaves)
-            and len({t.device for t in leaves}) == 1)
+def _card(leaves) -> Optional[torch.device]:
+    """The one CUDA device a call's tensors lie on; None where none lies on
+    CUDA (the CPU, as asked). Raises where they lie on several devices."""
+    devices = {t.device for t in leaves}
+    if not any(d.type == "cuda" for d in devices):
+        return None
+    if len(devices) != 1:
+        raise ValueError(f"graph: the inputs lie on {sorted(map(str, devices))}; "
+                         "a graph runs on one device")
+    return devices.pop()
 
 
 class GraphCache:
-    """CUDA graphs of the calls that repeat, for a caller that runs eagerly
-    until a call does (`kernels.fwd_tiled.render_tiled`).
+    """The port's one holder of captured CUDA graphs, by key: `jit`'s and
+    the eager hard frame's (`kernels.fwd_tiled.render_tiled`).
 
-    `cache(key, fn, *args)` with every tensor of `args` on one CUDA device:
-    the first call of a key (the caller's `key`, with the arguments'
-    structure and static values, their tensors' shapes and dtypes, and the
-    device) returns None, and the caller runs its eager path; the second
-    captures `fn(*args)` over static copies of the tensors (`capture`) and
-    replays it; every later call copies the tensors into those copies and
-    replays. It returns the graph's static outputs, which the next replay
-    of the key overwrites: callers `clone()` what they keep. `fn` closes
-    over nothing that `key` does not name. With tensors elsewhere it returns
-    None and captures nothing. At most `size` keys are held, seen once or
-    captured alike; the least recently used goes first, with its graph."""
+    `cache(key, fn, *args)` -> (outputs, replayed). A call's key is the
+    caller's `key`, the arguments' structure with their static values,
+    their tensors' shapes and dtypes, and the device; `fn` closes over
+    nothing that `key` does not name. The call at which a key is captured
+    is the only difference between the owners: `capture_at` 1 (`jit`)
+    captures at a key's first call; 2 (`render_tiled`, whose first frame of
+    a key runs eagerly) runs `fn(*args)` as it is at the first call and
+    returns its output, and captures at the second. The capturing call
+    warms `fn` up and captures it over static copies of the tensors
+    (`capture`); it and every later call copy the tensors into those copies
+    and replay, and return the graph's static outputs, which the next
+    replay of the key overwrites: callers `clone()` what they keep.
+    `replayed` says which of the two a call returned. Tensors on no CUDA
+    device run `fn(*args)` and are never held. At most `size` keys are
+    held, seen once or captured alike; the least recently used goes first,
+    with its graph."""
 
-    def __init__(self, name: str, size: int):
+    size = 8
+
+    def __init__(self, name: str, capture_at: int = 2):
         self.name = name
-        self.size = size
+        self.capture_at = capture_at
         self.held: "collections.OrderedDict[tuple, Optional[_Captured]]" = \
             collections.OrderedDict()
 
     def __call__(self, key, fn: Callable, *args):
         leaves: list = []
         spec = _flatten(args, leaves)
-        if not _on_card(leaves):
-            return None
-        device = leaves[0].device
+        device = _card(leaves)
+        if device is None:
+            return fn(*args), False
         key = (key, spec, tuple((tuple(t.shape), t.dtype) for t in leaves), device)
-        if key not in self.held:
-            self.held[key] = None
+        if key in self.held:
+            self.held.move_to_end(key)
+            entry = self.held[key]
+        else:
+            entry = self.held[key] = None
             while len(self.held) > self.size:
                 self.held.popitem(last=False)
-            return None
-        self.held.move_to_end(key)
-        entry = self.held[key]
+            if self.capture_at > 1:
+                return fn(*args), False
         with torch.cuda.device(device):
             if entry is None:
-                entry = self.held[key] = _capture_over_copies(fn, spec, leaves,
-                                                              self.name)
-            _replay_with(entry, leaves, self.name)
-        return entry.outputs
+                with torch.no_grad():
+                    bufs = [t.detach().clone() for t in leaves]
+                static = _unflatten(spec, iter(bufs))
+                graph, out = capture(lambda: fn(*static), name=self.name)
+                entry = self.held[key] = _Captured(graph, bufs, out)
+            with torch.no_grad():
+                for buf, t in zip(entry.inputs, leaves):
+                    buf.copy_(t)
+            replay(entry.graph, self.name)
+        return entry.outputs, True
 
 
-def jit(fn: Callable, *, static: Iterable[str] = ()) -> Compiled:
-    """`fn` compiled for the card, the port's `jax.jit`.
+def jit(fn: Callable, *, static: Iterable[str] = ()) -> Callable:
+    """`fn` compiled for the card, the port's `jax.jit`: a call through a
+    `GraphCache` that captures at a key's first call.
 
     On CUDA tensors the first call warms `fn` up on a side stream and
     captures it into a CUDA graph over static copies of its tensor inputs
@@ -486,11 +464,24 @@ def jit(fn: Callable, *, static: Iterable[str] = ()) -> Compiled:
     inputs into those buffers and replays the graph. The keyword arguments
     named in `static` (JAX's `static_argnames`) and every non-tensor value in
     the arguments are part of what was captured: a new value, or a new shape
-    or dtype of a tensor, captures again. The result is the graph's static
-    output, which the next replay overwrites: callers `clone()` what they
-    keep. Inputs are copied as values: no autograd history crosses the call.
+    or dtype of a tensor, captures again, and the 8 keys used last are held
+    (`GraphCache.size`). The result is the graph's static output, which the
+    next replay overwrites: callers `clone()` what they keep. Inputs are
+    copied as values: no autograd history crosses the call. The holder is
+    the callable's `graphs`.
 
     With CPU tensors `fn` runs as it is: the caller asked for the CPU. A
     capture that fails raises with CUDA's message and never runs `fn`
     eagerly on the card instead."""
-    return Compiled(fn, static)
+    static = tuple(static)
+    # a functools.partial is named by its function
+    graphs = GraphCache(getattr(fn, "__name__", None) or getattr(
+        getattr(fn, "func", None), "__name__", ""), capture_at=1)
+
+    def compiled(*args, **kwargs):
+        st = tuple((k, kwargs.pop(k)) for k in static if k in kwargs)
+        return graphs(st, lambda a, kw: fn(*a, **kw, **dict(st)), args, kwargs)[0]
+
+    compiled.__doc__ = getattr(fn, "__doc__", None)
+    compiled.graphs = graphs
+    return compiled

@@ -29,12 +29,13 @@ a step.
 Span and counter names, by layer:
 - hard frame (`models.renderer.render` -> `kernels.fwd_tiled`): spans
   `frame.pack` (`Scene.pack`), `frame.bin` (`bin_for_config`, re-bins
-  included), `frame.bin.host_read` (its overflow read), `frame.gather`
+  included, or the binning of one run of `render_tiled`'s frame),
+  `frame.bin.host_read` (`bin_for_config`'s overflow read), `frame.gather`
   (`kernel_inputs`), all four eager (a replayed frame runs them only in its
-  capture), and `frame.replay.host_read` (the overflow read after a
-  replay); counters `frame.replayed`, `frame.eager` (`render_tiled`'s
-  frames, each in one of them), `frame.rebinned` (its frames whose
-  overflow flag read true);
+  capture), and `frame.replay.host_read` (`render_tiled`'s overflow read
+  after each run of the frame, replayed or eager); counters
+  `frame.replayed`, `frame.eager` (`render_tiled`'s frames, each in one of
+  them), `frame.rebinned` (its frames whose overflow flag read true);
 - compiled path (`runtime.graph`, `parallel.train`): span `graph.replay`,
   counters `graph.replays.<capture name>`, `graph.capture_s` (warm-up and
   capture), device counter `cond.soft_tiled.fwd.brute` (replays whose

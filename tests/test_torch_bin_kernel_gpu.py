@@ -186,8 +186,7 @@ def test_a_capture_counts_no_launch():
 
 @pytest.mark.parametrize("cam_kind", ["ortho", "pinhole"])
 def test_the_replayed_frame_is_the_eager_frame(monkeypatch, cam_kind):
-    monkeypatch.setattr(fwd_tiled, "_FRAME_GRAPHS",
-                        graph.GraphCache("render_tiled", 8))
+    monkeypatch.setattr(fwd_tiled, "_FRAME_GRAPHS", graph.GraphCache("render_tiled"))
     tracing.reset()
     dev = torch.device("cuda")
     sc, cam = scene("rt10", 1, dev), camera(cam_kind, dev)

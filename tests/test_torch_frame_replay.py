@@ -1,13 +1,17 @@
-"""The eager hard frame replayed as CUDA graphs (`kernels.fwd_tiled.render_tiled`
-through `runtime.graph.GraphCache`), on the CPU.
+"""The port's one holder of CUDA graphs (`runtime.graph.GraphCache`) under
+its two capture rules, `jit`'s and the hard frame's, and the hard frame
+replayed through it (`kernels.fwd_tiled.render_tiled`), on the CPU.
 
 CPU tensors never capture: every frame is eager and is today's frame. The
-key rule (seen once: eager; twice: capture; then replay), the bound on the
-graphs held, the re-binning at the doubled K pair and the frames' ownership
-are held here with a stand-in for `runtime.graph.capture` that runs the
-function on the CPU and writes its outputs anew at every replay, as a CUDA
-graph writes its static outputs, and a null `torch.cuda.device`. tests/test_torch_frame_replay_gpu.py holds
-the same on the card with real graphs.
+key rule (captured at a key's first call for `jit`; run as it is at the
+first call and captured at the second for the frame; then replayed), the
+bound on the keys held, the re-binning at the doubled K pair and the
+frames' ownership are held here with a stand-in for `runtime.graph.capture`
+that runs the function on the CPU and writes its outputs anew at every
+replay, as a CUDA graph writes its static outputs, the CPU taken for a
+card (`runtime.graph._card`) and a null `torch.cuda.device`.
+tests/test_torch_frame_replay_gpu.py holds the same on the card with real
+graphs.
 """
 
 import contextlib
@@ -54,11 +58,10 @@ def captures(monkeypatch):
         return _StandInGraph(fn, out), out
 
     monkeypatch.setattr(graph, "capture", capture)
-    monkeypatch.setattr(graph, "_on_card", lambda leaves: True)
+    monkeypatch.setattr(graph, "_card", lambda leaves: torch.device("cpu"))
     monkeypatch.setattr(graph.torch.cuda, "device",
                         lambda device: contextlib.nullcontext())
-    monkeypatch.setattr(fwd_tiled, "_FRAME_GRAPHS",
-                        graph.GraphCache("render_tiled", 8))
+    monkeypatch.setattr(fwd_tiled, "_FRAME_GRAPHS", graph.GraphCache("render_tiled"))
     tracing.reset()
     yield names
     tracing.reset()
@@ -66,8 +69,7 @@ def captures(monkeypatch):
 
 @pytest.fixture
 def clean(monkeypatch):
-    monkeypatch.setattr(fwd_tiled, "_FRAME_GRAPHS",
-                        graph.GraphCache("render_tiled", 8))
+    monkeypatch.setattr(fwd_tiled, "_FRAME_GRAPHS", graph.GraphCache("render_tiled"))
     tracing.reset()
     yield
     tracing.reset()
@@ -135,51 +137,75 @@ def test_cpu_frames_never_capture_and_are_todays(clean, monkeypatch, fmt):
     assert not fwd_tiled._FRAME_GRAPHS.held
 
 
-def test_key_rule_seen_once_eager_twice_captured_then_replayed(captures):
-    cache = graph.GraphCache("probe", 8)
-    calls = []
+# the two capture rules: jit's (a key's first call) and the frame's (its second)
+RULES = [1, 2]
+
+
+@pytest.mark.parametrize("capture_at", RULES)
+def test_key_rule_seen_once_eager_twice_captured_then_replayed(captures, capture_at):
+    cache = graph.GraphCache("probe", capture_at)
 
     def fn(x, scale=2.0):
-        calls.append(1)
         return x * scale
 
     x = torch.arange(4.0)
-    assert cache("k", fn, x) is None and not captures and not calls
-    out = cache("k", fn, x)
-    assert captures == ["probe"] and torch.equal(out, x * 2)
+    for _ in range(capture_at - 1):  # before the capture: fn as it is
+        out, replayed = cache("k", fn, x)
+        assert not replayed and torch.equal(out, x * 2) and not captures
+    out, replayed = cache("k", fn, x)
+    assert replayed and captures == ["probe"] and torch.equal(out, x * 2)
     x2 = torch.arange(4.0) + 10
-    again = cache("k", fn, x2)
-    assert again is out and torch.equal(out, x2 * 2)  # the static output
+    again, replayed = cache("k", fn, x2)
+    assert replayed and again is out and torch.equal(out, x2 * 2)  # the static output
     assert captures == ["probe"]
     assert tracing.counter("graph.replays.probe") == 2
     # a new shape, dtype, static value or key is a key of its own
-    for args in ((torch.arange(5.0),), (torch.arange(4),), (x, 3.0)):
-        assert cache("k", fn, *args) is None
-    assert cache("other", fn, x) is None
-    assert captures == ["probe"]
+    for key, args in (("k", (torch.arange(5.0),)), ("k", (torch.arange(4),)),
+                      ("k", (x, 3.0)), ("other", (x,))):
+        got, replayed = cache(key, fn, *args)
+        assert torch.equal(got, fn(*args)) and replayed == (capture_at == 1), key
+    assert captures == ["probe"] * (5 if capture_at == 1 else 1)
 
 
-def test_the_held_keys_are_bounded_least_recent_first_out(captures):
-    cache = graph.GraphCache("probe", 2)
+@pytest.mark.parametrize("capture_at", RULES)
+def test_the_held_keys_are_bounded_least_recent_first_out(captures, capture_at):
+    cache = graph.GraphCache("probe", capture_at)
+    assert cache.size == 8
+    cache.size = 2
     fn = lambda x: x + 1  # noqa: E731
     x = torch.zeros(3)
     for key in ("a", "a", "b", "b"):
-        cache(key, fn, x)
+        assert torch.equal(cache(key, fn, x)[0], x + 1)
     assert captures == ["probe", "probe"]
-    cache("a", fn, x)               # a is now the most recent
-    assert cache("c", fn, x) is None  # b goes
+    assert cache("a", fn, x)[1]            # a is now the most recent
+    assert cache("c", fn, x)[1] == (capture_at == 1)  # b goes
     assert list(k[0] for k in cache.held) == ["a", "c"]
-    assert cache("b", fn, x) is None  # seen once again; a goes
-    assert cache("c", fn, x) is not None
-    assert len(cache.held) == 2 and captures == ["probe"] * 3
+    assert cache("b", fn, x)[1] == (capture_at == 1)  # held anew; a goes
+    assert cache("c", fn, x)[1]
+    assert len(cache.held) == 2
+    assert captures == ["probe"] * (4 if capture_at == 1 else 3)
 
 
-def test_cpu_tensors_are_never_held(clean, monkeypatch):
+@pytest.mark.parametrize("capture_at", RULES)
+def test_cpu_tensors_are_never_held(clean, monkeypatch, capture_at):
     monkeypatch.setattr(graph, "capture", None)  # never called
-    cache = graph.GraphCache("probe", 2)
+    cache = graph.GraphCache("probe", capture_at)
     for _ in range(3):
-        assert cache("k", lambda x: x + 1, torch.zeros(3)) is None
+        out, replayed = cache("k", lambda x: x + 1, torch.zeros(3))
+        assert not replayed and torch.equal(out, torch.ones(3))
     assert not cache.held
+
+
+def test_jit_holds_at_most_eight_keys(captures):
+    f = graph.jit(lambda x, *, n: x * float(n), static=("n",))
+    for n in range(10):
+        x = torch.arange(float(n + 1))
+        assert torch.equal(f(x, n=n), x * float(n))
+    assert captures == ["<lambda>"] * 10
+    # the least recently used keys went first, with their graphs
+    assert [k[0] for k in f.graphs.held] == [(("n", n),) for n in range(2, 10)]
+    assert torch.equal(f(torch.ones(10), n=9), torch.full((10,), 9.0))
+    assert captures == ["<lambda>"] * 10  # a held key replays
 
 
 @pytest.mark.parametrize("fmt", ["packed", "int", "float"])
@@ -204,11 +230,11 @@ def test_an_overflowing_scene_rebins_through_the_doubled_pair(captures):
     assert bool(fwd_tiled.bin_scene(packed, height=H, width=W,
                                     k=cfg.cull_k).overflow)
     want = _eager(scene, cam, cfg)
-    # eager at K 32 (re-binned to 40); then the replay at K 32 overflows and
-    # K 40 is new: eager there; then both pairs replay
+    # eager at K 32, whose flag reads true, and eager at K 40; then both
+    # pairs are captured and replay, twice
     for n in range(3):
         assert torch.equal(fwd_tiled.render_tiled(scene, cam, cfg), want), n
-    assert _counters() == {"frame.eager": 2, "frame.replayed": 1,
+    assert _counters() == {"frame.eager": 1, "frame.replayed": 2,
                            "frame.rebinned": 3}
     assert captures == ["render_tiled", "render_tiled"]
     assert [k[0][1:] for k in fwd_tiled._FRAME_GRAPHS.held] == [(32, 64), (40, 64)]

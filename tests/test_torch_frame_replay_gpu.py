@@ -1,5 +1,6 @@
 """The eager hard frame replayed as CUDA graphs, on the card
-(`kernels.fwd_tiled.render_tiled` through `runtime.graph.GraphCache`).
+(`kernels.fwd_tiled.render_tiled` through `runtime.graph.GraphCache`, which
+captures a key at its second call).
 
 These need an NVIDIA card and nvcc (the kernels have no CPU mode and a graph
 exists only on the card), so they skip where torch.cuda.is_available() is
@@ -35,8 +36,7 @@ W, H = 640, 360
 @pytest.fixture
 def frames(monkeypatch):
     """A fresh cache of frame graphs and clean counters."""
-    monkeypatch.setattr(fwd_tiled, "_FRAME_GRAPHS",
-                        graph.GraphCache("render_tiled", 8))
+    monkeypatch.setattr(fwd_tiled, "_FRAME_GRAPHS", graph.GraphCache("render_tiled"))
     tracing.reset()
     yield
     tracing.reset()
@@ -134,9 +134,9 @@ def test_an_overflowing_scene_rebins_through_the_doubled_pair(frames):
     want = _eager(scene, cam, cfg)
     for n in range(4):
         assert torch.equal(fwd_tiled.render_tiled(scene, cam, cfg), want), n
-    # eager at K 32 re-binned; the replay at 32 overflows and 40 is new
-    # (eager); then both pairs replay, twice
-    assert _counters() == {"frame.eager": 2, "frame.replayed": 2,
+    # eager at K 32, whose flag reads true, and eager at K 40; then both
+    # pairs are captured and replay, three times
+    assert _counters() == {"frame.eager": 1, "frame.replayed": 3,
                            "frame.rebinned": 4}
 
 

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 import opencl_ray_tracer_tpu_torch as T
+from opencl_ray_tracer_tpu_torch.kernels import fwd_tiled
 from opencl_ray_tracer_tpu_torch.models.renderer import render
 from opencl_ray_tracer_tpu_torch.parallel.train import adam, init_train_state
 from opencl_ray_tracer_tpu_torch.runtime import graph
@@ -17,7 +18,7 @@ from opencl_ray_tracer_tpu_torch.utils import tracing
 torch.set_num_threads(2)
 
 W, H = 128, 64
-FRAME_SPANS = ("frame.pack", "frame.bin", "frame.bin.host_read", "frame.gather")
+FRAME_SPANS = ("frame.pack", "frame.bin", "frame.gather", "frame.replay.host_read")
 
 
 @pytest.fixture(autouse=True)
@@ -27,15 +28,27 @@ def clean():
     tracing.reset()
 
 
-def _frame():
-    """A CPU frame of scene 1 through a pinhole camera, on the tiled path
-    (the kernels' plain twins)."""
+def _inputs():
     scene = T.create_scene1(device="cpu")
     cam = T.pinhole_camera((W / 2.0, H / 2.0, 300.0), (W / 2.0, H / 2.0, -85.0),
                            fov_degrees=60.0, width=W, height=H, device="cpu")
     cfg = T.RenderConfig(width=W, height=H, shading="phong", shadows=True,
                          framebuffer_dtype="packed")
+    return scene, cam, cfg
+
+
+def _frame():
+    """A CPU frame of scene 1 through a pinhole camera, on the tiled path
+    (the kernels' plain twins). Its lists overflow the config's K caps
+    once: the frame runs twice."""
+    scene, cam, cfg = _inputs()
     return render(scene, cam, cfg, backend="pallas")
+
+
+def _bins():
+    """`bin_for_config`'s bins of `_frame`'s frame (re-binned once)."""
+    scene, cam, cfg = _inputs()
+    return fwd_tiled.bin_for_config(scene.pack(), cam, cfg)
 
 
 def test_off_span_is_one_shared_null_and_records_nothing():
@@ -47,7 +60,7 @@ def test_off_span_is_one_shared_null_and_records_nothing():
     assert snap["spans"] == {} and tracing.recent() == []
     assert tracing._totals == {} and tracing._open() == []
     # a CPU frame launches no kernel; device counters made earlier read 0;
-    # it counts itself as an eager frame (this one re-bins at a larger K)
+    # it counts itself as an eager frame (this one runs again at a larger K)
     counted = {k: v for k, v in snap["counters"].items() if v}
     assert counted == {"frame.eager": 1, "frame.rebinned": 1}
 
@@ -58,16 +71,23 @@ def test_recording_a_cpu_frame_nests_its_spans():
     assert out.shape == (H, W)
     spans = tracing.snapshot()["spans"]
     assert set(spans) == set(FRAME_SPANS)
-    for name in ("frame.pack", "frame.bin", "frame.gather"):
-        assert spans[name]["count"] == 1, name
-    assert spans["frame.bin.host_read"]["count"] >= 1
+    for name in FRAME_SPANS:  # the frame at the config's caps, then doubled
+        assert spans[name]["count"] == 2, name
     for name, s in spans.items():
         assert 0.0 < s["self_s"] <= s["total_s"], name
-    # frame.bin holds the host read and nothing else; the others hold no span
+        # the frame's spans hold no span
+        assert s["self_s"] == s["total_s"], name
+    # binning's own loop: frame.bin holds its host reads and nothing else
+    tracing.reset()
+    with tracing.recording():
+        _bins()
+    spans = tracing.snapshot()["spans"]
+    assert set(spans) == {"frame.pack", "frame.bin", "frame.bin.host_read"}
+    assert spans["frame.bin"]["count"] == 1
+    assert spans["frame.bin.host_read"]["count"] == 2
     b, read = spans["frame.bin"], spans["frame.bin.host_read"]
     assert b["total_s"] - b["self_s"] == pytest.approx(read["total_s"], abs=1e-9)
-    for name in ("frame.pack", "frame.gather", "frame.bin.host_read"):
-        assert spans[name]["self_s"] == spans[name]["total_s"], name
+    assert read["self_s"] == read["total_s"]
     # tracing is off again after the block
     assert tracing.span("frame.bin") is tracing.span("frame.pack")
 
@@ -112,10 +132,11 @@ def test_without_the_fast_range_spans_are_recorded_and_open_no_range(monkeypatch
 def test_recent_keeps_the_parent_names_and_is_bounded():
     with tracing.recording():
         _frame()
+        _bins()
         parents = {name: parent for name, _, _, parent in tracing.recent()}
         assert parents == {"frame.pack": None, "frame.bin": None,
-                           "frame.bin.host_read": "frame.bin",
-                           "frame.gather": None}
+                           "frame.gather": None, "frame.replay.host_read": None,
+                           "frame.bin.host_read": "frame.bin"}
         for _ in range(tracing.RECENT + 10):
             with tracing.span("probe"):
                 pass
