@@ -200,8 +200,15 @@ forms (CUDA graphs) — through the entry points a user calls, and fails
    the hard bars of B1 on the twin's; the counters `launch.bin` and
    `launch.gather`; each wrapper's device time a call (bin: two launches,
    gather: one) beside its twin's on the card and its bound (the bytes of
-   the scene and lists read and the tables written once). Its rows in the
-   `kernels` line are `bin_tiled` and `gather_tiled`;
+   the scene and lists read and the tables written once). Then the soft
+   frame's binning kernels (`soft_tiled._bin_soft`: bin_soft_prep_kernel +
+   bin_soft_tiles_kernel) at the rt10_1080 fit's frame and scene 3's at
+   1080p, ortho, tau_edge 0.5: every list, mask, count and the overflow flag
+   equal to `_bin_soft_plain`'s on the same tensors, the device time a call
+   behind a spin beside the twin's, and the counter `launch.bin_soft` over
+   five compiled train steps (the capture's two warm-up runs; replays
+   launch nothing from the host). Its rows in the `kernels` line are
+   `bin_tiled`, `gather_tiled` and `bin_soft`;
 
 Hard kernel vs twin is bounded on every pixel: float frames within 0.5/255,
 packed and int frames within one step of 1/255 (and identical on >= 99.5%
@@ -573,6 +580,8 @@ def main() -> int:
     bin_rows = bin_phase(T, dev, smi)           # 19
     for row in bin_rows:
         key = row.pop("counter")
+        if key not in table_launches:  # the soft binning: phase 19's own paths
+            continue
         row["launches_by_path"] = {"phase 5": table_launches[key],
                                    "phase 19": row["launches"]}
         row["launches"] += table_launches[key]
@@ -4013,6 +4022,7 @@ def bin_phase(T, dev, smi):
             print(f"[time] {name}, {label} 1080p: device {ms:.4f} ms a call behind "
                   f"a spin; bound {bound_ms:.6f} ms by {by} ({moved} B); the twin "
                   f"on the card {t_ms:.4f} ms behind a spin; {smi}")
+    soft = _soft_bin_check(T, dev, smi)
     print(f"[bins] phase 19 took {time.perf_counter() - t_phase:.1f} s")
 
     src = "opencl_ray_tracer_tpu_torch/kernels/csrc/bin_tiled.cu"
@@ -4037,7 +4047,111 @@ def bin_phase(T, dev, smi):
             "plain_ms": t_ms, "bound_ms": bound_ms, "bound_by": by,
             "library_ms": None,
         })
+    ms, t_ms, bound_ms, by, shape = soft["timed"]["rt10"]
+    rows.append({
+        "name": "bin_soft", "route": "cuda", "source": src,
+        "replaces": "opencl_ray_tracer_tpu/kernels/soft_tiled.py:233",
+        "counter": "bin_soft", "launches": soft["direct"] + soft["step"],
+        "launches_by_path": {"phase 19": soft["direct"],
+                             "phase 19 step": soft["step"]},
+        "max_abs_err": 0.0, "tolerance": "every list, mask, count and the "
+        "overflow flag equal to the twin's on the same tensors",
+        "shape": shape, "ms": ms,
+        "ms_is": ("device time per call of the wrapper (bin_soft_prep_kernel "
+                  "then bin_soft_tiles_kernel), behind a spin; scene 3 1080p "
+                  f"ortho K 96 / 136: {soft['timed']['scene3'][0]:.4f} ms, twin "
+                  f"{soft['timed']['scene3'][1]:.4f} ms"),
+        "plain_ms": t_ms, "bound_ms": bound_ms, "bound_by": by,
+        "library_ms": None,
+    })
     return rows
+
+
+def _soft_bin_check(T, dev, smi):
+    """Phase 19's soft binning (`soft_tiled._bin_soft` on the card: the
+    two kernels of `_bin_soft_cuda`) at the fit cells' frames: the rt10_1080
+    frame (10 spheres + 1 cube, phong + soft shadows, K 32 / 64) and scene
+    3 at 1080p (K 96 / 136), legacy ortho camera, tau_edge 0.5. Every field
+    equal to `_bin_soft_plain`'s on the same tensors; each side's device
+    time a call behind a spin, beside the bytes' bound. Then the main
+    path's launches: five steps of make_train_step(jit=True) at the rt10
+    frame, where the capture's two warm-up runs launch from the host and the
+    capture and the replays count none. Returns {"timed": {name: (ms,
+    twin ms, bound ms, bound by, shape)}, "direct": host launches of the
+    checks and timings, "step": the step's}."""
+    import torch
+
+    from opencl_ray_tracer_tpu_torch.bench_util import device_ms
+    from opencl_ray_tracer_tpu_torch.kernels import soft_tiled as S
+    from opencl_ray_tracer_tpu_torch.parallel import (
+        adam,
+        init_train_state,
+        make_train_step,
+    )
+    from opencl_ray_tracer_tpu_torch.runtime.graph import device_scalar
+    from opencl_ray_tracer_tpu_torch.utils import profiling as P
+    from opencl_ray_tracer_tpu_torch.utils import tracing
+
+    w, h = 1920, 1080
+    cam = T.legacy_ortho_camera(device=dev)
+    fields = ("t_idx", "t_valid", "s_idx", "s_valid", "tsh_idx", "tsh_valid",
+              "ssh_idx", "ssh_valid", "counts", "overflow")
+    tracing.reset()
+    timed = {}
+    for name, n_sph, n_cubes, k, sk in (("rt10", 10, 1, 32, 64),
+                                        ("scene3", 100, 100, 96, 136)):
+        pd = T.random_scene(n_sph, n_cubes, seed=0, bounds=(1910.0, 1070.0),
+                            device=dev).pack()
+        kw = dict(height=h, width=w, k=k, shadows=True, shadow_k=sk)
+        sizes = S._soft_bin_sizes(pd, projective=False, **kw)
+        tau = device_scalar(0.5, dev)
+        got = S._bin_soft(pd, tau, cam, **kw)
+        want = S._bin_soft_plain(pd, tau, cam, **sizes)
+        for f in fields:
+            _require(torch.equal(getattr(got, f), getattr(want, f)),
+                     f"[bin_soft] {name}: {f} differs from the twin's")
+        _require(not bool(got.overflow), f"[bin_soft] {name}: a list overflows")
+        shape = (f"1920x1080 {n_sph}sph+{n_cubes}cube phong + soft shadows, "
+                 f"ortho, tau_edge 0.5; K {got.k_tri} / {got.k_sph}, shadow K "
+                 f"{got.k_sh_tri} / {got.k_sh_sph}")
+        moved = (P.nbytes(pd.tri_v0, pd.tri_e1, pd.tri_e2, pd.sph_origin,
+                          pd.sph_radius)
+                 + sum(P.nbytes(getattr(got, f)) for f in fields))
+        bound_ms, by = P.bound(0, moved)
+        ms = device_ms(lambda pd=pd, kw=kw, tau=tau: S._bin_soft(pd, tau, cam, **kw), 50)
+        t_ms = device_ms(lambda pd=pd, sz=sizes, tau=tau:
+                         S._bin_soft_plain(pd, tau, cam, **sz), 20)
+        timed[name] = (ms, t_ms, bound_ms, by, shape)
+        print(f"[bin_soft] {name}: lists, counts, overflow equal to the twin's "
+              f"({int(got.counts[:, :2].sum())} primary, "
+              f"{int(got.counts[:, 2:].sum())} shadow entries); device {ms:.4f} "
+              f"ms a call behind a spin, the twin {t_ms:.4f} ms; bound "
+              f"{bound_ms:.6f} ms by {by} ({moved} B); {shape}; {smi}")
+    direct = tracing.counter("launch.bin_soft")
+    # each frame: the checked call, then device_ms' warm-up call and its 50
+    _require(direct == 2 * 52, f"[bin_soft] launch.bin_soft {direct}, not 104")
+
+    tracing.reset()
+    cfg = T.RenderConfig(width=w, height=h, shading="phong", shadows=True,
+                         soft=True, framebuffer_dtype="float", tau_depth=1.0,
+                         tau_edge=0.5)
+    scene = T.random_scene(10, 1, seed=0, bounds=(1910.0, 1070.0), device=dev)
+    optimizer = adam(0.5)
+    step = make_train_step(cam, cfg, optimizer, jit=True)
+    state = init_train_state(scene, optimizer)
+    target = torch.zeros((h, w, 4), device=dev)
+    for _ in range(5):
+        state, loss = step(state, target)
+    torch.cuda.synchronize()
+    n_step = tracing.counter("launch.bin_soft")
+    replays = tracing.counter("graph.replays.train step")
+    print(f"[bin_soft] main path: 5 compiled train steps at the rt10 frame: "
+          f"launch.bin_soft {n_step} (the capture's warm-up runs), "
+          f"{replays} replays (each bins once on the card, uncounted); loss "
+          f"{loss.item():.6g}")
+    _require(n_step == 2 and replays == 5,
+             f"[bin_soft] the compiled step launched {n_step}, replayed {replays}")
+    return {"timed": timed, "direct": direct, "step": n_step}
 
 
 if __name__ == "__main__":

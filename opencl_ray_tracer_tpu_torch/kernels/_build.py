@@ -105,6 +105,8 @@ def load_library() -> ctypes.CDLL:
         lib.octrt_fwd_tiled.argtypes = [ptr] * 10 + [i] * 13 + [ptr, i, ptr]
         lib.octrt_bin_tiled.restype = i
         lib.octrt_bin_tiled.argtypes = [ptr] * 24 + [i] * 16 + [ptr]
+        lib.octrt_bin_soft.restype = i
+        lib.octrt_bin_soft.argtypes = [ptr] * 22 + [i] * 16 + [ptr]
         lib.octrt_gather_tiled.restype = i
         lib.octrt_gather_tiled.argtypes = [ptr] * 24 + [i] * 7 + [ptr]
         lib.octrt_soft_tiled_fwd.restype = i

@@ -1,14 +1,19 @@
 // Tile binning and the per-frame coefficient gather of the tiled hard frame,
-// for Hopper (sm_90a): the tables that B1/B2 (fwd_tiled.cu) read.
+// and the tile binning of the tiled soft frame, for Hopper (sm_90a): the
+// tables that B1/B2 (fwd_tiled.cu) read and the lists that the soft frame's
+// table gather (soft_tiled.py _gather_soft_tables) reads for B4/B5.
 //
 // Replaces no Pallas kernel: the JAX package bins and gathers in XLA ops
-// (opencl_ray_tracer_tpu/kernels/fwd_tiled.py: bin_scene, _gather_coefs).
-// In the port those were some 320 small PyTorch kernels a frame, each a
-// launch of a few microseconds over a few kilobytes, so the chain of
-// launches, not the arithmetic, set the pace of a replayed frame. The plain
-// PyTorch twins are opencl_ray_tracer_tpu_torch/kernels/fwd_tiled.py:
+// (opencl_ray_tracer_tpu/kernels/fwd_tiled.py: bin_scene, _gather_coefs;
+// soft_tiled.py: _bin_soft). In the port those were some 320 small PyTorch
+// kernels a hard frame and 430 a soft train step, each a launch of a few
+// microseconds over a few kilobytes, so the chain of launches, not the
+// arithmetic, set the pace of a replayed frame or step. The plain PyTorch
+// twins are opencl_ray_tracer_tpu_torch/kernels/fwd_tiled.py:
 // _bin_scene_plain (bin_prep_kernel + bin_tiles_kernel) and the CPU branch
-// of kernel_inputs (gather_kernel); the arithmetic is theirs, in their order.
+// of kernel_inputs (gather_kernel), and kernels/soft_tiled.py:
+// _bin_soft_plain (bin_soft_prep_kernel + bin_soft_tiles_kernel); the
+// arithmetic is theirs, in their order.
 //
 // What it computes:
 //   - bin_prep_kernel, one thread a padded primitive: its screen box (ortho:
@@ -28,7 +33,19 @@
 //   - gather_kernel, one block a tile: B1's params vector (_camera_params)
 //     and its affine (fwd.py _prep_affine_coefs) or projective
 //     (_prep_projective_coefs) coefficient rows of each listed primitive,
-//     null rows past each list (_gather_coefs).
+//     null rows past each list (_gather_coefs);
+//   - bin_soft_prep_kernel, one thread a padded primitive: its screen box
+//     padded by SOFT_CULL_SIGMAS * tau_edge, read from the card (ortho:
+//     _prim_bboxes then _pad_box; pinhole: _pinhole_bboxes_soft, the
+//     projected corners of the padded AABB), its z extent padded by that
+//     pad + SHADOW_OFFSET (_prim_z_extents); it clears the overflow flag;
+//   - bin_soft_tiles_kernel, one block a tile: the primary lists and the
+//     hit-z slab as bin_tiles_kernel makes them (tile_primaries), each
+//     light's ortho segment-hull shadow lists as index lists (SoftBins'
+//     tsh_idx, ssh_idx and their valid masks), the counts row and the
+//     overflow flag. A pinhole frame's shadow candidates are the whole
+//     primitive set, which the table gather lays out itself: its lists are
+//     empty and its counts the primitive counts.
 //
 // What bounds it on this card: neither bytes nor operations. At the 1080p
 // headline frame the tables are ~0.3 MB and the tests a few hundred
@@ -76,6 +93,8 @@ constexpr float PIN_PAD = 1.0f;      // _pinhole_bboxes' pad
 constexpr float PIN_BIG = 1e9f;      // _pinhole_bboxes' whole-screen box
 constexpr float SLAB_BIG = 1e30f;    // _tile_hit_z's empty slab
 constexpr float EPSILON = 1e-6f;     // ops/intersect.py EPSILON
+constexpr float SOFT_CULL_SIGMAS = 16.0f;  // soft_tiled.py SOFT_CULL_SIGMAS
+constexpr float SHADOW_OFFSET = 1e-2f;     // diff/soft.py SHADOW_OFFSET
 
 // params layout (kernels/fwd.py _P_*)
 constexpr int P_LIGHTS = 21, LIGHT_STRIDE = 7;
@@ -183,6 +202,23 @@ HD Box sph_box_proj(const Proj& P, V3 c, float r) {
   for (int k = 0; k < 8; ++k) {  // the AABB's corners, c + r * (+-1, +-1, +-1)
     b.corner(P, {c.x + ((k & 4) ? r : -r), c.y + ((k & 2) ? r : -r),
                  c.z + ((k & 1) ? r : -r)});
+  }
+  return b.box();
+}
+
+// _pad_box: a screen box grown by pad on every side.
+HD Box pad_box(Box b, float pad) { return {b.x0 - pad, b.x1 + pad, b.y0 - pad, b.y1 + pad}; }
+
+// _pinhole_bboxes_soft's box_of_aabb: the projected corners of the AABB
+// [lo, hi] grown by pad world units, as centre +- (half extent + pad).
+HD Box aabb_box_proj(const Proj& P, V3 lo, V3 hi, float pad) {
+  const V3 ctr = {0.5f * (lo.x + hi.x), 0.5f * (lo.y + hi.y), 0.5f * (lo.z + hi.z)};
+  const V3 half = {0.5f * (hi.x - lo.x) + pad, 0.5f * (hi.y - lo.y) + pad,
+                   0.5f * (hi.z - lo.z) + pad};
+  ProjBox b;
+  for (int k = 0; k < 8; ++k) {  // _AABB_SIGNS' order
+    b.corner(P, {ctr.x + ((k & 4) ? half.x : -half.x), ctr.y + ((k & 2) ? half.y : -half.y),
+                 ctr.z + ((k & 1) ? half.z : -half.z)});
   }
   return b.box();
 }
@@ -460,7 +496,8 @@ __device__ __forceinline__ void store_row(float4* dst, const float* row, int n4)
   }
 }
 
-__device__ __forceinline__ V3 light(const BinArgs& a, int li) {
+template <class Args>  // BinArgs or SoftBinArgs
+__device__ __forceinline__ V3 light(const Args& a, int li) {
   return load3(a.light_pos + 3 * li);
 }
 
@@ -536,14 +573,29 @@ __device__ __forceinline__ int scan(int n, int k, Hit hit, Emit emit) {
   return c;
 }
 
-__global__ void __launch_bounds__(TILE_THREADS) bin_tiles_kernel(BinArgs a) {
-  __shared__ int s_n[2];     // the primary lists' clamped counts
+// idx[j] = 0 and valid[j] = 0 past the first m slots of a list of width w,
+// valid[j] = 1 before them (the warp's scan wrote their indices).
+__device__ __forceinline__ void close_list(int* idx, uint8_t* valid, int m, int w) {
+  for (int j = threadIdx.x & 31; j < w; j += 32) {
+    if (j >= m) idx[j] = 0;
+    valid[j] = j < m;
+  }
+}
+
+// Steps 1 and 2 of a tile's binning, the hard frame's and the soft frame's
+// alike (Args: BinArgs or SoftBinArgs). The tile's rect (_bin_prims' tiles,
+// offset by an ortho camera's origin); the primary lists, warp 0 the
+// triangles and warp 1 the spheres: the first k primitives whose box
+// overlaps the rect, in ascending order, zeros past the count, the count
+// clamped to k into cnt[0] / cnt[1] and s_n (the caller's shared memory),
+// the flag raised where a count passes k; then, where ortho shadow lists
+// need it, the tile's hit-z slab over those lists (_tile_hit_z) as the
+// rect's z0, z1. Every thread of the block calls it: two barriers.
+template <class Args>
+__device__ __forceinline__ Rect tile_primaries(const Args& a, int tile, int* cnt, int* s_n) {
   __shared__ float s_z[2];   // the tile's hit-z slab
-  const int tile = blockIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int L = a.n_lights, stride = 2 + 2 * L;
   const Prims& s = a.s;
-  int* cnt = a.counts + (size_t)tile * stride;
   const int ty = tile / a.ntx, tx = tile - ty * a.ntx;
   const bool offs = a.o0 != nullptr && !a.projective;
   Rect t;
@@ -559,7 +611,6 @@ __global__ void __launch_bounds__(TILE_THREADS) bin_tiles_kernel(BinArgs a) {
     const int n = tri ? s.n_tris : s.n_sph;
     const float4* box = a.prims + (tri ? 0 : 2 * s.tp);
     int* idx = (tri ? a.t_idx : a.s_idx) + (size_t)tile * w;
-    uint8_t* valid = (tri ? a.t_valid : a.s_valid) + (size_t)tile * w;
     const int c = scan(
         n, k,
         [&](int p) {
@@ -568,10 +619,7 @@ __global__ void __launch_bounds__(TILE_THREADS) bin_tiles_kernel(BinArgs a) {
         },
         [&](int pos, int p) { idx[pos] = p; });
     const int m = min(c, k);
-    for (int j = lane; j < w; j += 32) {
-      if (j >= m) idx[j] = 0;
-      valid[j] = j < m;
-    }
+    close_list(idx, (tri ? a.t_valid : a.s_valid) + (size_t)tile * w, m, w);
     if (lane == 0) {
       s_n[warp] = m;
       cnt[warp] = m;
@@ -608,6 +656,17 @@ __global__ void __launch_bounds__(TILE_THREADS) bin_tiles_kernel(BinArgs a) {
     t.z0 = s_z[0];
     t.z1 = s_z[1];
   }
+  return t;
+}
+
+__global__ void __launch_bounds__(TILE_THREADS) bin_tiles_kernel(BinArgs a) {
+  __shared__ int s_n[2];     // the primary lists' clamped counts
+  const int tile = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int L = a.n_lights, stride = 2 + 2 * L;
+  const Prims& s = a.s;
+  int* cnt = a.counts + (size_t)tile * stride;
+  const Rect t = tile_primaries(a, tile, cnt, s_n);
 
   // 3. the shadow lists: a warp a (light, kind); pinhole tiles share the
   // tables bin_prep_kernel wrote and count every primitive
@@ -737,6 +796,102 @@ __global__ void __launch_bounds__(GATHER_THREADS) gather_kernel(GatherArgs a) {
   }
 }
 
+// The soft frame's bins (soft_tiled.py SoftBins). Index lists are int32,
+// valid masks one byte a slot (torch.bool).
+struct SoftBinArgs {
+  Prims s;
+  const float* light_pos;  // (L, 3)
+  int n_lights;
+  const float *o0, *d0, *ddx, *ddy;  // the camera, (3,) each
+  const float* tau_e;                // () tau_edge, read at every run
+  int projective;
+  float4* prims;   // (tp + sp, 2): box (x0, x1, y0, y1), then (z0, z1, 0, 0)
+  int* t_idx;      // (n_tiles, w_tri)
+  uint8_t* t_valid;
+  int* s_idx;      // (n_tiles, w_sph)
+  uint8_t* s_valid;
+  int* tsh_idx;    // (L, n_tiles, w_sh_tri)
+  uint8_t* tsh_valid;
+  int* ssh_idx;    // (L, n_tiles, w_sh_sph)
+  uint8_t* ssh_valid;
+  int* counts;     // (n_tiles, 2 + 2L)
+  uint8_t* overflow;  // ()
+  int nty, ntx;
+  int k_tri, k_sph, k_sh_tri, k_sh_sph;  // caps; 0: no list
+  int w_tri, w_sph, w_sh_tri, w_sh_sph;  // the lists' widths (k, or CH)
+};
+
+__global__ void __launch_bounds__(PREP_THREADS) bin_soft_prep_kernel(SoftBinArgs a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const Prims& s = a.s;
+  if (i == 0) *a.overflow = 0;
+  const float pad = SOFT_CULL_SIGMAS * *a.tau_e;
+  const float z_pad = pad + SHADOW_OFFSET;
+  Proj P;
+  if (a.projective) P = make_proj(a.ddx, a.ddy, a.d0, a.o0);
+  if (i < s.tp) {
+    const V3 v0 = s.v0(i), v1 = add(v0, s.e1(i)), v2 = add(v0, s.e2(i));
+    const Box b = a.projective
+                      ? aabb_box_proj(P, {min3(v0.x, v1.x, v2.x), min3(v0.y, v1.y, v2.y),
+                                          min3(v0.z, v1.z, v2.z)},
+                                      {max3(v0.x, v1.x, v2.x), max3(v0.y, v1.y, v2.y),
+                                       max3(v0.z, v1.z, v2.z)},
+                                      pad)
+                      : pad_box(tri_box_ortho(v0, v1, v2), pad);
+    a.prims[2 * i] = make_float4(b.x0, b.x1, b.y0, b.y1);
+    a.prims[2 * i + 1] = make_float4(min3(v0.z, v1.z, v2.z) - z_pad,
+                                     max3(v0.z, v1.z, v2.z) + z_pad, 0.0f, 0.0f);
+  } else if (i < s.tp + s.sp) {
+    const int q = i - s.tp;
+    const V3 c = s.centre(q);
+    const float r = s.sph_radius[q];
+    const Box b = a.projective
+                      ? aabb_box_proj(P, {c.x - r, c.y - r, c.z - r}, {c.x + r, c.y + r, c.z + r},
+                                      pad)
+                      : pad_box(sph_box_ortho(c, r), pad);
+    const float rz = r + z_pad;
+    a.prims[2 * i] = make_float4(b.x0, b.x1, b.y0, b.y1);
+    a.prims[2 * i + 1] = make_float4(c.z - rz, c.z + rz, 0.0f, 0.0f);
+  }
+}
+
+__global__ void __launch_bounds__(TILE_THREADS) bin_soft_tiles_kernel(SoftBinArgs a) {
+  __shared__ int s_n[2];     // the primary lists' clamped counts
+  const int tile = blockIdx.x, n_tiles = a.nty * a.ntx;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int L = a.n_lights;
+  const Prims& s = a.s;
+  int* cnt = a.counts + (size_t)tile * (2 + 2 * L);
+  const Rect t = tile_primaries(a, tile, cnt, s_n);
+
+  // 3. the shadow lists, a warp a (light, kind): ortho lists by the
+  // segment-hull test; a pinhole list is empty and counts every primitive
+  for (int task = warp; task < 2 * L; task += NWARP) {
+    const int li = task >> 1;
+    const bool tri = (task & 1) == 0;
+    const int k = tri ? a.k_sh_tri : a.k_sh_sph, w = tri ? a.w_sh_tri : a.w_sh_sph;
+    const int n = tri ? s.n_tris : s.n_sph;
+    const size_t at = ((size_t)li * n_tiles + tile) * w;
+    int* idx = (tri ? a.tsh_idx : a.ssh_idx) + at;
+    const V3 lp = light(a, li);
+    const float4* prim = a.prims + (tri ? 0 : 2 * s.tp);
+    const bool binned = k && !a.projective;
+    const int c = !binned ? 0 : scan(
+        n, k,
+        [&](int p) {
+          const float4 b = prim[2 * p], z = prim[2 * p + 1];
+          return hull_overlap(t, lp, Box{b.x, b.y, b.z, b.w}, z.x, z.y);
+        },
+        [&](int pos, int p) { idx[pos] = p; });
+    const int m = min(c, k);
+    close_list(idx, (tri ? a.tsh_valid : a.ssh_valid) + at, m, w);
+    if (lane == 0) {
+      cnt[2 + 2 * li + (tri ? 0 : 1)] = binned ? m : (k ? n : 0);
+      if (c > k) *a.overflow = 1;
+    }
+  }
+}
+
 Prims make_prims(const float* tri_v0, const float* tri_e1, const float* tri_e2,
                  const float* tri_colour, const float* sph_origin,
                  const float* sph_radius, const float* sph_colour, int tp,
@@ -855,5 +1010,64 @@ extern "C" int octrt_gather_tiled(
   a.w_sph = w_sph;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   gather_kernel<<<n_tiles, GATHER_THREADS, 0, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The lists of soft_tiled.py's SoftBins for one frame, in two launches on
+// `stream`: the per-primitive pass, then one block a tile. prims is the
+// wrapper's scratch, (tp + sp, 8) floats. tau_e is a float on the card, read
+// at each run (a captured graph follows it). d0, ddx, ddy are read only for
+// a pinhole camera, o0 for both.
+extern "C" int octrt_bin_soft(
+    const float* tri_v0, const float* tri_e1, const float* tri_e2,
+    const float* sph_origin, const float* sph_radius, const float* light_pos,
+    const float* o0, const float* d0, const float* ddx, const float* ddy,
+    const float* tau_e, float* prims, int* t_idx, uint8_t* t_valid, int* s_idx,
+    uint8_t* s_valid, int* tsh_idx, uint8_t* tsh_valid, int* ssh_idx,
+    uint8_t* ssh_valid, int* counts, uint8_t* overflow, int tp, int sp,
+    int n_tris, int n_sph, int n_lights, int nty, int ntx, int projective,
+    int k_tri, int k_sph, int k_sh_tri, int k_sh_sph, int w_tri, int w_sph,
+    int w_sh_tri, int w_sh_sph, void* stream) {
+  if (n_lights < 1 || nty < 1 || ntx < 1 || tp < 1 || sp < 1 || !o0 || !tau_e ||
+      (projective && (!d0 || !ddx || !ddy))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  SoftBinArgs a{};
+  a.s = make_prims(tri_v0, tri_e1, tri_e2, nullptr, sph_origin, sph_radius, nullptr,
+                   tp, sp, n_tris, n_sph);
+  a.light_pos = light_pos;
+  a.n_lights = n_lights;
+  a.o0 = o0;
+  a.d0 = d0;
+  a.ddx = ddx;
+  a.ddy = ddy;
+  a.tau_e = tau_e;
+  a.projective = projective;
+  a.prims = reinterpret_cast<float4*>(prims);
+  a.t_idx = t_idx;
+  a.t_valid = t_valid;
+  a.s_idx = s_idx;
+  a.s_valid = s_valid;
+  a.tsh_idx = tsh_idx;
+  a.tsh_valid = tsh_valid;
+  a.ssh_idx = ssh_idx;
+  a.ssh_valid = ssh_valid;
+  a.counts = counts;
+  a.overflow = overflow;
+  a.nty = nty;
+  a.ntx = ntx;
+  a.k_tri = k_tri;
+  a.k_sph = k_sph;
+  a.k_sh_tri = k_sh_tri;
+  a.k_sh_sph = k_sh_sph;
+  a.w_tri = w_tri;
+  a.w_sph = w_sph;
+  a.w_sh_tri = w_sh_tri;
+  a.w_sh_sph = w_sh_sph;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  bin_soft_prep_kernel<<<(tp + sp + PREP_THREADS - 1) / PREP_THREADS, PREP_THREADS, 0, st>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bin_soft_tiles_kernel<<<nty * ntx, TILE_THREADS, 0, st>>>(a);
   return (int)cudaGetLastError();
 }

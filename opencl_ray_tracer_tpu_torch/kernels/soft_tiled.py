@@ -1,11 +1,14 @@
-"""Tiled+culled soft differentiable renderer: binning and tables in torch,
-then hand-written CUDA kernels for the forward (B4) and backward (B5).
+"""Tiled+culled soft differentiable renderer: binning (two CUDA kernels on
+the card), tables in torch, then hand-written CUDA kernels for the forward
+(B4) and backward (B5).
 
-1. BINNING (torch, no grad): primitive screen bboxes padded by
+1. BINNING (no grad): primitive screen bboxes padded by
    SOFT_CULL_SIGMAS * tau_edge — beyond ~16 sigma the coverage sigmoids
    underflow to exact float32 zero, so culling changes neither the image nor
    the gradients. Shadow candidates use the segment-hull corridor of
-   fwd_tiled._bin_prims with the same pad. Binning is at the config's K
+   fwd_tiled._bin_prims with the same pad. On CUDA tensors two kernels of
+   kernels/csrc/bin_tiled.cu bin (`_bin_soft_cuda`); other tensors run the
+   torch twin (`_bin_soft_plain`). Binning is at the config's K
    caps, as the JAX package always bins; where any tile's list overflows,
    the frame is the brute soft kernels' (kernels/soft.py), as under JAX's
    `lax.cond`. `render_soft_tiled` reads the overflow flag once and runs
@@ -199,15 +202,48 @@ def _pad_box(box, pad):
 @torch.no_grad()
 def _bin_soft(packed, tau_e, camera: Camera, *, height, width, k, shadows,
               shadow_k) -> SoftBins:
-    """Tile binning with tau-padded bboxes (a discrete choice: no grad)."""
+    """Tile binning with tau-padded bboxes (a discrete choice: no grad). On
+    CUDA tensors the two soft binning kernels of kernels/csrc/bin_tiled.cu
+    build the bins (`_bin_soft_cuda`: no host read, tau_edge read on the
+    card); other tensors run `_bin_soft_plain`, their twin."""
+    sizes = _soft_bin_sizes(packed, height=height, width=width, k=k,
+                            shadows=shadows, shadow_k=shadow_k,
+                            projective=camera.normalize)
+    tau_e = device_scalar(tau_e, packed.device)
+    if packed.device.type == "cuda":
+        return _bin_soft_cuda(packed, tau_e, camera, **sizes)
+    return _bin_soft_plain(packed, tau_e, camera, **sizes)
+
+
+def _soft_bin_sizes(packed, *, height, width, k, shadows, shadow_k, projective):
+    """The static fields of `_bin_soft`'s SoftBins: the tile grid and the
+    lists' K caps, rounded to CH (0 where a list is not binned). A pinhole
+    frame's shadow caps are the padded primitive counts: its shadow
+    candidates are the whole set."""
+    def cap(k_, n):
+        return _round_up(min(k_, _round_up(n, CH)), CH) if n else 0
+
+    n_tris, n_sph = packed.n_tris, packed.n_spheres
+    if projective:
+        k_sh_tri = _round_up(packed.padded_tris, CH) if (shadows and n_tris) else 0
+        k_sh_sph = _round_up(packed.padded_spheres, CH) if (shadows and n_sph) else 0
+    else:
+        k_sh_tri = cap(shadow_k, n_tris) if shadows else 0
+        k_sh_sph = cap(shadow_k, n_sph) if shadows else 0
+    return dict(k_tri=cap(k, n_tris), k_sph=cap(k, n_sph), k_sh_tri=k_sh_tri,
+                k_sh_sph=k_sh_sph, nty=_round_up(height, TILE_H) // TILE_H,
+                ntx=_round_up(width, TILE_W) // TILE_W, projective=projective)
+
+
+@torch.no_grad()
+def _bin_soft_plain(packed, tau_e, camera: Camera, *, k_tri, k_sph, k_sh_tri,
+                    k_sh_sph, nty, ntx, projective) -> SoftBins:
+    """`_bin_soft` in torch, on any device (tau_e a float32 scalar tensor on
+    the scene's device): the twin of `_bin_soft_cuda`."""
     dev = packed.device
-    projective = camera.normalize
     offs = None if projective else (camera.o0[0], camera.o0[1])
-    nty = _round_up(height, TILE_H) // TILE_H
-    ntx = _round_up(width, TILE_W) // TILE_W
     n_tiles = nty * ntx
     n_lights = packed.lights.position.shape[0]
-    tau_e = device_scalar(tau_e, dev)
     pad = SOFT_CULL_SIGMAS * tau_e
     if projective:
         tri_box, sph_box = _pinhole_bboxes_soft(packed, camera, pad)
@@ -216,9 +252,6 @@ def _bin_soft(packed, tau_e, camera: Camera, *, height, width, k, shadows,
         tri_box = _pad_box(tri_box, pad)
         sph_box = _pad_box(sph_box, pad)
 
-    k_tri = _round_up(min(k, _round_up(packed.n_tris, CH)), CH) if packed.n_tris else 0
-    k_sph = (_round_up(min(k, _round_up(packed.n_spheres, CH)), CH)
-             if packed.n_spheres else 0)
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
     zero_cnt = torch.zeros((n_tiles,), dtype=torch.int32, device=dev)
 
@@ -239,18 +272,6 @@ def _bin_soft(packed, tau_e, camera: Camera, *, height, width, k, shadows,
     else:
         (s_idx, s_valid), cnt_sph = empty(), zero_cnt
 
-    # Pinhole shadow rays fan out from anywhere in a tile's frustum: no
-    # screen-space corridor bounds them, so their candidates are the full
-    # primitive set (one table shared by every tile).
-    if projective:
-        k_sh_tri = _round_up(packed.padded_tris, CH) if (shadows and packed.n_tris) else 0
-        k_sh_sph = (_round_up(packed.padded_spheres, CH)
-                    if (shadows and packed.n_spheres) else 0)
-    else:
-        k_sh_tri = (_round_up(min(shadow_k, _round_up(packed.n_tris, CH)), CH)
-                    if (shadows and packed.n_tris) else 0)
-        k_sh_sph = (_round_up(min(shadow_k, _round_up(packed.n_spheres, CH)), CH)
-                    if (shadows and packed.n_spheres) else 0)
     lpos = packed.lights.position
 
     # segment-hull shadow culling: z pad = the sigmoid tail + the shadow-ray
@@ -284,8 +305,12 @@ def _bin_soft(packed, tau_e, camera: Camera, *, height, width, k, shadows,
             idx, valid, cnt, over = bin_sh(box, n_real, ksh, zext)
             overflow = overflow | over
         else:
+            # pinhole shadow rays fan out from anywhere in a tile's
+            # frustum: no screen-space corridor bounds them, so their
+            # candidates are the full primitive set (one table shared by
+            # every tile), every slot live
             idx, valid = empty((n_lights,))
-            if ksh:  # projective: full shared list, every slot live
+            if ksh:
                 cnt = torch.full_like(cnt, n_real)
         sh_cnt[kind] = (idx, valid, cnt)
 
@@ -301,6 +326,78 @@ def _bin_soft(packed, tau_e, camera: Camera, *, height, width, k, shadows,
         k_tri=k_tri, k_sph=k_sph, k_sh_tri=k_sh_tri, k_sh_sph=k_sh_sph,
         nty=nty, ntx=ntx, projective=projective,
     )
+
+
+def _bin_soft_cuda(packed, tau_e, camera: Camera, *, k_tri, k_sph, k_sh_tri,
+                   k_sh_sph, nty, ntx, projective) -> SoftBins:
+    """`_bin_soft` on CUDA tensors: bin_soft_prep_kernel then
+    bin_soft_tiles_kernel of kernels/csrc/bin_tiled.cu, on the current
+    stream, into lists allocated here (`_bin_soft_plain` is their twin).
+    tau_e, a float32 scalar on the card, is read there at each run, so a
+    captured graph follows what is written into it. A list that is not
+    binned, and every pinhole shadow list, has CH slots, all invalid. The
+    arguments are checked before the library is loaded. The counter
+    `launch.bin_soft` (`utils.tracing`) counts each call from the host
+    outside a capture."""
+    dev = packed.device
+    n_tiles = nty * ntx
+    n_lights = packed.lights.position.shape[0]
+    tp, sp = packed.padded_tris, packed.padded_spheres
+    ins = [
+        ("tri_v0", packed.tri_v0, (3, tp)), ("tri_e1", packed.tri_e1, (3, tp)),
+        ("tri_e2", packed.tri_e2, (3, tp)),
+        ("sph_origin", packed.sph_origin, (3, sp)),
+        ("sph_radius", packed.sph_radius, (1, sp)),
+        ("light position", packed.lights.position, (n_lights, 3)),
+        *((name, getattr(camera, name).contiguous(), (3,))
+          for name in ("o0", "d0", "ddx", "ddy")),
+        ("tau_e", tau_e, ())]
+    for name, t, shape in ins:  # read element by element
+        _check(name, t, torch.float32, shape, dev, align=4)
+    if dev.type != "cuda":
+        raise ValueError(f"_bin_soft_cuda runs on cuda tensors, got {dev}")
+    from opencl_ray_tracer_tpu_torch.kernels._build import load_library
+
+    lib = load_library()
+    w_tri, w_sph = (k_ or CH for k_ in (k_tri, k_sph))
+    w_sh_tri, w_sh_sph = (k_ if (k_ and not projective) else CH
+                          for k_ in (k_sh_tri, k_sh_sph))
+
+    def empty(*shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    def lists(*lead, w):
+        return (empty(*lead, n_tiles, w, dtype=torch.int32),
+                empty(*lead, n_tiles, w, dtype=torch.bool))
+
+    (t_idx, t_valid), (s_idx, s_valid) = lists(w=w_tri), lists(w=w_sph)
+    tsh_idx, tsh_valid = lists(n_lights, w=w_sh_tri)
+    ssh_idx, ssh_valid = lists(n_lights, w=w_sh_sph)
+    bins = SoftBins(
+        t_idx=t_idx, t_valid=t_valid, s_idx=s_idx, s_valid=s_valid,
+        tsh_idx=tsh_idx, tsh_valid=tsh_valid, ssh_idx=ssh_idx,
+        ssh_valid=ssh_valid,
+        counts=empty(n_tiles, 2 + 2 * n_lights, dtype=torch.int32),
+        overflow=empty(dtype=torch.bool),
+        k_tri=k_tri, k_sph=k_sph, k_sh_tri=k_sh_tri, k_sh_sph=k_sh_sph,
+        nty=nty, ntx=ntx, projective=projective,
+    )
+    prims = empty(tp + sp, 8, dtype=torch.float32)  # screen box, z extent
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.octrt_bin_soft(
+            *(ptr(t) for _, t, _ in ins), ptr(prims),
+            *(ptr(t) for t in (t_idx, t_valid, s_idx, s_valid, tsh_idx,
+                               tsh_valid, ssh_idx, ssh_valid, bins.counts,
+                               bins.overflow)),
+            tp, sp, packed.n_tris, packed.n_spheres, n_lights, nty, ntx,
+            int(projective), k_tri, k_sph, k_sh_tri, k_sh_sph, w_tri, w_sph,
+            w_sh_tri, w_sh_sph, ctypes.c_void_p(stream))
+    _raise_on(rc, "bin_soft")
+    if not torch.cuda.is_current_stream_capturing():  # a capture runs nothing
+        tracing.count("launch.bin_soft")
+    return bins
 
 
 def soft_bins_for_config(packed, camera: Camera, config: RenderConfig) -> SoftBins:

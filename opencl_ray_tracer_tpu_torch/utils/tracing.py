@@ -51,10 +51,11 @@ Span and counter names, by layer:
   `kernels.build_s` (nvcc);
 - kernels: `launch.B1` (B1/B2, launched from the host outside a capture:
   a captured B1 runs at each replay, `graph.replays.<capture name>`),
-  `launch.bin` (the binning kernels of `fwd_tiled.bin_scene`, one a call)
-  and `launch.gather` (`fwd_tiled.kernel_inputs`' gather kernel), counted
-  as B1 is, `launch.B3` ... `launch.B7`, `launch.B4_finals`,
-  `launch.B5_finals`.
+  `launch.bin` (the binning kernels of `fwd_tiled.bin_scene`, one a call),
+  `launch.gather` (`fwd_tiled.kernel_inputs`' gather kernel) and
+  `launch.bin_soft` (the soft binning kernels of `soft_tiled._bin_soft`,
+  one a call), counted as B1 is, `launch.B3` ... `launch.B7`,
+  `launch.B4_finals`, `launch.B5_finals`.
 """
 
 from __future__ import annotations

@@ -79,6 +79,105 @@ def test_bin_soft_matches_jax(scenes, cam_kind):
     assert tb.k_sh_tri and tb.k_sh_sph and int(tb.counts[:, 2:].sum()) > 0
 
 
+# (camera, shadows, K, shadow K) -> (k_tri, k_sph, k_sh_tri, k_sh_sph) for the
+# fixture's 36 triangles and 5 spheres, each padded to 128: the caps rounded
+# up to CH (8) and to the rounded primitive count; a pinhole frame's shadow
+# caps are the padded counts.
+SOFT_CAPS = [
+    ("ortho", True, 32, 64, (32, 8, 40, 8)),
+    ("ortho", True, 5, 3, (8, 8, 8, 8)),
+    ("ortho", True, 20, 100, (24, 8, 40, 8)),
+    ("ortho", False, 32, 64, (32, 8, 0, 0)),
+    ("pinhole", True, 32, 64, (32, 8, 128, 128)),
+    ("pinhole", True, 5, 3, (8, 8, 128, 128)),
+    ("pinhole", False, 32, 64, (32, 8, 0, 0)),
+]
+
+
+@pytest.mark.parametrize("cam_kind,shadows,k,shadow_k,caps", SOFT_CAPS)
+def test_soft_bin_sizes_are_the_rounded_caps(scenes, cam_kind, shadows, k,
+                                             shadow_k, caps):
+    """`_soft_bin_sizes`, the static fields that both `_bin_soft_plain` and
+    `_bin_soft_cuda` are given, against the caps by hand, the JAX package's
+    bins and the CPU `_bin_soft`'s."""
+    js, ts = scenes
+    jc, tc = _cameras(cam_kind)
+    kw = dict(height=H, width=W, k=k, shadows=shadows, shadow_k=shadow_k)
+    sizes = S._soft_bin_sizes(ts.pack(), projective=cam_kind == "pinhole", **kw)
+    names = ("k_tri", "k_sph", "k_sh_tri", "k_sh_sph")
+    assert tuple(sizes[n] for n in names) == caps
+    assert (sizes["nty"], sizes["ntx"], sizes["projective"]) == (2, 2, cam_kind == "pinhole")
+    jb = jst._bin_soft(js.pack(), jnp.float32(0.5), jc, **kw)
+    tb = S._bin_soft(ts.pack(), 0.5, tc, **kw)
+    for n, v in sizes.items():
+        assert getattr(jb, n) == v and getattr(tb, n) == v, n
+
+
+def test_cpu_bin_soft_runs_the_twin_and_launches_nothing(scenes, monkeypatch):
+    def no_kernel(*a, **k):
+        raise AssertionError("CPU tensors reached the CUDA binning wrapper")
+
+    monkeypatch.setattr(S, "_bin_soft_cuda", no_kernel)
+    tracing.reset()
+    _, ts = scenes
+    packed, tc = ts.pack(), _cameras("ortho")[1]
+    kw = dict(height=H, width=W, k=32, shadows=True, shadow_k=64)
+    got = S._bin_soft(packed, 0.5, tc, **kw)
+    want = S._bin_soft_plain(packed, torch.tensor(0.5), tc,
+                             **S._soft_bin_sizes(packed, projective=False, **kw))
+    for f in BIN_FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert tracing.counter("launch.bin_soft") == 0
+
+
+def _bad_args(scenes, fault):
+    """`_bin_soft_cuda`'s arguments on the CPU with one fault."""
+    import dataclasses
+
+    _, ts = scenes
+    packed, cam = ts.pack(), _cameras("ortho")[1]
+    tau = torch.tensor(0.5)
+    if fault == "tau float64":
+        tau = tau.double()
+    elif fault == "tau shape":
+        tau = tau.reshape(1)
+    elif fault == "radius int":
+        packed = dataclasses.replace(packed, sph_radius=packed.sph_radius.int())
+    elif fault == "v0 strided":
+        packed = dataclasses.replace(packed, tri_v0=packed.tri_v0.T.contiguous().T)
+    elif fault == "radius shape":
+        packed = dataclasses.replace(packed,
+                                     sph_radius=packed.sph_radius[:, :64].contiguous())
+    elif fault == "lights shape":
+        lights = dataclasses.replace(packed.lights,
+                                     position=packed.lights.position.reshape(-1))
+        packed = dataclasses.replace(packed, lights=lights)
+    elif fault == "camera shape":
+        cam = dataclasses.replace(cam, o0=torch.zeros(4))
+    sizes = S._soft_bin_sizes(packed, height=H, width=W, k=32, shadows=True,
+                              shadow_k=64, projective=False)
+    return packed, tau, cam, sizes
+
+
+@pytest.mark.parametrize("fault,error,match", [
+    ("tau float64", TypeError, "tau_e: expected torch.float32"),
+    ("tau shape", ValueError, r"tau_e: shape \(1,\)"),
+    ("radius int", TypeError, "sph_radius: expected torch.float32"),
+    ("v0 strided", ValueError, "tri_v0: must be contiguous"),
+    ("radius shape", ValueError, "sph_radius: shape"),
+    ("lights shape", ValueError, "light position: shape"),
+    ("camera shape", ValueError, "o0: shape"),
+    ("none", ValueError, "runs on cuda tensors"),
+])
+def test_bin_soft_cuda_checks_its_arguments(scenes, fault, error, match):
+    """The CUDA wrapper checks every tensor it passes on before it loads the
+    library, so a wrong dtype, shape or layout (and, with none of those,
+    CPU tensors) raises here without a card or nvcc."""
+    packed, tau, cam, sizes = _bad_args(scenes, fault)
+    with pytest.raises(error, match=match):
+        S._bin_soft_cuda(packed, tau, cam, **sizes)
+
+
 @pytest.mark.parametrize("cam_kind", ["ortho", "pinhole"])
 def test_gather_soft_tables_match_jax(scenes, cam_kind):
     jb, tb, jc, tc = _bins(scenes, cam_kind)
