@@ -1243,7 +1243,9 @@ def _escalating(run, config: RenderConfig, n_tris: int, n_spheres: int,
     for the card), and run again with both caps doubled while it is set, up
     to the K at which no list can overflow; raises where both caps are
     there. The one K escalation of the hard frame: `bin_for_config` runs
-    `_bins_at` through it, `render_tiled` the whole frame."""
+    `_bins_at` through it, `render_tiled` the whole frame. A re-run is
+    logged once a (config, K pair) in a process: a scene that overflows
+    at every frame would log at every frame."""
     k, shadow_k = config.cull_k, config.shadow_cull_k
     k_max = _round_up(max(n_tris, n_spheres, 1), CHUNK)
     rerun = False
@@ -1257,10 +1259,17 @@ def _escalating(run, config: RenderConfig, n_tris: int, n_spheres: int,
         k = max(k, min(2 * k, k_max))
         shadow_k = max(shadow_k, min(2 * shadow_k, k_max))
         rerun = True
-        log_warning(
-            "tile candidate overflow: re-binning with cull_k=%d "
-            "shadow_cull_k=%d", k, shadow_k,
-        )
+        if (config, k, shadow_k) not in _WARNED:
+            _WARNED.add((config, k, shadow_k))
+            log_warning(
+                "tile candidate overflow: re-binning with cull_k=%d "
+                "shadow_cull_k=%d (logged once for this config and K pair)",
+                k, shadow_k,
+            )
+
+
+# The (config, K pair)s whose re-run `_escalating` has logged.
+_WARNED: set = set()
 
 
 # The hard frames' graphs, one a (config, K pair, shapes, device).
@@ -1285,9 +1294,11 @@ def render_tiled(scene, camera: Camera, config: RenderConfig) -> torch.Tensor:
     The frame returned is the caller's own (a replay's is cloned). CPU
     tensors run eagerly. Counters (`utils.tracing`): `frame.replayed` or
     `frame.eager`, one of them a frame, as its last run replayed or not,
-    and `frame.rebinned`, a frame whose overflow flag read true."""
+    `frame.rebinned`, a frame whose overflow flag read true, and
+    `frame.runs`, one a run of the frame at a K pair, eager or replayed."""
 
     def run(k, shadow_k):
+        tracing.count("frame.runs")
         (frame, overflow), replayed = _FRAME_GRAPHS(
             (config, k, shadow_k),
             functools.partial(_frame_at_caps, config=config, k=k, shadow_k=shadow_k),
@@ -1350,10 +1361,12 @@ def _render_tiled_jit(packed, camera: Camera, bins: TileBins, *, height: int,
     brute kernel (B3) where they do and the tiled kernel (B1/B2) where they
     do not, chosen on the card as `lax.cond` chooses under `jit` (captured,
     a replay runs only the branch taken). Returns what
-    `render_tiled_packed` returns for `out_format`."""
+    `render_tiled_packed` returns for `out_format`. The cond's site is
+    `fwd_tiled.frame`: each replay that takes the brute branch adds 1 to
+    the card's counter `cond.fwd_tiled.frame.brute`."""
     img = cond(bins.overflow, *_frame_branches(
         packed, camera, bins, height=height, width=width, shading=shading,
-        shadows=shadows, out_format=out_format))
+        shadows=shadows, out_format=out_format), site="fwd_tiled.frame")
     if out_format == "int":
         return torch.trunc(img).to(torch.int32)
     return img

@@ -35,11 +35,15 @@ Span and counter names, by layer:
   capture), and `frame.replay.host_read` (`render_tiled`'s overflow read
   after each run of the frame, replayed or eager); counters
   `frame.replayed`, `frame.eager` (`render_tiled`'s frames, each in one of
-  them), `frame.rebinned` (its frames whose overflow flag read true);
+  them), `frame.rebinned` (its frames whose overflow flag read true),
+  `frame.runs` (its runs of the whole frame at a K pair, eager or replayed:
+  one a frame, and one more a doubling of the caps);
 - compiled path (`runtime.graph`, `parallel.train`): span `graph.replay`,
   counters `graph.replays.<capture name>`, `graph.capture_s` (warm-up and
-  capture), device counter `cond.soft_tiled.fwd.brute` (replays whose
-  soft forward took the brute branch: `runtime.graph.cond(..., site=)`);
+  capture), device counters `cond.soft_tiled.fwd.brute` (replays whose
+  soft forward took the brute branch: `runtime.graph.cond(..., site=)`)
+  and `cond.fwd_tiled.frame.brute` (replays of the compiled hard frame,
+  `fwd_tiled._render_tiled_jit`, that took the brute branch);
 - rank mesh (`parallel.mesh.Mesh.all_reduce`, `parallel.train`): span
   `mesh.all_reduce` (each call, a capture's included), counters
   `mesh.all_reduces` and `mesh.all_reduce_bytes` (each exchange that runs:

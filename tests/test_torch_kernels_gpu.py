@@ -1000,9 +1000,9 @@ def _branch_case(case):
     this process: (kernels its replay ran, kernels of the branch taken,
     kernels of the other branch) from a profiler trace of one replay, after
     checking the replay's result against the eager call's, and the card's
-    counter of the soft forward's cond (`cond.soft_tiled.fwd.brute`, the
-    one cond that names a site) against the replays that took the brute
-    branch."""
+    counter of the case's cond (`cond.fwd_tiled.frame.brute` for the frame,
+    `cond.soft_tiled.fwd.brute` for the step's soft forward) against the
+    replays that took the brute branch."""
     from opencl_ray_tracer_tpu_torch.kernels import fwd
     from opencl_ray_tracer_tpu_torch.models.renderer import render_jit
     from opencl_ray_tracer_tpu_torch.ops.shading import pack_framebuffer_words
@@ -1034,7 +1034,7 @@ def _branch_case(case):
         assert torch.equal(got, want)
         seen = kernels_in(trace_ops(lambda: fn(scene, cam)))
         taken, other = ({"B3"}, {"B1/B2"}) if brute else ({"B1/B2"}, {"B3"})
-        sites, name = (), "render_tiled_fixed"
+        sites, name = ("fwd_tiled.frame",), "render_tiled_fixed"
     else:
         w, h = 128, 64
         if brute:

@@ -60,9 +60,10 @@ def test_off_span_is_one_shared_null_and_records_nothing():
     assert snap["spans"] == {} and tracing.recent() == []
     assert tracing._totals == {} and tracing._open() == []
     # a CPU frame launches no kernel; device counters made earlier read 0;
-    # it counts itself as an eager frame (this one runs again at a larger K)
+    # it counts itself as an eager frame (this one runs again at a larger K:
+    # two runs of the frame)
     counted = {k: v for k, v in snap["counters"].items() if v}
-    assert counted == {"frame.eager": 1, "frame.rebinned": 1}
+    assert counted == {"frame.eager": 1, "frame.rebinned": 1, "frame.runs": 2}
 
 
 def test_recording_a_cpu_frame_nests_its_spans():
