@@ -208,7 +208,13 @@ forms (CUDA graphs) — through the entry points a user calls, and fails
    behind a spin beside the twin's, and the counter `launch.bin_soft` over
    five compiled train steps (the capture's two warm-up runs; replays
    launch nothing from the host). Its rows in the `kernels` line are
-   `bin_tiled`, `gather_tiled` and `bin_soft`;
+   `bin_tiled`, `gather_tiled` and `bin_soft`. Between the two, B1 where
+   its warps cull the pinhole shadow rows: scene 3 (1,300 primitives)
+   through an orbit camera at 1920x1080, phong + hard shadows, packed, K
+   256 / 512, against `_tiled_kernel_plain` (the whole walk) at the hard
+   bars, with `b1.shadow_rows` > 0 and the kept share inside (0, 100) from
+   that launch, and B1's device time beside the twin's: `pinhole_cull` in
+   the `fwd_tiled` row of the `kernels` line;
 
 Hard kernel vs twin is bounded on every pixel: float frames within 0.5/255,
 packed and int frames within one step of 1/255 (and identical on >= 99.5%
@@ -577,7 +583,7 @@ def main() -> int:
     graph, _ = graph_phase(T, dev, smi)         # 16
     compiled = compiled_forms_phase(T, dev, smi)  # 17
     finals, finals_paths = finals_phase(T, dev, smi)  # 18
-    bin_rows = bin_phase(T, dev, smi)           # 19
+    bin_rows, cull = bin_phase(T, dev, smi)     # 19
     for row in bin_rows:
         key = row.pop("counter")
         if key not in table_launches:  # the soft binning: phase 19's own paths
@@ -622,6 +628,7 @@ def main() -> int:
         "bound_ms": hl["bound"][0],
         "bound_by": hl["bound"][1],
         "library_ms": None,
+        "pinhole_cull": cull,  # phase 19: scene 3's culled shadow rows
     }, {
         "name": "fwd_tiled (float output)",
         "route": "cuda",
@@ -3920,8 +3927,9 @@ def _orbit_pinhole(T, dev, angle_deg, w=1920, h=1080):
 
 def bin_phase(T, dev, smi):
     """Phase 19 (see the module's docstring). Returns the `kernels` rows of
-    the binning wrapper (bin_prep_kernel + bin_tiles_kernel) and the gather
-    kernel, each with the name of its launch counter under "counter"."""
+    the binning wrapper (bin_prep_kernel + bin_tiles_kernel), the gather
+    kernel and the soft binning, each with the name of its launch counter
+    under "counter", and the record of B1's cull (`_b1_cull_check`)."""
     import torch
 
     from opencl_ray_tracer_tpu_torch.bench_util import device_ms
@@ -4022,6 +4030,7 @@ def bin_phase(T, dev, smi):
             print(f"[time] {name}, {label} 1080p: device {ms:.4f} ms a call behind "
                   f"a spin; bound {bound_ms:.6f} ms by {by} ({moved} B); the twin "
                   f"on the card {t_ms:.4f} ms behind a spin; {smi}")
+    cull = _b1_cull_check(T, dev, smi)
     soft = _soft_bin_check(T, dev, smi)
     print(f"[bins] phase 19 took {time.perf_counter() - t_phase:.1f} s")
 
@@ -4064,7 +4073,55 @@ def bin_phase(T, dev, smi):
         "plain_ms": t_ms, "bound_ms": bound_ms, "bound_by": by,
         "library_ms": None,
     })
-    return rows
+    return rows, cull
+
+
+def _b1_cull_check(T, dev, smi, w=1920, h=1080):
+    """Phase 19's B1 on the pinhole shadow rows that its warps cull, at the
+    frame of the scene3_1080_hard.fly cell: scene 3 (1,300 primitives,
+    every light's list the whole scene) through a pinhole camera of the
+    orbit at 1920x1080, phong + hard shadows, packed words, binned at K
+    256 / 512 (no list overflows). The counters zeroed just before one
+    launch, B1's frame against `_tiled_kernel_plain`'s (the whole walk) on
+    the same card tensors at the hard bars, `b1.shadow_rows` > 0 and the
+    kept share strictly inside (0, 100) from that launch; then B1's device
+    time a launch behind a spin beside the twin's. Returns the record of
+    the `kernels` line's `pinhole_cull` entry."""
+    import torch
+
+    from opencl_ray_tracer_tpu_torch.bench_util import device_ms
+    from opencl_ray_tracer_tpu_torch.kernels import fwd_tiled
+    from opencl_ray_tracer_tpu_torch.utils import tracing
+
+    cam = _orbit_pinhole(T, dev, 30, w, h)
+    cfg = T.RenderConfig(width=w, height=h, shading="phong", shadows=True,
+                         framebuffer_dtype="packed", cull_k=256, shadow_cull_k=512)
+    packed = T.create_scene(3, seed=0, device=dev).pack()
+    bins = fwd_tiled.bin_for_config(packed, cam, cfg)
+    _require(max(bins.k_tri, bins.k_sph) <= 256 and not bool(bins.overflow),
+             f"[cull] scene 3 overflows K 256 / 512: K {bins.k_tri} / {bins.k_sph}")
+    args, kw = fwd_tiled.kernel_inputs(packed, cam, bins, height=h, width=w,
+                                       shading="phong", shadows=True,
+                                       out_format="packed")
+    tracing.reset()
+    got = fwd_tiled.tiled_kernel(*args, **kw)
+    torch.cuda.synchronize()
+    rows, kept = (tracing.counter(n) for n in fwd_tiled._CULL_COUNTERS)
+    label = (f"scene 3 {w}x{h} pinhole 30 phong+shadows, K {bins.k_tri} / "
+             f"{bins.k_sph}, shadow tables {bins.k_sh_tri} + {bins.k_sh_sph} rows")
+    err = _check_twin(f"[cull] {label}: B1 (culled walk) vs twin (whole walk)",
+                      got, fwd_tiled._tiled_kernel_plain(*args, **kw), "packed")
+    _require(rows > 0 and 0 < kept < rows,
+             f"[cull] b1.shadow_rows {rows}, b1.shadow_rows_kept {kept}")
+    ms = device_ms(lambda: fwd_tiled.tiled_kernel(*args, **kw), 50)
+    t_ms = device_ms(lambda: fwd_tiled._tiled_kernel_plain(*args, **kw), 3)
+    pct = 100.0 * kept / rows
+    print(f"[cull] {label}: b1.shadow_rows {rows}, kept {kept} ({pct:.4f}%) in "
+          f"one launch; B1 {ms:.4f} ms of device time a launch behind a spin, "
+          f"the twin on the card {t_ms:.4f} ms; {smi}")
+    return {"shape": label, "max_abs_err": err, "shadow_rows": rows,
+            "shadow_rows_kept": kept, "kept_pct": pct, "ms": ms, "plain_ms": t_ms,
+            "ms_is": "device time per launch, behind a spin"}
 
 
 def _soft_bin_check(T, dev, smi):

@@ -102,7 +102,7 @@ def load_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(build())
         ptr, i = ctypes.c_void_p, ctypes.c_int
         lib.octrt_fwd_tiled.restype = i
-        lib.octrt_fwd_tiled.argtypes = [ptr] * 10 + [i] * 13 + [ptr, i, ptr]
+        lib.octrt_fwd_tiled.argtypes = [ptr] * 10 + [i] * 13 + [ptr, i, ptr, ptr]
         lib.octrt_bin_tiled.restype = i
         lib.octrt_bin_tiled.argtypes = [ptr] * 24 + [i] * 16 + [ptr]
         lib.octrt_bin_soft.restype = i

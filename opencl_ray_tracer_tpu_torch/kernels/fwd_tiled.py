@@ -88,6 +88,15 @@ CHUNK = 8                        # candidate-list granularity (K rounding)
 # margin on the (normalised) occluder-plane test; side planes use exact >= 0.
 _SH_PLANE_EPS = 1e-2
 
+# B1's per-warp cull of the pinhole shadow rows (kernels/csrc/fwd_tiled.cu,
+# whose header derives both margins): a plane's slack and the part of the
+# sphere test's margin that scales with the coordinates, and the sphere
+# radius's pad over its reach. `_shadow_keep_plain` is the predicate.
+_CULL_SLACK = 2.0 ** -16
+_CULL_SPH_PAD = 2.0 ** -8
+# B1's card counters of the culled rows and the kept ones (utils/tracing.py)
+_CULL_COUNTERS = ("b1.shadow_rows", "b1.shadow_rows_kept")
+
 # Elements per temporary of the plain twin (tile batch x chunk x pixels):
 # 64 MB of float32, small on the card, a few at a time on the CPU.
 _PLAIN_MAX_ELEMS = 1 << 24
@@ -475,10 +484,11 @@ def bin_scene(packed, *, height: int, width: int, k: int = 32,
     shared-direction camera contributes its origin offset o0.xy. With a
     normalize (pinhole) `camera`: perspective screen-space bboxes, and the
     shadow candidates of every tile are the full primitive set, stored once
-    and shared by all tiles. On CUDA tensors the kernels of
-    kernels/csrc/bin_tiled.cu build the bins (`_bin_scene_cuda`: no host
-    read, nothing that waits for the card); other tensors run
-    `_bin_scene_plain`, their twin."""
+    and shared by all tiles: the lists stay whole here, and B1 culls them
+    per warp against its own hit points (kernels/csrc/fwd_tiled.cu). On
+    CUDA tensors the kernels of kernels/csrc/bin_tiled.cu build the bins
+    (`_bin_scene_cuda`: no host read, nothing that waits for the card);
+    other tensors run `_bin_scene_plain`, their twin."""
     projective = camera is not None and camera.normalize
     sizes = _bin_sizes(packed, height=height, width=width, k=k,
                        shadows=shadows, shadow_k=shadow_k, projective=projective)
@@ -953,6 +963,36 @@ def _tiled_kernel_plain(params, counts, tri_coef_t, tri_attr_t, sph_coef_t,
     return img[:height, :width].contiguous()
 
 
+def _tri_blocked(c, *, projective, x, y, t, o0, rd):
+    """The triangle shadow-row test (B1's `tri_shadow`): c the row's 16
+    columns, each broadcast against the pixels' x, y, t and ray direction
+    rd (the shared d0 for ortho); bool, blocked."""
+    o0x, o0y, o0z = o0
+    blocked = None
+    for pi in range(4):
+        mx, my, mz, cc = c[4 * pi : 4 * pi + 4]
+        md = mx * rd[0] + my * rd[1] + mz * rd[2]
+        s = cc + mx * o0x + my * o0y + mz * o0z
+        if not projective:
+            s = s + mx * x + my * y
+        cond = s + md * t >= (_SH_PLANE_EPS if pi == 3 else 0.0)
+        blocked = cond if blocked is None else (blocked & cond)
+    return blocked
+
+
+def _sph_blocked(c, *, p, ld, dist):
+    """The sphere shadow-row test (B1's `sph_shadow`): c the row's columns
+    (centre, r^2 first), p the hit point, ld the unit direction to the light
+    and dist its distance; bool, blocked."""
+    cx, cy, cz, r2 = c[0:4]
+    lx, ly, lz = cx - p[0], cy - p[1], cz - p[2]
+    tca = lx * ld[0] + ly * ld[1] + lz * ld[2]
+    m2 = lx * lx + ly * ly + lz * lz - tca * tca
+    hit = (tca >= 0.0) & (m2 <= r2)
+    t0 = tca - torch.sqrt(torch.clamp(r2 - m2, min=0.0))
+    return hit & (t0 > 1e-3) & (t0 < dist)
+
+
 def _shadow_occluded_plain(tri_sh, sph_sh, n_tri, n_sph, li, tri_stride,
                            sph_stride, ch, *, projective, x, y, t, p, ld, dist,
                            o0, rd):
@@ -962,34 +1002,17 @@ def _shadow_occluded_plain(tri_sh, sph_sh, n_tri, n_sph, li, tri_stride,
     tri_sh/sph_sh: the batch's shadow tables (nb or 1, L*stride, 16);
     n_tri/n_sph: (nb,) candidate counts; x, y, t, dist and the components of
     p, ld (and rd under a pinhole) are (nb, TP); rd is the ray direction (the
-    shared d0 for ortho). Returns bool (nb, TP)."""
+    shared d0 for ortho). The twin walks every row: B1's per-warp cull
+    (`_shadow_keep_plain`) keeps each row that can block, so the answer is
+    the same. Returns bool (nb, TP)."""
     occ = torch.zeros_like(t, dtype=torch.bool)
     x, y, t, dist = (v[:, None] for v in (x, y, t, dist))
     p, ld, rd = (tuple(v[:, None] if v.dim() else v for v in vec)
                  for vec in (p, ld, rd))
-    o0x, o0y, o0z = o0
 
-    def tri_blocked(c):
-        blocked = None
-        for pi in range(4):
-            mx, my, mz, cc = c[4 * pi : 4 * pi + 4]
-            md = mx * rd[0] + my * rd[1] + mz * rd[2]
-            s = cc + mx * o0x + my * o0y + mz * o0z
-            if not projective:
-                s = s + mx * x + my * y
-            cond = s + md * t >= (_SH_PLANE_EPS if pi == 3 else 0.0)
-            blocked = cond if blocked is None else (blocked & cond)
-        return blocked
-
-    def sph_blocked(c):
-        cx, cy, cz, r2 = c[0:4]
-        lx, ly, lz = cx - p[0], cy - p[1], cz - p[2]
-        tca = lx * ld[0] + ly * ld[1] + lz * ld[2]
-        m2 = lx * lx + ly * ly + lz * lz - tca * tca
-        hit = (tca >= 0.0) & (m2 <= r2)
-        t0 = tca - torch.sqrt(torch.clamp(r2 - m2, min=0.0))
-        return hit & (t0 > 1e-3) & (t0 < dist)
-
+    tri_blocked = functools.partial(_tri_blocked, projective=projective, x=x,
+                                    y=y, t=t, o0=o0, rd=rd)
+    sph_blocked = functools.partial(_sph_blocked, p=p, ld=ld, dist=dist)
     for table, stride, n, blocked_fn in (
         (tri_sh, tri_stride, n_tri, tri_blocked),
         (sph_sh, sph_stride, n_sph, sph_blocked),
@@ -1002,6 +1025,49 @@ def _shadow_occluded_plain(tri_sh, sph_sh, n_tri, n_sph, li, tri_stride,
             blocked = blocked_fn(c) & (j[None, :, None] < n[:, None, None])
             occ = occ | blocked.any(dim=1)
     return occ
+
+
+def _shadow_keep_plain(tri_rows, sph_rows, lo, hi, light, o0):
+    """B1's per-warp cull of the pinhole shadow rows (kernels/csrc/
+    fwd_tiled.cu `tri_keep`, `sph_keep`) in torch, for the tests.
+
+    tri_rows (..., n, 16) and sph_rows (..., m, 16): one light's shadow
+    rows; lo, hi (..., 3): the box of a warp's lit hit points, as B1
+    computes them; light (..., 3): the light's position; o0 (..., 3): the
+    camera's origin (leading dims broadcast). Returns (tri_keep (..., n),
+    sph_keep (..., m)) bool: a row is dropped only where `_tri_blocked` /
+    `_sph_blocked` mark it blocked for no hit point of the box. A triangle
+    is dropped where one of its planes' largest value over the box lies
+    below the walk's threshold by more than its slack; a sphere, padded,
+    where it misses the hull of the box and the light."""
+    lo, hi, light = lo[..., None, :], hi[..., None, :], light[..., None, :]
+    amax = torch.maximum(lo.abs(), hi.abs())                     # (..., 1, 3)
+    reach = 2.0 * (o0.abs().sum(-1)[..., None] + amax.sum(-1))   # (..., 1)
+    planes = tri_rows.unflatten(-1, (4, 4))
+    m, w = planes[..., :3], planes[..., 3]
+    top = w + torch.maximum(m * lo[..., None, :], m * hi[..., None, :]).sum(-1)
+    slack = _CULL_SLACK * (w.abs() + m.abs().sum(-1) * reach[..., None])
+    thr = torch.tensor([0.0, 0.0, 0.0, _SH_PLANE_EPS], dtype=top.dtype,
+                       device=top.device)
+    tri_keep = (top + slack >= thr).all(-1)
+
+    c, r2 = sph_rows[..., :3], sph_rows[..., 3]
+    r = torch.sqrt(torch.clamp(r2, min=0.0))
+    far = torch.linalg.vector_norm(torch.maximum((c - lo).abs(), (c - hi).abs()),
+                                   dim=-1)
+    rad = r + _CULL_SPH_PAD * (far + r)
+    rad = rad + _CULL_SLACK * (c.abs().amax(-1) + rad + amax.amax(-1)
+                               + light.abs().amax(-1))
+    s_lo = torch.zeros_like(rad)
+    s_hi = torch.ones_like(rad)
+    ok = torch.ones_like(rad, dtype=torch.bool)
+    for i in range(3):
+        a0, a1, a_ok = _axis_s_interval(lo[..., i], hi[..., i], light[..., i],
+                                        c[..., i] - rad, c[..., i] + rad)
+        s_lo = torch.maximum(s_lo, a0)
+        s_hi = torch.minimum(s_hi, a1)
+        ok = ok & a_ok
+    return tri_keep, ok & (s_lo <= s_hi)
 
 
 def tiled_kernel(params, counts, tri_coef_t, tri_attr_t, sph_coef_t,
@@ -1086,6 +1152,9 @@ def _tiled_kernel_cuda(params, counts, tri_coef_t, tri_attr_t, sph_coef_t,
     else:
         out = _out_buffer((height, width, 4), torch.float32, dev, run_if)
     tiles = _out_buffer((2 + n_tiles,), torch.int32, dev, run_if)
+    # B1 adds to them where it culls (kernels/csrc/fwd_tiled.cu), else not
+    stats = tracing.device_counters(
+        _CULL_COUNTERS, dev, make=not torch.cuda.is_current_stream_capturing())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.octrt_fwd_tiled(
@@ -1095,7 +1164,7 @@ def _tiled_kernel_cuda(params, counts, tri_coef_t, tri_attr_t, sph_coef_t,
             sph_coef_t.shape[1], tri_sh_t.shape[1] // n_lights,
             sph_sh_t.shape[1] // n_lights, n_lights, _SHADING_CODES[shading],
             int(bool(shadows)), int(bool(projective)), _FORMAT_CODES[out_format],
-            _ptr(run_if), int(want), ctypes.c_void_p(stream),
+            _ptr(run_if), int(want), _ptr(stats), ctypes.c_void_p(stream),
         )
     _raise_on(lib, rc, "fwd_tiled")
     if not torch.cuda.is_current_stream_capturing():  # a capture runs nothing

@@ -55,6 +55,10 @@ Span and counter names, by layer:
   `kernels.build_s` (nvcc);
 - kernels: `launch.B1` (B1/B2, launched from the host outside a capture:
   a captured B1 runs at each replay, `graph.replays.<capture name>`),
+  device counters `b1.shadow_rows` and `b1.shadow_rows_kept` (B1/B2 under a
+  pinhole camera with shadows, eager or replayed: the shadow rows of the
+  lights whose list its warps culled against their hit points, and the
+  rows they kept; made by the first launch outside a capture),
   `launch.bin` (the binning kernels of `fwd_tiled.bin_scene`, one a call),
   `launch.gather` (`fwd_tiled.kernel_inputs`' gather kernel) and
   `launch.bin_soft` (the soft binning kernels of `soft_tiled._bin_soft`,
@@ -83,6 +87,8 @@ _recent: Deque[Tuple[str, int, int, Optional[str]]] = collections.deque(maxlen=R
 _local = threading.local()  # .open: this thread's open spans, innermost last
 _counters: Dict[str, float] = {}
 _device: Dict[str, List[torch.Tensor]] = {}  # device counters' int64 slots
+# device_counters' blocks, by their names and device
+_blocks: Dict[Tuple[Tuple[str, ...], torch.device], torch.Tensor] = {}
 _range_op = None        # _RecordFunctionFast, False where torch lacks it
 
 
@@ -183,6 +189,29 @@ def device_counter(name: str, device, make: bool = True) -> Optional[torch.Tenso
     slot = torch.zeros(1, dtype=torch.int64, device=dev)
     _device.setdefault(name, []).append(slot)
     return slot
+
+
+def device_counters(names: Tuple[str, ...], device,
+                    make: bool = True) -> Optional[torch.Tensor]:
+    """The device counters `names` on `device` as the int64 slots of one
+    tensor (len(names),), for a kernel that takes them as one pointer: made
+    (zero) together at the first call for that device, each then read and
+    zeroed as `device_counter`'s; with `make` False, None where they were
+    not made. A name already made apart from this block raises ValueError.
+    Make them outside a CUDA graph's capture."""
+    dev = torch.device(device)
+    block = _blocks.get((names, dev))
+    if block is not None or not make:
+        return block
+    apart = [n for n in names if device_counter(n, dev, make=False) is not None]
+    if apart:
+        raise ValueError(f"device counters {apart} on {dev} were made apart "
+                         f"from the block {names}")
+    block = torch.zeros(len(names), dtype=torch.int64, device=dev)
+    for i, n in enumerate(names):
+        _device.setdefault(n, []).append(block[i : i + 1])
+    _blocks[(names, dev)] = block
+    return block
 
 
 def counter(name: str) -> float:

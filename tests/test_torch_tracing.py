@@ -195,6 +195,23 @@ def test_device_counter_is_read_on_the_host_and_zeroed_by_reset():
     assert int(slot) == 0 and tracing.counter("cond.probe.brute") == 0
 
 
+def test_device_counters_are_one_block_read_and_zeroed_slot_by_slot():
+    names = ("probe.block.rows", "probe.block.kept")
+    assert tracing.device_counters(names, "cpu", make=False) is None
+    block = tracing.device_counters(names, "cpu")
+    assert block.dtype == torch.int64 and block.shape == (2,)
+    assert tracing.device_counters(names, "cpu") is block
+    assert tracing.device_counter(names[1], "cpu").data_ptr() == block[1:].data_ptr()
+    block += torch.tensor([5, 2])  # what B1 adds, one add a block
+    assert [tracing.counter(n) for n in names] == [5, 2]
+    tracing.reset()
+    assert block.tolist() == [0, 0]
+    # a name made on its own first is no block's head: no slot is widened
+    tracing.device_counter("probe.alone.rows", "cpu")
+    with pytest.raises(ValueError, match="probe.alone.rows"):
+        tracing.device_counters(("probe.alone.rows", "probe.alone.kept"), "cpu")
+
+
 def test_reset_inside_a_span_raises():
     with tracing.recording():
         with tracing.span("frame.bin"):
