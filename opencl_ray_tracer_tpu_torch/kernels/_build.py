@@ -114,7 +114,7 @@ def load_library() -> ctypes.CDLL:
         lib.octrt_soft_tiled_bwd.restype = i
         lib.octrt_soft_tiled_bwd.argtypes = [ptr] * 20 + [i] * 12 + [ptr]
         lib.octrt_fwd_brute.restype = i
-        lib.octrt_fwd_brute.argtypes = [ptr] * 8 + [i] * 10 + [ptr, i, ptr]
+        lib.octrt_fwd_brute.argtypes = [ptr] * 8 + [i] * 10 + [ptr, i, ptr, ptr]
         lib.octrt_soft_brute_fwd.restype = i
         lib.octrt_soft_brute_fwd.argtypes = [ptr] * 8 + [i] * 10 + [ptr, i, ptr]
         lib.octrt_soft_brute_bwd.restype = i

@@ -53,7 +53,11 @@
 //     barriers, and leaves a loop once all its pixels are done;
 //   - the inner loop carries only (t, index) per pixel, and the winner's
 //     attributes are read once per lit pixel by index (the TPU kernel's
-//     one-hot matrix product).
+//     one-hot matrix product);
+//   - each block adds its pixels and those that hit something to the card
+//     counters b3.px and b3.hit_px (Args::stats) once, after the nearest
+//     hit: a count of its threads' flags through the barrier, no word of
+//     the frame moves.
 //
 // Numerics: built without --use_fast_math and with -fmad=false, so every
 // product and sum rounds once, in the twin's order (ties hang on the last
@@ -95,6 +99,7 @@ struct Args {
   int height, width, tp, sp, n_tris, n_spheres, n_lights, shadows;
   const int* run_if;  // null: always run; else run only if *run_if == want
   int want;           // (lax.cond on the card: the untaken branch returns)
+  unsigned long long* stats;  // null, or b3.px, b3.hit_px
 };
 
 // Columns [base, base + n) of a row-major (rows, stride) operand into
@@ -473,6 +478,18 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) fwd_brute_kernel(Args a) {
     lit[k] = inside[k] && best_t[k] < MISS_T;
     any_lit |= lit[k];
   }
+  if (a.stats != nullptr) {  // one add a block
+    int n_px = 0, n_hit = 0;
+#pragma unroll
+    for (int k = 0; k < PX; ++k) {
+      n_px += __syncthreads_count(inside[k]);
+      n_hit += __syncthreads_count(lit[k]);
+    }
+    if (threadIdx.x == 0) {
+      atomicAdd(a.stats, (unsigned long long)n_px);
+      atomicAdd(a.stats + 1, (unsigned long long)n_hit);
+    }
+  }
   if (WHOLE && SHADING != SHADE_LEGACY && a.shadows) {
     // the scene's geometry, once, and only for a block that shades a pixel
     if (__syncthreads_or(any_lit)) {
@@ -551,13 +568,16 @@ cudaError_t launch(const Args& a, int shading, cudaStream_t stream) {
 }  // namespace
 
 // run_if: null, or an int on the card; then the kernel runs only if it equals
-// want, and a skipped launch writes nothing.
+// want, and a skipped launch writes nothing. stats: null, or two int64
+// counters on the card, to which a launch that runs adds the frame's pixels
+// and those that hit something; a skipped launch leaves them.
 extern "C" int octrt_fwd_brute(
     const float* params, const float* tri_geo, const float* tri_attr,
     const float* sph_geo, const float* sph_attr, const float* tri_coef,
     const float* sph_coef, float* out, int height, int width, int tp, int sp,
     int n_tris, int n_spheres, int n_lights, int shading, int shadows,
-    int affine, const int* run_if, int want, void* stream) {
+    int affine, const int* run_if, int want, unsigned long long* stats,
+    void* stream) {
   if (shading < SHADE_LEGACY || shading > SHADE_PHONG || n_lights < 1 ||
       height <= 0 || width <= 0 || n_tris < 0 || n_tris > tp ||
       n_spheres < 0 || n_spheres > sp ||
@@ -566,7 +586,7 @@ extern "C" int octrt_fwd_brute(
   }
   const Args a{params, tri_geo, tri_attr, sph_geo, sph_attr, tri_coef, sph_coef,
                reinterpret_cast<float4*>(out), height, width, tp, sp, n_tris,
-               n_spheres, n_lights, shadows, run_if, want};
+               n_spheres, n_lights, shadows, run_if, want, stats};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   return (int)(affine ? launch<true>(a, shading, s) : launch<false>(a, shading, s));
 }

@@ -40,6 +40,10 @@ _PLAIN_MAX_ELEMS = 1 << 23
 
 _SHADING_CODES = {"legacy": 0, "lambert": 1, "phong": 2}
 
+# B3's card counters of the pixels it works and those that hit something
+# (utils/tracing.py)
+_B3_COUNTERS = ("b3.px", "b3.hit_px")
+
 # params vector layout: camera affine bundle + material + lights.
 _P_O0, _P_DOX, _P_DOY, _P_D0, _P_DDX, _P_DDY = 0, 3, 6, 9, 12, 15
 _P_AMBIENT, _P_SPEC, _P_SHINE = 18, 19, 20
@@ -469,6 +473,9 @@ def brute_kernel(params, tri_geo, tri_attr, sph_geo, sph_attr, tri_coef,
 
     lib = load_library()
     out = _out_buffer((height, width, 4), torch.float32, dev, run_if)
+    # B3 adds to them at every launch that runs, eager or replayed
+    stats = tracing.device_counters(
+        _B3_COUNTERS, dev, make=not torch.cuda.is_current_stream_capturing())
     p = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else None)  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -477,7 +484,7 @@ def brute_kernel(params, tri_geo, tri_attr, sph_geo, sph_attr, tri_coef,
             p(tri_coef if affine else None), p(sph_coef if affine else None),
             p(out), height, width, tp, sp, n_tris, n_spheres, n_lights,
             _SHADING_CODES[shading], int(bool(shadows)), int(affine),
-            p(run_if), int(want), ctypes.c_void_p(stream),
+            p(run_if), int(want), p(stats), ctypes.c_void_p(stream),
         )
     if rc != 0:
         raise RuntimeError(

@@ -63,7 +63,13 @@ Span and counter names, by layer:
   `launch.gather` (`fwd_tiled.kernel_inputs`' gather kernel) and
   `launch.bin_soft` (the soft binning kernels of `soft_tiled._bin_soft`,
   one a call), counted as B1 is, `launch.B3` ... `launch.B7`,
-  `launch.B4_finals`, `launch.B5_finals`.
+  `launch.B4_finals`, `launch.B5_finals`; device counters `b3.px` and
+  `b3.hit_px` (B3, `kernels/fwd.py` `brute_kernel`, eager or replayed: the
+  pixels each launch that runs works, and those that hit something; made
+  by the first launch outside a capture);
+- app shell (`app.main_state.MainState.run_trace`): span `app.readback`
+  (the frame's copy to the host, inside the timed trace), counters
+  `app.readbacks` and `app.readback_bytes`.
 """
 
 from __future__ import annotations

@@ -1,7 +1,9 @@
-"""Hard frames whose tile lists overflow, and the benchmark's two hard-frame
+"""Hard frames whose tile lists overflow, and the benchmark's hard-frame
 cells beside `rt10_1080.fly`: `scene3_1080_hard.fly` (scene 3 flown through
-with `models.renderer.render`, every frame re-run at doubled K caps) and
-`rt10_1080.fly_jit` (the compiled frame, `models.renderer.render_jit`).
+with `models.renderer.render`, every frame re-run at doubled K caps),
+`rt10_1080.fly_jit` (the compiled frame, `models.renderer.render_jit`) and
+`scene3_1080_hard.fly_jit` (the compiled frame on scene 3, whose brute
+branch B3 renders every frame).
 
 On the CPU, at 160 x 120: scene 3's distributions with 12 spheres and 4
 cubes over the frame, seen by the cells' pinhole orbit scaled to the frame,
@@ -166,7 +168,18 @@ CELLS = {
     "rt10_1080.fly_jit": RT10_SMALL,
     # the compiled frame on lists that overflow K 8: the brute branch
     "rt10_1080.fly_jit-dense": DENSE,
+    "scene3_1080_hard.fly_jit": DENSE,
 }
+
+
+def _traced_seconds(workload, over):
+    """A window in whose second half a frame surely ends, so that the traced
+    stretch starts there (`rtbench/lib/window.py`): six times the longest
+    frame of a one-frame run of the cell timed now, under the CPU's load of
+    the moment, and at least 4 s. A dense frame takes up to ~1 s on a loaded
+    CPU, and the load changes while the workers run."""
+    _, _, run = execute(_args(workload, 0, 0.0), torch.device("cpu"), overrides=over)
+    return max(4.0, 6.0 * max(run.window["latencies_s"]))
 
 
 @pytest.mark.parametrize("cell", list(CELLS))
@@ -174,9 +187,8 @@ CELLS = {
 def test_the_hard_frame_cells_run_and_report(clean, cell, trace):
     workload = cell.split("-")[0]
     over = {"config": CELLS[cell], "traffic": SMALL_TRAFFIC}
-    # a traced run needs its first frame to end before the window does: a
-    # dense frame takes up to ~1 s on a loaded CPU
-    res, checks, run = execute(_args(workload, trace, 4.0 if trace else 0.6),
+    seconds = _traced_seconds(workload, over) if trace else 0.6
+    res, checks, run = execute(_args(workload, trace, seconds),
                                torch.device("cpu"), overrides=over)
     assert res["correct"] is True, checks
     assert [c[0] for c in checks] == ["frame_mismatch_share"]
@@ -187,10 +199,11 @@ def test_the_hard_frame_cells_run_and_report(clean, cell, trace):
         assert res["metrics"]["frame_p95_ms"]["value"] > 0
         return
     assert {"frame.mean_ms", "frame.device_ops", "frame.idle_pct"} <= got
-    # a CPU trace holds no device operation, so no B1 to read; the compiled
-    # frame's cond counts on the card only
-    assert "frame.b1_roofline" not in got and "frame.brute_pct" not in got
-    if workload == "rt10_1080.fly_jit":
+    # a CPU trace holds no device operation, so no B1 or B3 to read; the
+    # compiled frame's cond and B3's counters count on the card only
+    assert not {"frame.b1_roofline", "frame.brute_pct", "frame.b3_roofline",
+                "frame.b3_hit_pct"} & got
+    if workload.endswith(".fly_jit"):
         assert "frame.runs_per_frame" not in got and "frame.replay_pct" not in got
         return
     runs = res["metrics"]["frame.runs_per_frame"]
@@ -218,6 +231,22 @@ def test_the_brute_share_reads_the_cond_counter_over_the_replays():
     # a program whose cond names no site, or that replayed nothing
     assert _counted({"graph.replays.render_tiled_fixed": 40}) is None
     assert _counted({"cond.fwd_tiled.frame.brute": 0}) is None
+
+
+def _hit_pct(counters):
+    class _Run:
+        def memo(self, key, make):
+            return {"counters": counters}
+
+    return files.load("metrics", "frame.b3_hit_pct").read(_Run())
+
+
+def test_the_brute_hit_share_reads_b3s_counters():
+    assert _hit_pct({"b3.px": 2_073_600, "b3.hit_px": 518_400}) == 25.0
+    assert _hit_pct({"b3.px": 100, "b3.hit_px": 0}) == 0.0
+    # a program without B3's counters, or a run in which B3 never ran
+    assert _hit_pct({"graph.replays.render_tiled_fixed": 40}) is None
+    assert _hit_pct({"b3.px": 0, "b3.hit_px": 0}) is None
 
 
 # ---- on the card -----------------------------------------------------------
@@ -284,3 +313,48 @@ def test_overflowing_frames_rerun_on_the_card(card, clean, monkeypatch):
             assert share <= LIMIT, (rep, k, share)
     assert tracing.counter("frame.runs") == want
     assert tracing.counter("frame.replayed") > 0
+
+
+def test_b3_counts_its_pixels_eager_and_replayed_and_leaves_the_words(card, clean,
+                                                                       monkeypatch):
+    """B3 adds the frame's pixels to `b3.px` and those that hit something to
+    `b3.hit_px` at every launch that runs: eager, in the compiled frame's
+    warm-up, and replayed (the brute branch at K 8); the words are those of
+    B3 launched with no counters."""
+    from opencl_ray_tracer_tpu_torch.kernels import fwd
+    from opencl_ray_tracer_tpu_torch.models.renderer import render_jit
+    from opencl_ray_tracer_tpu_torch.ops.shading import pack_framebuffer_words
+
+    arrays = scenes.make_scene(SCENE, SEED, card)
+    scene = scene_from_arrays(arrays, card)
+    cfg = RenderConfig(width=W, height=H, **MODE).validate()
+    c = frames.orbit_cameras(ORBIT, W, H)[CAMS[1]]
+    pc = pinhole_camera(position=c["position"], look_at=c["look_at"], up=c["up"],
+                        fov_degrees=c["fov_degrees"], width=W, height=H, device=card)
+
+    def brute():
+        return fwd._render_pallas_jit(scene.pack(), pc, height=H, width=W,
+                                      shading=MODE["shading"], shadows=MODE["shadows"])
+
+    def counts():
+        return [tracing.counter(n) for n in fwd._B3_COUNTERS]
+
+    rgba = brute()
+    px, hit = counts()
+    assert px == W * H
+    assert hit == int((rgba[..., :3] != 0).any(-1).sum()) > 0
+    with monkeypatch.context() as m:  # no counters: the kernel gets none
+        m.setattr(fwd.tracing, "device_counters", lambda *a, **kw: None)
+        bare = brute()
+    assert counts() == [px, hit]
+    assert torch.equal(rgba, bare)
+
+    fwd_jit = render_jit(cfg)
+    fwd_jit(scene, pc)  # warm-up (B3 under run_if, taken), capture, replay
+    tracing.reset()
+    for n in range(1, 4):
+        words = fwd_jit(scene, pc).clone()
+        torch.cuda.synchronize(card)
+        assert counts() == [n * px, n * hit]
+        assert torch.equal(words, pack_framebuffer_words(bare))
+    assert tracing.counter("cond.fwd_tiled.frame.brute") == 3

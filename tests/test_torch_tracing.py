@@ -267,3 +267,30 @@ def test_mesh_all_reduce_is_a_span_and_counts_each_exchange():
     assert tracing.snapshot()["spans"]["mesh.all_reduce"]["count"] == 2
     assert tracing.counter("mesh.all_reduces") == 2
     assert tracing.counter("mesh.all_reduce_bytes") == 2 * 5 * 4
+
+
+def test_an_app_trace_reads_its_frame_back_in_the_span_app_readback():
+    """`MainState.run_trace` copies the frame to the host inside the span
+    `app.readback` (recorded only while tracing is on) and counts each copy
+    and its bytes (always); the host copy is the frame, and the buffer is
+    kept from trace to trace."""
+    from opencl_ray_tracer_tpu_torch import app
+
+    cfg = T.RenderConfig(width=W, height=H, shading="legacy")
+    sm = app.StateManager()
+    st = app.MainState(sm, app.InputManager(), config=cfg, device="cpu")
+    sm.add_state(st)
+    sm.update(0.016)  # the startup trace, tracing off
+    first = st.host_framebuffer
+    assert "app.readback" not in tracing.snapshot()["spans"]
+    with tracing.recording():
+        for _ in range(2):
+            sm.event_handler("r")
+            sm.update(0.016)
+    spans = tracing.snapshot()["spans"]
+    assert spans["app.readback"]["count"] == 2
+    assert spans["app.readback"]["self_s"] > 0
+    assert tracing.counter("app.readbacks") == 3
+    assert tracing.counter("app.readback_bytes") == 3 * H * W * 4 * 4
+    assert st.host_framebuffer is first and st.host_framebuffer.device.type == "cpu"
+    assert torch.equal(st.host_framebuffer, st.framebuffer)
